@@ -1,0 +1,101 @@
+// H1 packed_conv2x2: 2x2 VALID conv over a packed (space-to-depth) tensor,
+// [N, hp, wp, 4C] -> [N, hp-1, wp-1, 4O], + f32 bias, ReLU, bf16 store.
+// Options: the fused 2x2/2 max pool (slot-max, [N, hp-1, wp-1, O]) and the
+// fused binary mask head (u8 [N, hp-1, wp-1, 4]) with or without the store.
+//
+// Replaces the TPU kernels segmentation_tpu/nn/pallas/conv_flat.py
+// conv2x2_padflat (:275) and conv2x2_pf2 (:1162). Their padded-flat and
+// paired-column layouts exist for the TPU's (8, 128) tiles; this kernel
+// reads plain NHWC and computes the same function on the real window.
+//
+// Bound on the H100: at the 512^2 sites K = 4*4C = 512..1024 and 4O =
+// 128..256, about 128..256 MACs per input byte read once, so the product
+// is compute-bound on the tensor cores once the tiles are reused; this
+// first version (WMMA, register-prefetched 16-byte loads, one f32 stage in
+// shared memory) aims at correctness and keeps the pool and the head in
+// the epilogue so that neither the pre-pool activation nor the last
+// decoder activation need a second pass over device memory.
+#include "igemm.cuh"
+
+namespace segk {
+
+struct Conv2x2Loader {
+  const bf16* x;
+  int hp, wp, c4, ho, wo;
+  struct Row {
+    const bf16* p;
+    bool ok;
+  };
+  __device__ __forceinline__ Row row(long long m, bool ok) const {
+    Row r;
+    r.ok = ok;
+    r.p = x;
+    if (ok) {
+      const Pix q = decode(m, ho, wo);
+      r.p = x + ((q.n * hp + q.i) * (long long)wp + q.j) * c4;
+    }
+    return r;
+  }
+  __device__ __forceinline__ uint4 load(const Row& r, int k) const {
+    const int tap = k / c4;  // (u, v) = (tap >> 1, tap & 1)
+    const int c = k - tap * c4;
+    return *reinterpret_cast<const uint4*>(
+        r.p + ((long long)(tap >> 1) * wp + (tap & 1)) * c4 + c);
+  }
+};
+
+template <int BN>
+__global__ void __launch_bounds__(kThreads)
+    packed_conv2x2_kernel(Conv2x2Loader ld, const bf16* __restrict__ w,
+                          const float* __restrict__ bias,
+                          bf16* __restrict__ y, bf16* __restrict__ pool,
+                          const bf16* __restrict__ wd,
+                          const float* __restrict__ bd,
+                          uint8_t* __restrict__ mask, long long M) {
+  extern __shared__ __align__(128) unsigned char seg_smem[];
+  const long long m0 = (long long)blockIdx.x * TileCfg<BN>::BM;
+  const int K = 4 * ld.c4;
+  float* Cs = igemm_tile<BN>(ld, w, w, K, K, m0, M, seg_smem);
+  const bool keep = pool != nullptr || mask != nullptr;
+  epilogue_store<BN>(Cs, bias, y, keep, m0, M);
+  if (keep) {
+    __syncthreads();
+    if (pool != nullptr) epilogue_pool<BN>(Cs, pool, m0, M);
+    if (mask != nullptr) epilogue_head<BN>(Cs, wd, bd, mask, m0, M);
+  }
+}
+
+template <int BN>
+int run_conv2x2(const Conv2x2Loader& ld, const void* w, const void* bias,
+                void* y, void* pool, const void* wd, const void* bd,
+                void* mask, long long M, cudaStream_t stream) {
+  return launch<BN>(packed_conv2x2_kernel<BN>, M, stream, ld,
+                    (const bf16*)w, (const float*)bias, (bf16*)y,
+                    (bf16*)pool, (const bf16*)wd, (const float*)bd,
+                    (uint8_t*)mask, M);
+}
+
+}  // namespace segk
+
+// x [n, hp, wp, c4] bf16; w [4*c4, o4] bf16 (HWIO [2, 2, c4, o4]); bias [o4]
+// f32; y [n, hp-1, wp-1, o4] bf16 or null; pool [.., o4/4] bf16 or null;
+// wd [o4, 4] bf16, bd [4] f32 and mask [.., 4] u8, or all null.
+extern "C" int seg_packed_conv2x2(const void* x, const void* w,
+                                  const void* bias, void* y, void* pool,
+                                  const void* wd, const void* bd, void* mask,
+                                  int n, int hp, int wp, int c4, int o4,
+                                  void* stream) {
+  using namespace segk;
+  const Conv2x2Loader ld{(const bf16*)x, hp, wp, c4, hp - 1, wp - 1};
+  const long long M = (long long)n * (hp - 1) * (wp - 1);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (o4 == 128)
+    return run_conv2x2<128>(ld, w, bias, y, pool, wd, bd, mask, M, s);
+  if (o4 == 256)
+    return run_conv2x2<256>(ld, w, bias, y, pool, wd, bd, mask, M, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" const char* seg_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}

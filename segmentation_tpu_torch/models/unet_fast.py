@@ -1,0 +1,272 @@
+"""Space-to-depth U-Net serving forward (segmentation_tpu.models.unet_fast).
+
+The same network as models.unet.UNet, on the same params, with the two top
+levels (C = k, 2k) and their two decoder blocks in the packed layout
+[N, H/2, W/2, 4C] (slot-major, s = 2·dy + dx):
+
+  3×3 VALID conv, unpacked in → packed out   = 4×4/2 conv (H3)
+  3×3 VALID conv, packed → packed            = 2×2 conv over 4C → 4O (H1)
+  2×2/2 max pool                             = max over the 4 slots (H1)
+  2×2/2 transposed conv                      = per-pixel [C] → [4O] (H4)
+  crop + concat + 3×3 conv                   = concat-free dual conv (H2)
+  1×1 head + argmax, n_classes = 2           = sign of one dot (H1)
+
+Levels 3–5, upconv1/2 and the 1×1 head of ``apply`` stay plain PyTorch
+ops, as the JAX package leaves them to XLA. This is the JAX 4-D ``apply``
+topology; the padded-flat (PadFlat/PF2) layouts and their gates are TPU
+devices and are not ported. Each packed site calls one op of ``ops``:
+the hand kernels by default, their plain versions with ``PLAIN_OPS``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import numpy as np
+import torch
+
+from segmentation_tpu_torch.core.config import ModelConfig
+from segmentation_tpu_torch.nn.kernels.conv_flat import KERNEL_OPS, Ops
+from segmentation_tpu_torch.nn.layers import (
+    conv2d,
+    conv2d_transpose,
+    max_pool,
+)
+from segmentation_tpu_torch.nn.packing import (  # noqa: F401 (re-export)
+    pack2,
+    unpack2,
+    view5,
+)
+from segmentation_tpu_torch.nn.shapes import unet_output_hw
+
+
+def pack_conv3_weight(w: np.ndarray) -> np.ndarray:
+    """[3, 3, C, O] → [2, 2, 4C, 4O] packed-space kernel:
+    W2[u, v, (a,b,c), (d,e,o)] = W[2u+a-d, 2v+b-e, c, o] where both tap
+    indices land in [0, 3), else 0."""
+    w = np.asarray(w)
+    c, o = w.shape[2], w.shape[3]
+    w2 = np.zeros((2, 2, 4, c, 4, o), w.dtype)
+    for u in range(2):
+        for v in range(2):
+            for a in range(2):
+                for b in range(2):
+                    for d in range(2):
+                        for e in range(2):
+                            ky, kx = 2 * u + a - d, 2 * v + b - e
+                            if 0 <= ky < 3 and 0 <= kx < 3:
+                                w2[u, v, 2 * a + b, :, 2 * d + e, :] = (
+                                    w[ky, kx]
+                                )
+    return w2.reshape(2, 2, 4 * c, 4 * o)
+
+
+def pack_conv3_weight_s2(w: np.ndarray) -> np.ndarray:
+    """[3, 3, C, O] → [4, 4, C, 4O] stride-2 kernel:
+    K[u, v, c, (2d+e)·O + o] = W[u-d, v-e, c, o] where the tap is in
+    [0, 3), else 0."""
+    w = np.asarray(w)
+    c, o = w.shape[2], w.shape[3]
+    k4 = np.zeros((4, 4, c, 4, o), w.dtype)
+    for d in range(2):
+        for e in range(2):
+            k4[d : d + 3, e : e + 3, :, 2 * d + e, :] = w
+    return k4.reshape(4, 4, c, 4 * o)
+
+
+def tile_bias4(b: torch.Tensor) -> torch.Tensor:
+    """[O] → [4O] slot-major flat bias."""
+    return b.repeat(4)
+
+
+def head_diff(output_w: torch.Tensor, output_b: torch.Tensor):
+    """Block-diagonal per-slot difference head for n_classes = 2:
+    wd [4C, 4], bd [4] with mask = (y_flat @ wd + bd > 0), the argmax of
+    the 1×1 head on the packed decoder output (f32)."""
+    w = output_w[0, 0].float()  # [C, 2]
+    bv = output_b.float()
+    c = w.shape[0]
+    wd = torch.zeros((4 * c, 4), dtype=torch.float32, device=w.device)
+    for s in range(4):
+        wd[s * c : (s + 1) * c, s] = w[:, 1] - w[:, 0]
+    bd = torch.full((4,), float(bv[1] - bv[0]), dtype=torch.float32,
+                    device=w.device)
+    return wd, bd
+
+
+def _std_conv(p, name, h):
+    return conv2d(h, p[f"{name}/w"], p[f"{name}/b"])
+
+
+@dataclasses.dataclass
+class UNetS2DInference:
+    """Inference over standard UNet params in the packed layout. Needs an
+    even input H/W (512 qualifies)."""
+
+    cfg: ModelConfig
+    levels: int = 4
+    ops: Ops = KERNEL_OPS
+
+    @property
+    def packed_levels(self) -> int:
+        return min(2, self.levels)
+
+    # ---- weight preparation ---------------------------------------------
+    def _site_names(self):
+        """(entry convs, packed convs, dual convs, packed-level upconvs)."""
+        L, pl_ = self.levels, self.packed_levels
+        entry = [f"conv{lvl + 1}_1" for lvl in range(pl_)]
+        packed = [f"conv{lvl + 1}_2" for lvl in range(pl_)]
+        dual, ups = [], []
+        for i, lvl in enumerate(reversed(range(L))):
+            if lvl < pl_:
+                dual.append(f"conv{L + 2 + i}_1")
+                packed.append(f"conv{L + 2 + i}_2")
+                ups.append(f"upconv{i + 1}")
+        return entry, packed, dual, ups
+
+    def prepare(self, params: Dict[str, torch.Tensor],
+                dtype: torch.dtype = torch.float32,
+                device=None) -> Dict[str, torch.Tensor]:
+        """Pack the packed-site weights once (host-side numpy), cast every
+        weight to ``dtype`` and tile the packed sites' biases to [4O] f32
+        (the kernels' operand types)."""
+        if self.levels < 1:
+            raise ValueError("the s2d U-Net needs at least one level")
+
+        def f32(name):
+            v = params[name]
+            v = v.detach().cpu() if isinstance(v, torch.Tensor) else v
+            return np.asarray(v, np.float32)
+
+        def put(arr, dt):
+            return torch.as_tensor(arr).to(device=device, dtype=dt)
+
+        entry, packed, dual, ups = self._site_names()
+        out = {}
+        for name, v in params.items():  # std levels, head: plain weights
+            out[name] = put(f32(name), dtype)
+        for name in entry:
+            out[f"{name}/w4"] = put(pack_conv3_weight_s2(f32(f"{name}/w")),
+                                    dtype)
+        for name in packed + dual:
+            w = f32(f"{name}/w")
+            if name in dual:
+                ci = w.shape[2] // 2  # input = concat(skip C, up C)
+                out[f"{name}/w2a"] = put(pack_conv3_weight(w[:, :, :ci]),
+                                         dtype)
+                out[f"{name}/w2b"] = put(pack_conv3_weight(w[:, :, ci:]),
+                                         dtype)
+            else:
+                out[f"{name}/w2"] = put(pack_conv3_weight(w), dtype)
+        for name in ups:
+            w = f32(f"{name}/w")
+            c, o = w.shape[2], w.shape[3]
+            out[f"{name}/wm"] = put(
+                np.transpose(w, (2, 0, 1, 3)).reshape(c, 4 * o), dtype
+            )
+        for name in entry + packed + dual + ups:
+            out[f"{name}/b4"] = tile_bias4(put(f32(f"{name}/b"),
+                                               torch.float32))
+        if self.cfg.n_classes == 2:
+            wd, bd = head_diff(put(f32("output/w"), torch.float32),
+                               put(f32("output/b"), torch.float32))
+            out["head/wd"] = wd.to(torch.bfloat16)  # the kernel's operand
+            out["head/bd"] = bd
+        return out
+
+    # ---- forward ----------------------------------------------------------
+    def apply(self, p: Dict[str, torch.Tensor], x: torch.Tensor,
+              packed_out: bool = False, head: bool = False):
+        """x [N, H, W, C] → logits [N, h, w, n_classes]. ``packed_out``
+        returns the last decoder tensor still packed, [N, hp, wp, 4k];
+        ``head`` (n_classes = 2) returns only the fused u8 packed mask
+        [N, hp, wp, 4] of the last conv."""
+        k, L, pl_ = self.cfg.n_kernels, self.levels, self.packed_levels
+        ops = self.ops
+        if x.shape[1] % 2 or x.shape[2] % 2:
+            raise ValueError(
+                f"space-to-depth U-Net needs even H/W, got "
+                f"{x.shape[1]}x{x.shape[2]}; use models.unet.UNet"
+            )
+
+        # ---- encoder: packed levels ------------------------------------
+        skips, h = [], x
+        for lvl in range(pl_):
+            c1, c2 = f"conv{lvl + 1}_1", f"conv{lvl + 1}_2"
+            h4 = ops.strided_conv4x4s2(h, p[f"{c1}/w4"], p[f"{c1}/b4"])
+            h4, h = ops.packed_conv2x2(h4, p[f"{c2}/w2"], p[f"{c2}/b4"],
+                                       pool=True)
+            skips.append(h4)
+
+        # ---- encoder: standard levels + bottleneck ---------------------
+        for lvl in range(pl_, L):
+            h = _std_conv(p, f"conv{lvl + 1}_1", h)
+            h = _std_conv(p, f"conv{lvl + 1}_2", h)
+            skips.append(h)
+            h = max_pool(h, 2)
+        h = _std_conv(p, f"conv{L + 1}_1", h)
+        h = _std_conv(p, f"conv{L + 1}_2", h)
+
+        # ---- decoder -----------------------------------------------------
+        packed = False
+        for i, lvl in enumerate(reversed(range(L))):
+            up, c1, c2 = f"upconv{i + 1}", f"conv{L + 2 + i}_1", \
+                f"conv{L + 2 + i}_2"
+            skip = skips[lvl]
+            if lvl < pl_:
+                h4 = ops.rows_matmul(h.contiguous(), p[f"{up}/wm"],
+                                     p[f"{up}/b4"], scatter=packed)
+                # center-crop offset in UNPACKED units
+                off = (skip.shape[1] - h4.shape[1],
+                       skip.shape[2] - h4.shape[2])
+                h4 = ops.packed_conv2x2_dual(
+                    skip, h4, p[f"{c1}/w2a"], p[f"{c1}/w2b"], p[f"{c1}/b4"],
+                    offset=off,
+                )
+                if head and lvl == 0:
+                    return ops.packed_conv2x2(
+                        h4, p[f"{c2}/w2"], p[f"{c2}/b4"],
+                        head=(p["head/wd"], p["head/bd"]), head_only=True,
+                    )
+                h = ops.packed_conv2x2(h4, p[f"{c2}/w2"], p[f"{c2}/b4"])
+                packed = True
+            else:
+                h = conv2d_transpose(h, p[f"{up}/w"], p[f"{up}/b"], 2)
+                dh, dw = skip.shape[1] - h.shape[1], skip.shape[2] - h.shape[2]
+                sk = skip[:, dh // 2 : dh // 2 + h.shape[1],
+                          dw // 2 : dw // 2 + h.shape[2]]
+                # concat-free: conv(concat(sk, h), w) = conv(sk, w[:C]) +
+                # conv(h, w[C:])
+                w, ci = p[f"{c1}/w"], sk.shape[-1]
+                y = conv2d(sk, w[:, :, :ci], activation=None) \
+                    + conv2d(h, w[:, :, ci:], activation=None)
+                h = torch.relu(y + p[f"{c1}/b"].to(y.dtype))
+                h = _std_conv(p, c2, h)
+
+        if packed_out:
+            return h
+        # 1×1 head IN packed layout (it commutes with the unpack)
+        w1 = p["output/w"][0, 0].to(h.dtype)
+        logits = unpack2(view5(h, k) @ w1)
+        return logits + p["output/b"].to(logits.dtype)
+
+    def apply_argmax(self, p: Dict[str, torch.Tensor],
+                     x: torch.Tensor) -> torch.Tensor:
+        """Class map [N, h, w] u8, identical to argmax(apply(...), -1) up to
+        ties. For n_classes = 2 the head and argmax fold into the last
+        packed conv (H1 ``head_only``); only the u8 mask is unpacked."""
+        if self.cfg.n_classes == 2:
+            mask_p = self.apply(p, x, head=True)
+        else:
+            hp = view5(self.apply(p, x, packed_out=True), self.cfg.n_kernels)
+            w = p["output/w"][0, 0].to(hp.dtype)
+            logits_p = hp @ w + p["output/b"].to(hp.dtype)
+            mask_p = torch.argmax(logits_p, dim=-1).to(torch.uint8)
+        n, hp_, wp_, _ = mask_p.shape
+        m = mask_p.reshape(n, hp_, wp_, 2, 2).permute(0, 1, 3, 2, 4)
+        return m.reshape(n, 2 * hp_, 2 * wp_)
+
+    def output_hw(self, in_hw):
+        return unet_output_hw(in_hw, self.levels)

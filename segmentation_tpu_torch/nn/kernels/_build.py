@@ -1,0 +1,121 @@
+"""Build and bind the hand-written CUDA kernels (``csrc/`` of this package).
+
+At the first CUDA call, ``nvcc`` compiles every ``csrc/*.cu`` for
+``sm_90a`` into one shared library with a plain C interface, which is
+loaded with ``ctypes`` (no PyTorch headers: a build takes seconds, not
+minutes). The library lands in ``csrc/build/`` under a name keyed by a
+hash of the sources and flags, so an edited source never loads a stale
+build. Nothing is built or loaded at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Optional
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = CSRC / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C signatures of csrc/*.cu (every kernel entry returns its cudaError_t)
+_SIGNATURES = {
+    "seg_packed_conv2x2": [_P] * 8 + [_I] * 5 + [_P],
+    "seg_packed_conv2x2_dual": [_P] * 6 + [_I] * 9 + [_P],
+    "seg_strided_conv4x4s2": [_P] * 4 + [_I] * 5 + [_P],
+    "seg_rows_matmul": [_P] * 4 + [_I] * 6 + [_P],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+build_log = ""       # nvcc's output of the build this process ran, if any
+build_seconds = 0.0  # 0.0 when an existing build was loaded
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if not home:
+        from torch.utils.cpp_extension import CUDA_HOME
+
+        home = CUDA_HOME
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libsegkernels-{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless this exact build exists; return its path."""
+    global build_log, build_seconds
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
+    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
+    os.close(fd)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu],
+            capture_output=True, text=True,
+        )
+        build_log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{build_log}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    build_seconds = time.perf_counter() - t0
+    return out
+
+
+def loaded() -> bool:
+    return _lib is not None
+
+
+def library() -> ctypes.CDLL:
+    """The bound kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.seg_error_string.argtypes = [ctypes.c_int]
+        lib.seg_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if err != 0:
+        msg = library().seg_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

@@ -1,0 +1,274 @@
+"""The four packed-site kernels of the U-Net serving forward.
+
+Each op has a wrapper and a plain PyTorch version of the same function.
+The wrapper launches its CUDA kernel (``csrc/<name>.cu``) for a CUDA
+tensor, or raises; for a tensor on the CPU it runs the plain version.
+There is no fallback from a failed launch. Each launch adds one to
+``launches[<name>]``.
+
+  H1 packed_conv2x2      2×2 VALID conv, packed [N,hp,wp,4C] → [N,hp-1,wp-1,4O]
+                         (+ slot-max pool, + binary mask head)
+  H2 packed_conv2x2_dual conv(crop(skip), wa) + conv(up, wb), concat-free
+  H3 strided_conv4x4s2   4×4/2 conv, unpacked [N,H,W,C] → packed 4O
+  H4 rows_matmul         per-pixel [C] → [4O] (2×2/2 deconv), identity or
+                         slot-scatter store
+
+They replace the Pallas kernels of segmentation_tpu/nn/pallas/conv_flat.py
+(padded-flat and paired-column layouts, which exist for the TPU's tiles);
+every kernel here reads and writes plain NHWC. Every op ends in bias +
+ReLU (every packed site of the forward does). Kernel operands: bf16
+activations and weights, f32 bias; every tensor contiguous.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from segmentation_tpu_torch.nn.kernels import _build
+from segmentation_tpu_torch.nn.packing import pack2, unpack2
+
+NAMES = ("packed_conv2x2", "packed_conv2x2_dual", "strided_conv4x4s2",
+         "rows_matmul")
+launches = dict.fromkeys(NAMES, 0)
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+# ------------------------------------------------------------ plain versions
+def _conv_nhwc(x, w_hwio, stride):
+    y = F.conv2d(x.permute(0, 3, 1, 2), w_hwio.permute(3, 2, 0, 1).to(x.dtype),
+                 stride=stride)
+    return y.permute(0, 2, 3, 1)
+
+
+def _epilogue(acc, b4, dtype):
+    return torch.relu(acc.float() + b4.float()).to(dtype).contiguous()
+
+
+def _head_mask(y, head):
+    """The fused nc=2 head on the stored value, bf16 operands, f32 sum
+    (conv_flat.py conv2x2_padflat's mk_mask)."""
+    wd, bd = head
+    hd = (y.to(torch.bfloat16).float() @ wd.to(torch.bfloat16).float()
+          + bd.float())
+    return (hd > 0).to(torch.uint8)
+
+
+def packed_conv2x2_plain(x, w2, b4, *, pool=False, head=None,
+                         head_only=False):
+    if head_only and head is None:
+        raise ValueError("head_only needs head=(wd, bd)")
+    y = _epilogue(_conv_nhwc(x, w2, 1), b4, x.dtype)
+    outs = [] if head_only else [y]
+    if head is not None:
+        outs.append(_head_mask(y, head))
+    if pool:
+        n, h, w, o4 = y.shape
+        outs.append(y.reshape(n, h, w, 4, o4 // 4).amax(3))
+    return outs[0] if len(outs) == 1 else tuple(outs)
+
+
+def packed_conv2x2_dual_plain(skip, up, w2a, w2b, b4, *, offset):
+    n, hp, wp, c4 = up.shape
+    oh, ow = offset
+    sk = unpack2(skip.reshape(*skip.shape[:3], 4, c4 // 4))
+    sk = pack2(sk[:, oh : oh + 2 * hp, ow : ow + 2 * wp]).reshape(up.shape)
+    acc = _conv_nhwc(sk, w2a, 1).float() + _conv_nhwc(up, w2b, 1).float()
+    return _epilogue(acc, b4, up.dtype)
+
+
+def strided_conv4x4s2_plain(x, w4, b4):
+    return _epilogue(_conv_nhwc(x, w4, 2), b4, x.dtype)
+
+
+def rows_matmul_plain(x, wm, b4, *, scatter=False):
+    if scatter:
+        n, i, j, c4 = x.shape
+        x = unpack2(x.reshape(n, i, j, 4, c4 // 4))
+    return _epilogue(torch.matmul(x, wm.to(x.dtype)), b4, x.dtype)
+
+
+# ------------------------------------------------------------ kernel wrappers
+def _on_cpu(x: torch.Tensor) -> bool:
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    return False
+
+
+def _require(t, name, dtype, shape, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _o4_ok(o4, name):
+    if o4 not in (128, 256):
+        raise ValueError(f"{name}: 4O = {o4}; the kernel takes 128 or 256")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def packed_conv2x2(x, w2, b4, *, pool=False, head=None, head_only=False):
+    """H1: x [N,hp,wp,4C], w2 [2,2,4C,4O], b4 [4O] f32 → y [N,hp-1,wp-1,4O];
+    with ``pool`` also the slot-max [..,O]; with ``head=(wd [4O,4] bf16,
+    bd [4] f32)`` also the u8 mask [..,4]; ``head_only`` returns the mask
+    alone. Outputs in the order (y, mask, pooled)."""
+    if _on_cpu(x):
+        return packed_conv2x2_plain(x, w2, b4, pool=pool, head=head,
+                                    head_only=head_only)
+    if head_only and head is None:
+        raise ValueError("head_only needs head=(wd, bd)")
+    n, hp, wp, c4 = x.shape
+    o4 = w2.shape[-1]
+    dev = x.device
+    _o4_ok(o4, "packed_conv2x2")
+    if c4 % 8 or hp < 2 or wp < 2:
+        raise ValueError(f"packed_conv2x2: bad input shape {tuple(x.shape)}")
+    _require(x, "x", torch.bfloat16, x.shape, dev)
+    _require(w2, "w2", torch.bfloat16, (2, 2, c4, o4), dev)
+    _require(b4, "b4", torch.float32, (o4,), dev)
+    wd = bd = mask = pooled = y = None
+    shp = (n, hp - 1, wp - 1)
+    if head is not None:
+        wd, bd = head
+        _require(wd, "wd", torch.bfloat16, (o4, 4), dev)
+        _require(bd, "bd", torch.float32, (4,), dev)
+        mask = torch.empty(shp + (4,), dtype=torch.uint8, device=dev)
+    if not head_only:
+        y = torch.empty(shp + (o4,), dtype=torch.bfloat16, device=dev)
+    if pool:
+        pooled = torch.empty(shp + (o4 // 4,), dtype=torch.bfloat16,
+                             device=dev)
+    with torch.cuda.device(dev):
+        err = _build.library().seg_packed_conv2x2(
+            _ptr(x), _ptr(w2), _ptr(b4), _ptr(y), _ptr(pooled), _ptr(wd),
+            _ptr(bd), _ptr(mask), n, hp, wp, c4, o4, _stream(x),
+        )
+    _build.check(err, "packed_conv2x2")
+    launches["packed_conv2x2"] += 1
+    outs = [t for t in (y, mask, pooled) if t is not None]
+    return outs[0] if len(outs) == 1 else tuple(outs)
+
+
+def packed_conv2x2_dual(skip, up, w2a, w2b, b4, *, offset: Tuple[int, int]):
+    """H2: skip [N,hpa,wpa,4C], up [N,hp,wp,4C] → [N,hp-1,wp-1,4O] =
+    conv(crop(skip), w2a) + conv(up, w2b) + b4, the skip cropped at the
+    UNPACKED offset ``offset`` (even: a packed slice; odd: a slot phase)."""
+    if _on_cpu(up):
+        return packed_conv2x2_dual_plain(skip, up, w2a, w2b, b4,
+                                         offset=offset)
+    n, hp, wp, c4 = up.shape
+    _, hpa, wpa, _ = skip.shape
+    o4 = w2a.shape[-1]
+    oh, ow = (int(v) for v in offset)
+    dev = up.device
+    _o4_ok(o4, "packed_conv2x2_dual")
+    if c4 % 32 or hp < 2 or wp < 2:
+        raise ValueError(
+            f"packed_conv2x2_dual: bad input shape {tuple(up.shape)}")
+    if oh < 0 or ow < 0 or oh + 2 * hp > 2 * hpa or ow + 2 * wp > 2 * wpa:
+        raise ValueError(f"packed_conv2x2_dual: crop {offset} of "
+                         f"{tuple(skip.shape)} does not cover "
+                         f"{tuple(up.shape)}")
+    _require(up, "up", torch.bfloat16, up.shape, dev)
+    _require(skip, "skip", torch.bfloat16, (n, hpa, wpa, c4), dev)
+    _require(w2a, "w2a", torch.bfloat16, (2, 2, c4, o4), dev)
+    _require(w2b, "w2b", torch.bfloat16, (2, 2, c4, o4), dev)
+    _require(b4, "b4", torch.float32, (o4,), dev)
+    y = torch.empty((n, hp - 1, wp - 1, o4), dtype=torch.bfloat16, device=dev)
+    with torch.cuda.device(dev):
+        err = _build.library().seg_packed_conv2x2_dual(
+            _ptr(skip), _ptr(up), _ptr(w2a), _ptr(w2b), _ptr(b4), _ptr(y),
+            n, hpa, wpa, hp, wp, c4, o4, oh, ow, _stream(up),
+        )
+    _build.check(err, "packed_conv2x2_dual")
+    launches["packed_conv2x2_dual"] += 1
+    return y
+
+
+def strided_conv4x4s2(x, w4, b4):
+    """H3: x [N,H,W,C] unpacked, w4 [4,4,C,4O] → packed
+    [N,(H-2)//2,(W-2)//2,4O]. Takes any C (C=3 at the entry)."""
+    if _on_cpu(x):
+        return strided_conv4x4s2_plain(x, w4, b4)
+    n, h, w, c = x.shape
+    o4 = w4.shape[-1]
+    dev = x.device
+    _o4_ok(o4, "strided_conv4x4s2")
+    if h < 4 or w < 4:
+        raise ValueError(f"strided_conv4x4s2: input {tuple(x.shape)} < 4x4")
+    _require(x, "x", torch.bfloat16, x.shape, dev)
+    _require(w4, "w4", torch.bfloat16, (4, 4, c, o4), dev)
+    _require(b4, "b4", torch.float32, (o4,), dev)
+    y = torch.empty((n, (h - 2) // 2, (w - 2) // 2, o4), dtype=torch.bfloat16,
+                    device=dev)
+    with torch.cuda.device(dev):
+        err = _build.library().seg_strided_conv4x4s2(
+            _ptr(x), _ptr(w4), _ptr(b4), _ptr(y), n, h, w, c, o4, _stream(x),
+        )
+    _build.check(err, "strided_conv4x4s2")
+    launches["strided_conv4x4s2"] += 1
+    return y
+
+
+def rows_matmul(x, wm, b4, *, scatter=False):
+    """H4: per-pixel x @ wm [C, 4O] + b4. Identity: x [N,H,W,C] →
+    [N,H,W,4O]. Scatter: x packed [N,i,j,4C] → [N,2i,2j,4O], input slot
+    (a,b) of pixel (i,j) landing at output pixel (2i+a, 2j+b)."""
+    if _on_cpu(x):
+        return rows_matmul_plain(x, wm, b4, scatter=scatter)
+    n, hi, wi, cx = x.shape
+    c, o4 = wm.shape
+    dev = x.device
+    _o4_ok(o4, "rows_matmul")
+    ho, wo = (2 * hi, 2 * wi) if scatter else (hi, wi)
+    if cx != (4 * c if scatter else c) or c % 8:
+        raise ValueError(f"rows_matmul: x {tuple(x.shape)} vs wm "
+                         f"{tuple(wm.shape)} (scatter={scatter})")
+    _require(x, "x", torch.bfloat16, x.shape, dev)
+    _require(wm, "wm", torch.bfloat16, (c, o4), dev)
+    _require(b4, "b4", torch.float32, (o4,), dev)
+    y = torch.empty((n, ho, wo, o4), dtype=torch.bfloat16, device=dev)
+    with torch.cuda.device(dev):
+        err = _build.library().seg_rows_matmul(
+            _ptr(x), _ptr(wm), _ptr(b4), _ptr(y), n, ho, wo, c, o4,
+            int(scatter), _stream(x),
+        )
+    _build.check(err, "rows_matmul")
+    launches["rows_matmul"] += 1
+    return y
+
+
+class Ops(NamedTuple):
+    """The four packed-site ops a model runs through."""
+
+    packed_conv2x2: Callable
+    packed_conv2x2_dual: Callable
+    strided_conv4x4s2: Callable
+    rows_matmul: Callable
+
+
+KERNEL_OPS = Ops(packed_conv2x2, packed_conv2x2_dual, strided_conv4x4s2,
+                 rows_matmul)
+PLAIN_OPS = Ops(packed_conv2x2_plain, packed_conv2x2_dual_plain,
+                strided_conv4x4s2_plain, rows_matmul_plain)

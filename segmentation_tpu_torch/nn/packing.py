@@ -1,0 +1,33 @@
+"""The space-to-depth packed layout (segmentation_tpu.models.unet_fast
+pack2/unpack2): [N, H, W, C] ↔ [N, H/2, W/2, 4, C], slot s = 2·dy + dx.
+A packed tensor is stored flat as [N, H/2, W/2, 4C], slot-major."""
+
+from __future__ import annotations
+
+import torch
+
+
+def pack2(x: torch.Tensor) -> torch.Tensor:
+    """[N, H, W, C] → [N, H/2, W/2, 4, C]."""
+    n, h, w, c = x.shape
+    if h % 2 or w % 2:
+        raise ValueError(
+            f"space-to-depth packing needs even H/W, got {h}x{w}; use "
+            "models.unet.UNet for odd input sizes"
+        )
+    x = x.reshape(n, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(n, h // 2, w // 2, 4, c)
+
+
+def unpack2(xp: torch.Tensor) -> torch.Tensor:
+    """Inverse of pack2: [N, hp, wp, 4, C] → [N, 2hp, 2wp, C]."""
+    n, hp, wp, _, c = xp.shape
+    x = xp.reshape(n, hp, wp, 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(n, 2 * hp, 2 * wp, c)
+
+
+def view5(x4: torch.Tensor, c: int) -> torch.Tensor:
+    """[N, hp, wp, 4C] → [N, hp, wp, 4, C]."""
+    n, hp, wp, _ = x4.shape
+    return x4.reshape(n, hp, wp, 4, c)
+

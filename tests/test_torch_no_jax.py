@@ -1,0 +1,48 @@
+"""The port never imports jax, and a CPU tensor never reaches a kernel.
+
+Run in a fresh interpreter: this test process already has jax loaded.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_PROBE = textwrap.dedent("""
+    import sys
+    import torch
+    import segmentation_tpu_torch
+    import segmentation_tpu_torch.serving
+    from segmentation_tpu_torch.nn.kernels import _build
+    from segmentation_tpu_torch.nn.kernels import conv_flat as cf
+    from segmentation_tpu_torch.models.unet_fast import UNetS2DInference
+    from segmentation_tpu_torch.core.config import ModelConfig
+    from segmentation_tpu_torch.models.unet import init_params
+    from segmentation_tpu_torch.core.rng import generator
+    assert "jax" not in sys.modules, sorted(
+        m for m in sys.modules if m.startswith("jax"))
+    assert "segmentation_tpu" not in sys.modules
+
+    cfg = ModelConfig(n_classes=2, input_dims=(188, 188), n_kernels=4)
+    model = UNetS2DInference(cfg)
+    prepared = model.prepare(init_params(cfg, generator(0)))
+    mask = model.apply_argmax(prepared, torch.rand(1, 188, 188, 3))
+    assert tuple(mask.shape) == (1, 4, 4), mask.shape
+    assert all(v == 0 for v in cf.launches.values()), cf.launches
+    assert not _build.loaded()
+    assert not _build.BUILD_DIR.exists() or not any(
+        _build.BUILD_DIR.glob("*.so.tmp"))
+    assert "jax" not in sys.modules
+    print("ok")
+""")
+
+
+def test_port_imports_no_jax_and_cpu_builds_nothing():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
