@@ -5,15 +5,20 @@
 // where m walks the output pixels of an NHWC tensor, o the 4O packed output
 // channels, and A is never materialised: a Loader maps (pixel, k) to an
 // address in the input activation (the conv taps, the skip crop, the slot
-// scatter). The four kernels differ only in their Loader and epilogue.
+// scatter). The kernels differ only in their Loader and epilogue.
+//
+// Two element types share the core: bf16 x bf16 -> f32 (the bf16 serving
+// path) and s8 x s8 -> s32 (the calibrated int8 path). K advances in
+// 64-byte chunks (32 bf16 or 64 s8 values); a Loader returns 16 bytes of
+// one pixel's row of A (8 bf16 or 16 s8), so the loaders' address rules do
+// not depend on the element width.
 //
 // Design, first version: one 256-thread block computes BM pixels x all BN
 // (= 4O, 128 or 256) output channels, so the slot-max pool and the mask
-// head see whole pixels inside the block. K advances in BK = 32 chunks;
-// each thread prefetches its next A/B chunk into registers (16-byte loads)
-// while the warps run bf16 WMMA 16x16x16 products with f32 accumulation
-// on the current chunk in shared memory. The f32 tile is then staged in
-// shared memory for the epilogue. No wgmma/TMA yet.
+// head see whole pixels inside the block. Each thread prefetches its next
+// A/B chunk into registers (16-byte loads) while the warps run WMMA
+// 16x16x16 products on the current chunk in shared memory. The accumulator
+// tile is then staged in shared memory for the epilogue. No wgmma/TMA yet.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -24,34 +29,73 @@
 namespace segk {
 
 using bf16 = __nv_bfloat16;
+using s8 = signed char;
 namespace wmma = nvcuda::wmma;
 
 constexpr int kThreads = 256;
-constexpr int kBK = 32;
-constexpr int kAPad = 8;  // bf16 elements of row padding (bank spread)
-constexpr int kBPad = 8;
-constexpr int kCPad = 4;  // f32 elements
+constexpr int kChunkBytes = 64;
 
-template <int BN>
+template <class T>
+struct Elem;
+template <>
+struct Elem<bf16> {
+  using Acc = float;
+};
+template <>
+struct Elem<s8> {
+  using Acc = int;
+};
+
+template <int BN, class T = bf16>
 struct TileCfg {
   static_assert(BN == 128 || BN == 256, "BN (= 4O) must be 128 or 256");
+  using Acc = typename Elem<T>::Acc;
+  static constexpr bool S8 = sizeof(T) == 1;
+  static constexpr int VEC = 16 / (int)sizeof(T);  // elements per 16 bytes
+  static constexpr int BK = kChunkBytes / (int)sizeof(T);
   static constexpr int BM = BN == 128 ? 128 : 64;
   static constexpr int WARPS_N = BN / 64;
   static constexpr int WARPS_M = 8 / WARPS_N;
   static constexpr int WARP_M = BM / WARPS_M;  // 32
   static constexpr int FM = WARP_M / 16;       // 2
   static constexpr int FN = 64 / 16;           // 4
-  static constexpr int LDA = kBK + kAPad;
-  static constexpr int LDB = BN + kBPad;
-  static constexpr int LDC = BN + kCPad;
-  static constexpr int A_VECS = BM * kBK / 8 / kThreads;
-  static constexpr int B_VECS = kBK * BN / 8 / kThreads;
-  static constexpr int A_BYTES = BM * LDA * 2;
-  static constexpr int B_BYTES = kBK * LDB * 2;
+  // bf16: row-major A [BM][BK+8] and B [BK][BN+8] (padding spreads banks).
+  // s8: 16-byte column blocks, A [BK/16][BM][16] and B [BN/16][BK][16], so
+  // every WMMA fragment pointer is 32-byte aligned as load_matrix_sync
+  // requires (a 16-wide s8 k step is only 16 bytes).
+  static constexpr int LDA = S8 ? 16 : BK + 8;
+  static constexpr int LDB = S8 ? 16 : BN + 8;
+  static constexpr int LDC = BN + 4;  // 4-byte accumulator elements
+  static constexpr int A_VECS = BM * BK / VEC / kThreads;
+  static constexpr int B_VECS = BK * BN / VEC / kThreads;
+  static constexpr int A_BYTES = S8 ? BM * BK : BM * LDA * 2;
+  static constexpr int B_BYTES = S8 ? BK * BN : BK * LDB * 2;
   static constexpr int C_BYTES = BM * LDC * 4;
   static constexpr int SMEM =
       (A_BYTES + B_BYTES) > C_BYTES ? (A_BYTES + B_BYTES) : C_BYTES;
+
+  __device__ static __forceinline__ int a_off(int r, int k) {
+    return S8 ? (k >> 4) * (BM * 16) + r * 16 + (k & 15) : r * LDA + k;
+  }
+  __device__ static __forceinline__ int b_off(int k, int n) {
+    return S8 ? (n >> 4) * (BK * 16) + k * 16 + (n & 15) : k * LDB + n;
+  }
+  // Row k and first column n of the v-th 16-byte vector of a B chunk. For
+  // s8 a warp fills one column block, so its shared stores do not collide.
+  __device__ static __forceinline__ void b_vec(int v, int& k, int& n) {
+    if (S8) {
+      k = v % BK;
+      n = (v / BK) * 16;
+    } else {
+      k = v / (BN / VEC);
+      n = (v % (BN / VEC)) * VEC;
+    }
+  }
 };
+
+template <int BN, class T>
+using AccFrag = wmma::fragment<wmma::accumulator, 16, 16, 16,
+                               typename Elem<T>::Acc>;
 
 __device__ __forceinline__ uint4 zero4() { return make_uint4(0u, 0u, 0u, 0u); }
 
@@ -80,110 +124,145 @@ __device__ __forceinline__ Pix decode(long long m, int ho, int wo) {
   return p;
 }
 
-// C[m0:m0+BM, 0:BN] = A @ W into shared memory (f32, row stride LDC).
-// Rows k < ka of W come from wa, rows k >= ka from wb (k - ka). Loader:
+template <int BN, class T>
+__device__ __forceinline__ void zero_acc(
+    AccFrag<BN, T> (&acc)[TileCfg<BN, T>::FM][TileCfg<BN, T>::FN]) {
+  using C = TileCfg<BN, T>;
+#pragma unroll
+  for (int a = 0; a < C::FM; ++a)
+#pragma unroll
+    for (int b = 0; b < C::FN; ++b)
+      wmma::fill_fragment(acc[a][b], (typename C::Acc)0);
+}
+
+// acc += A[m0:m0+BM, kbeg:kend] @ W, where w points at W's row kbeg
+// ([kend - kbeg, BN], row-major). Loader:
 //   Row row(long long m, bool ok) const;  // per-pixel context
-//   uint4 load(const Row&, int k) const;   // A[m, k..k+7], k % 8 == 0
-// load() is only called for ok rows and k < K.
-template <int BN, class Loader>
-__device__ __forceinline__ float* igemm_tile(
-    const Loader& ld, const bf16* __restrict__ wa,
-    const bf16* __restrict__ wb, int ka, int K, long long m0, long long M,
-    unsigned char* smem) {
-  using T = TileCfg<BN>;
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = reinterpret_cast<bf16*>(smem + T::A_BYTES);
+//   uint4 load(const Row&, int k) const;   // A[m, k..k+VEC-1], k % VEC == 0
+// load() is only called for ok rows and k < kend (k is absolute, so one
+// Loader can serve several K ranges). smem holds the A/B chunk buffers.
+template <int BN, class T, class Loader>
+__device__ __forceinline__ void igemm_accumulate(
+    const Loader& ld, const T* __restrict__ w, int kbeg, int kend,
+    long long m0, long long M, unsigned char* smem,
+    AccFrag<BN, T> (&acc)[TileCfg<BN, T>::FM][TileCfg<BN, T>::FN]) {
+  using C = TileCfg<BN, T>;
+  T* As = reinterpret_cast<T*>(smem);
+  T* Bs = reinterpret_cast<T*>(smem + C::A_BYTES);
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
-  const int wm = warp / T::WARPS_N;
-  const int wn = warp % T::WARPS_N;
+  const int wm = warp / C::WARPS_N;
+  const int wn = warp % C::WARPS_N;
 
-  typename Loader::Row rows[T::A_VECS];
-  int arow[T::A_VECS];
-  const int akq = (tid & 3) * 8;
+  typename Loader::Row rows[C::A_VECS];
+  int arow[C::A_VECS];
+  const int akq = (tid & 3) * C::VEC;
 #pragma unroll
-  for (int i = 0; i < T::A_VECS; ++i) {
+  for (int i = 0; i < C::A_VECS; ++i) {
     arow[i] = (tid + i * kThreads) >> 2;
     const long long m = m0 + arow[i];
     rows[i] = ld.row(m, m < M);
   }
 
-  uint4 ra[T::A_VECS];
-  uint4 rb[T::B_VECS];
+  uint4 ra[C::A_VECS];
+  uint4 rb[C::B_VECS];
   auto fetch = [&](int k0) {
 #pragma unroll
-    for (int i = 0; i < T::A_VECS; ++i) {
+    for (int i = 0; i < C::A_VECS; ++i) {
       const int k = k0 + akq;
-      ra[i] = (rows[i].ok && k < K) ? ld.load(rows[i], k) : zero4();
+      ra[i] = (rows[i].ok && k < kend) ? ld.load(rows[i], k) : zero4();
     }
 #pragma unroll
-    for (int i = 0; i < T::B_VECS; ++i) {
-      const int v = tid + i * kThreads;
-      const int k = k0 + v / (BN / 8);
-      const int col = (v % (BN / 8)) * 8;
-      if (k < K) {
-        const bf16* src = k < ka ? wa + (long long)k * BN
-                                 : wb + (long long)(k - ka) * BN;
-        rb[i] = *reinterpret_cast<const uint4*>(src + col);
-      } else {
-        rb[i] = zero4();
-      }
+    for (int i = 0; i < C::B_VECS; ++i) {
+      int kr, n;
+      C::b_vec(tid + i * kThreads, kr, n);
+      const int k = k0 + kr;
+      rb[i] = k < kend ? *reinterpret_cast<const uint4*>(
+                             w + (long long)(k - kbeg) * BN + n)
+                       : zero4();
     }
   };
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[T::FM][T::FN];
-#pragma unroll
-  for (int a = 0; a < T::FM; ++a)
-#pragma unroll
-    for (int b = 0; b < T::FN; ++b) wmma::fill_fragment(acc[a][b], 0.0f);
-
-  fetch(0);
-  for (int k0 = 0; k0 < K; k0 += kBK) {
+  fetch(kbeg);
+  for (int k0 = kbeg; k0 < kend; k0 += C::BK) {
     __syncthreads();  // the previous chunk's products are done
 #pragma unroll
-    for (int i = 0; i < T::A_VECS; ++i)
-      *reinterpret_cast<uint4*>(As + arow[i] * T::LDA + akq) = ra[i];
+    for (int i = 0; i < C::A_VECS; ++i)
+      *reinterpret_cast<uint4*>(As + C::a_off(arow[i], akq)) = ra[i];
 #pragma unroll
-    for (int i = 0; i < T::B_VECS; ++i) {
-      const int v = tid + i * kThreads;
-      *reinterpret_cast<uint4*>(Bs + (v / (BN / 8)) * T::LDB +
-                                (v % (BN / 8)) * 8) = rb[i];
+    for (int i = 0; i < C::B_VECS; ++i) {
+      int kr, n;
+      C::b_vec(tid + i * kThreads, kr, n);
+      *reinterpret_cast<uint4*>(Bs + C::b_off(kr, n)) = rb[i];
     }
     __syncthreads();
-    if (k0 + kBK < K) fetch(k0 + kBK);  // in flight during the products
+    if (k0 + C::BK < kend) fetch(k0 + C::BK);  // in flight during products
 #pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-          fa[T::FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-          fb[T::FN];
+    for (int kk = 0; kk < C::BK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major>
+          fa[C::FM];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major>
+          fb[C::FN];
 #pragma unroll
-      for (int a = 0; a < T::FM; ++a)
-        wmma::load_matrix_sync(
-            fa[a], As + (wm * T::WARP_M + a * 16) * T::LDA + kk, T::LDA);
+      for (int a = 0; a < C::FM; ++a)
+        wmma::load_matrix_sync(fa[a],
+                               As + C::a_off(wm * C::WARP_M + a * 16, kk),
+                               C::LDA);
 #pragma unroll
-      for (int b = 0; b < T::FN; ++b)
-        wmma::load_matrix_sync(fb[b], Bs + kk * T::LDB + wn * 64 + b * 16,
-                               T::LDB);
+      for (int b = 0; b < C::FN; ++b)
+        wmma::load_matrix_sync(fb[b], Bs + C::b_off(kk, wn * 64 + b * 16),
+                               C::LDB);
 #pragma unroll
-      for (int a = 0; a < T::FM; ++a)
+      for (int a = 0; a < C::FM; ++a)
 #pragma unroll
-        for (int b = 0; b < T::FN; ++b)
+        for (int b = 0; b < C::FN; ++b)
           wmma::mma_sync(acc[a][b], fa[a], fb[b], acc[a][b]);
     }
   }
-  __syncthreads();  // the A/B buffers become the C stage
-  float* Cs = reinterpret_cast<float*>(smem);
+}
+
+// Stage the accumulator tile in shared memory ([BM][LDC], over the chunk
+// buffers) and return it.
+template <int BN, class T>
+__device__ __forceinline__ typename Elem<T>::Acc* stage_acc(
+    AccFrag<BN, T> (&acc)[TileCfg<BN, T>::FM][TileCfg<BN, T>::FN],
+    unsigned char* smem) {
+  using C = TileCfg<BN, T>;
+  const int warp = threadIdx.x >> 5;
+  const int wm = warp / C::WARPS_N;
+  const int wn = warp % C::WARPS_N;
+  __syncthreads();  // the chunk buffers become the stage
+  typename C::Acc* Cs = reinterpret_cast<typename C::Acc*>(smem);
 #pragma unroll
-  for (int a = 0; a < T::FM; ++a)
+  for (int a = 0; a < C::FM; ++a)
 #pragma unroll
-    for (int b = 0; b < T::FN; ++b)
+    for (int b = 0; b < C::FN; ++b)
       wmma::store_matrix_sync(
-          Cs + (wm * T::WARP_M + a * 16) * T::LDC + wn * 64 + b * 16,
-          acc[a][b], T::LDC, wmma::mem_row_major);
+          Cs + (wm * C::WARP_M + a * 16) * C::LDC + wn * 64 + b * 16,
+          acc[a][b], C::LDC, wmma::mem_row_major);
   __syncthreads();
   return Cs;
 }
+
+// C[m0:m0+BM, 0:BN] = A[:, 0:K] @ W, staged in shared memory.
+template <int BN, class T, class Loader>
+__device__ __forceinline__ typename Elem<T>::Acc* igemm_tile(
+    const Loader& ld, const T* __restrict__ w, int K, long long m0,
+    long long M, unsigned char* smem) {
+  AccFrag<BN, T> acc[TileCfg<BN, T>::FM][TileCfg<BN, T>::FN];
+  zero_acc<BN, T>(acc);
+  igemm_accumulate<BN, T>(ld, w, 0, K, m0, M, smem, acc);
+  return stage_acc<BN, T>(acc, smem);
+}
+
+// Output rows of a tile: pixel index of stage row r, or -1 past the end.
+struct Linear {
+  long long m0, M;
+  __device__ __forceinline__ long long operator()(int r) const {
+    const long long m = m0 + r;
+    return m < M ? m : -1;
+  }
+};
 
 // y = bf16(relu(C + bias)). Stores whole pixels to out [M, BN] when out is
 // set; with keep, writes the rounded value back into the stage for the
@@ -192,13 +271,13 @@ template <int BN>
 __device__ __forceinline__ void epilogue_store(
     float* Cs, const float* __restrict__ bias, bf16* __restrict__ out,
     bool keep, long long m0, long long M) {
-  using T = TileCfg<BN>;
-  for (int idx = threadIdx.x; idx < T::BM * (BN / 8); idx += kThreads) {
+  using C = TileCfg<BN>;
+  for (int idx = threadIdx.x; idx < C::BM * (BN / 8); idx += kThreads) {
     const int r = idx / (BN / 8);
     const int c = (idx % (BN / 8)) * 8;
     const long long m = m0 + r;
     if (m >= M) continue;
-    float* crow = Cs + r * T::LDC + c;
+    float* crow = Cs + r * C::LDC + c;
     float v[8];
 #pragma unroll
     for (int t = 0; t < 8; ++t) {
@@ -216,64 +295,136 @@ __device__ __forceinline__ void epilogue_store(
   }
 }
 
-// 2x2/2 max pool in packed space: the max over the 4 slots of each channel.
-template <int BN>
+// Eight finished values (already rounded to the element type) to memory.
+__device__ __forceinline__ void store8(bf16* p, const float v[8]) {
+  uint4 u;
+  u.x = pack2bf(v[0], v[1]);
+  u.y = pack2bf(v[2], v[3]);
+  u.z = pack2bf(v[4], v[5]);
+  u.w = pack2bf(v[6], v[7]);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+
+__device__ __forceinline__ unsigned pack4s8(const float* v) {
+  return ((unsigned)(int)v[0] & 0xffu) | (((unsigned)(int)v[1] & 0xffu) << 8) |
+         (((unsigned)(int)v[2] & 0xffu) << 16) |
+         (((unsigned)(int)v[3] & 0xffu) << 24);
+}
+
+__device__ __forceinline__ void store8(s8* p, const float v[8]) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack4s8(v), pack4s8(v + 4));
+}
+
+// The int8 path's epilogue, in f32 and in the reference's order of
+// roundings: v = relu(acc * mul[o] + add[o]). mul/add fold the dequant and
+// requant scales (chan_scale, 1/out_scale) into two vectors. A requantizing
+// site (Out = s8) rounds half to even and clips to +-127; a float site
+// (Out = bf16) rounds to bf16.
+__device__ __forceinline__ float affine_relu(float acc, float mul, float add) {
+  return fmaxf(__fadd_rn(__fmul_rn(acc, mul), add), 0.0f);
+}
+
+__device__ __forceinline__ float finish(float v, s8*) {
+  return fminf(fmaxf(rintf(v), -127.0f), 127.0f);
+}
+
+__device__ __forceinline__ float finish(float v, bf16*) { return bf_round(v); }
+
+// Apply the affine epilogue to the stage (int or float accumulators) and
+// store whole pixels to out [pixels, BN] when out is set; with keep, write
+// the finished value back into the stage as f32 for the pool / head passes.
+template <int BN, class Out, class AccT, class Rows>
+__device__ __forceinline__ void epilogue_affine(
+    AccT* Cs, const float* __restrict__ mul, const float* __restrict__ add,
+    Out* __restrict__ out, bool keep, const Rows& rows) {
+  constexpr int LDC = BN + 4;
+  for (int idx = threadIdx.x; idx < TileCfg<BN>::BM * (BN / 8);
+       idx += kThreads) {
+    const int r = idx / (BN / 8);
+    const int c = (idx % (BN / 8)) * 8;
+    const long long m = rows(r);
+    if (m < 0) continue;
+    AccT* crow = Cs + r * LDC + c;
+    float v[8];
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+      v[t] = finish(affine_relu((float)crow[t], mul[c + t], add[c + t]),
+                    (Out*)nullptr);
+    if (keep) {
+      float* frow = reinterpret_cast<float*>(crow);
+#pragma unroll
+      for (int t = 0; t < 8; ++t) frow[t] = v[t];
+    }
+    if (out != nullptr) store8(out + m * BN + c, v);
+  }
+}
+
+// 2x2/2 max pool in packed space: the max over the 4 slots of each channel
+// of the finished values (the finish is monotone, so this equals finishing
+// the pooled pre-cast value, as the TPU kernel does).
+template <int BN, class Out, class Rows>
 __device__ __forceinline__ void epilogue_pool(const float* Cs,
-                                              bf16* __restrict__ pool,
-                                              long long m0, long long M) {
-  using T = TileCfg<BN>;
+                                              Out* __restrict__ pool,
+                                              const Rows& rows) {
+  constexpr int LDC = BN + 4;
   constexpr int O = BN / 4;
-  for (int idx = threadIdx.x; idx < T::BM * (O / 8); idx += kThreads) {
+  for (int idx = threadIdx.x; idx < TileCfg<BN>::BM * (O / 8);
+       idx += kThreads) {
     const int r = idx / (O / 8);
     const int c = (idx % (O / 8)) * 8;
-    const long long m = m0 + r;
-    if (m >= M) continue;
-    const float* crow = Cs + r * T::LDC + c;
+    const long long m = rows(r);
+    if (m < 0) continue;
+    const float* crow = Cs + r * LDC + c;
     float v[8];
 #pragma unroll
     for (int t = 0; t < 8; ++t)
       v[t] = fmaxf(fmaxf(crow[t], crow[O + t]),
                    fmaxf(crow[2 * O + t], crow[3 * O + t]));
-    uint4 u;
-    u.x = pack2bf(v[0], v[1]);
-    u.y = pack2bf(v[2], v[3]);
-    u.z = pack2bf(v[4], v[5]);
-    u.w = pack2bf(v[6], v[7]);
-    *reinterpret_cast<uint4*>(pool + m * O + c) = u;
+    store8(pool + m * O + c, v);
   }
 }
 
 // Binary mask head: mask[m, t] = (sum_o y[m, o] * wd[o, t] + bd[t] > 0).
-template <int BN>
+template <int BN, class Rows>
 __device__ __forceinline__ void epilogue_head(const float* Cs,
                                               const bf16* __restrict__ wd,
                                               const float* __restrict__ bd,
                                               uint8_t* __restrict__ mask,
-                                              long long m0, long long M) {
-  using T = TileCfg<BN>;
-  for (int idx = threadIdx.x; idx < T::BM * 4; idx += kThreads) {
+                                              const Rows& rows) {
+  constexpr int LDC = BN + 4;
+  for (int idx = threadIdx.x; idx < TileCfg<BN>::BM * 4; idx += kThreads) {
     const int r = idx >> 2;
     const int t = idx & 3;
-    const long long m = m0 + r;
-    if (m >= M) continue;
-    const float* crow = Cs + r * T::LDC;
+    const long long m = rows(r);
+    if (m < 0) continue;
+    const float* crow = Cs + r * LDC;
     float s = 0.0f;
-    for (int o = 0; o < BN; ++o) s += crow[o] * __bfloat162float(wd[o * 4 + t]);
+    for (int o = 0; o < BN; ++o)
+      s += crow[o] * __bfloat162float(wd[o * 4 + t]);
     mask[m * 4 + t] = (s + bd[t] > 0.0f) ? 1 : 0;
   }
 }
 
 // Set the dynamic shared-memory limit and launch; returns the CUDA error.
-template <int BN, class Kernel, class... Args>
-int launch(Kernel kernel, long long M, cudaStream_t stream, Args... args) {
-  using T = TileCfg<BN>;
-  if (M <= 0) return (int)cudaErrorInvalidValue;
+template <class Kernel, class... Args>
+int launch_grid(Kernel kernel, dim3 grid, int smem, cudaStream_t stream,
+                Args... args) {
   cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  const unsigned grid = (unsigned)((M + T::BM - 1) / T::BM);
-  kernel<<<grid, kThreads, T::SMEM, stream>>>(args...);
+  kernel<<<grid, kThreads, smem, stream>>>(args...);
   return (int)cudaGetLastError();
+}
+
+// One block per BM output pixels, with the core's shared memory plus
+// extra bytes.
+template <int BN, class T = bf16, class Kernel, class... Args>
+int launch(Kernel kernel, long long M, cudaStream_t stream, int extra,
+           Args... args) {
+  using C = TileCfg<BN, T>;
+  if (M <= 0) return (int)cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)((M + C::BM - 1) / C::BM);
+  return launch_grid(kernel, dim3(grid), C::SMEM + extra, stream, args...);
 }
 
 }  // namespace segk

@@ -1,17 +1,22 @@
 // H1 packed_conv2x2: 2x2 VALID conv over a packed (space-to-depth) tensor,
-// [N, hp, wp, 4C] -> [N, hp-1, wp-1, 4O], + f32 bias, ReLU, bf16 store.
-// Options: the fused 2x2/2 max pool (slot-max, [N, hp-1, wp-1, O]) and the
-// fused binary mask head (u8 [N, hp-1, wp-1, 4]) with or without the store.
+// [N, hp, wp, 4C] -> [N, hp-1, wp-1, 4O].
+//   bf16: bf16 x and w, + f32 bias, ReLU, bf16 store;
+//   s8:   s8 x and w (s32 accumulation), the int8 epilogue
+//         relu(acc * mul + add), stored requantized to s8 or as bf16.
+// Options: the fused 2x2/2 max pool (slot-max, [N, hp-1, wp-1, O], in the
+// output's type) and the fused binary mask head (u8 [N, hp-1, wp-1, 4],
+// on the stored bf16 value) with or without the store.
 //
 // Replaces the TPU kernels segmentation_tpu/nn/pallas/conv_flat.py
-// conv2x2_padflat (:275) and conv2x2_pf2 (:1162). Their padded-flat and
-// paired-column layouts exist for the TPU's (8, 128) tiles; this kernel
-// reads plain NHWC and computes the same function on the real window.
+// conv2x2_padflat (:275) and conv2x2_pf2 (:1162), float and int8-resident
+// modes. Their padded-flat and paired-column layouts exist for the TPU's
+// (8, 128) tiles; this kernel reads plain NHWC and computes the same
+// function on the real window.
 //
 // Bound on the H100: at the 512^2 sites K = 4*4C = 512..1024 and 4O =
 // 128..256, about 128..256 MACs per input byte read once, so the product
 // is compute-bound on the tensor cores once the tiles are reused; this
-// first version (WMMA, register-prefetched 16-byte loads, one f32 stage in
+// first version (WMMA, register-prefetched 16-byte loads, one stage in
 // shared memory) aims at correctness and keeps the pool and the head in
 // the epilogue so that neither the pre-pool activation nor the last
 // decoder activation need a second pass over device memory.
@@ -19,11 +24,12 @@
 
 namespace segk {
 
+template <class T>
 struct Conv2x2Loader {
-  const bf16* x;
+  const T* x;
   int hp, wp, c4, ho, wo;
   struct Row {
-    const bf16* p;
+    const T* p;
     bool ok;
   };
   __device__ __forceinline__ Row row(long long m, bool ok) const {
@@ -46,7 +52,7 @@ struct Conv2x2Loader {
 
 template <int BN>
 __global__ void __launch_bounds__(kThreads)
-    packed_conv2x2_kernel(Conv2x2Loader ld, const bf16* __restrict__ w,
+    packed_conv2x2_kernel(Conv2x2Loader<bf16> ld, const bf16* __restrict__ w,
                           const float* __restrict__ bias,
                           bf16* __restrict__ y, bf16* __restrict__ pool,
                           const bf16* __restrict__ wd,
@@ -54,25 +60,61 @@ __global__ void __launch_bounds__(kThreads)
                           uint8_t* __restrict__ mask, long long M) {
   extern __shared__ __align__(128) unsigned char seg_smem[];
   const long long m0 = (long long)blockIdx.x * TileCfg<BN>::BM;
-  const int K = 4 * ld.c4;
-  float* Cs = igemm_tile<BN>(ld, w, w, K, K, m0, M, seg_smem);
+  float* Cs = igemm_tile<BN, bf16>(ld, w, 4 * ld.c4, m0, M, seg_smem);
   const bool keep = pool != nullptr || mask != nullptr;
   epilogue_store<BN>(Cs, bias, y, keep, m0, M);
   if (keep) {
     __syncthreads();
-    if (pool != nullptr) epilogue_pool<BN>(Cs, pool, m0, M);
-    if (mask != nullptr) epilogue_head<BN>(Cs, wd, bd, mask, m0, M);
+    const Linear rows{m0, M};
+    if (pool != nullptr) epilogue_pool<BN>(Cs, pool, rows);
+    if (mask != nullptr) epilogue_head<BN>(Cs, wd, bd, mask, rows);
   }
 }
 
 template <int BN>
-int run_conv2x2(const Conv2x2Loader& ld, const void* w, const void* bias,
-                void* y, void* pool, const void* wd, const void* bd,
-                void* mask, long long M, cudaStream_t stream) {
-  return launch<BN>(packed_conv2x2_kernel<BN>, M, stream, ld,
+int run_conv2x2(const Conv2x2Loader<bf16>& ld, const void* w,
+                const void* bias, void* y, void* pool, const void* wd,
+                const void* bd, void* mask, long long M,
+                cudaStream_t stream) {
+  return launch<BN>(packed_conv2x2_kernel<BN>, M, stream, 0, ld,
                     (const bf16*)w, (const float*)bias, (bf16*)y,
                     (bf16*)pool, (const bf16*)wd, (const float*)bd,
                     (uint8_t*)mask, M);
+}
+
+// Out = s8: requantizing site; Out = bf16: float site (the mask head's).
+template <int BN, class Out>
+__global__ void __launch_bounds__(kThreads)
+    packed_conv2x2_s8_kernel(Conv2x2Loader<s8> ld, const s8* __restrict__ w,
+                             const float* __restrict__ mul,
+                             const float* __restrict__ add,
+                             Out* __restrict__ y, Out* __restrict__ pool,
+                             const bf16* __restrict__ wd,
+                             const float* __restrict__ bd,
+                             uint8_t* __restrict__ mask, long long M) {
+  extern __shared__ __align__(128) unsigned char seg_smem[];
+  const long long m0 = (long long)blockIdx.x * TileCfg<BN>::BM;
+  int* Cs = igemm_tile<BN, s8>(ld, w, 4 * ld.c4, m0, M, seg_smem);
+  const bool keep = pool != nullptr || mask != nullptr;
+  const Linear rows{m0, M};
+  epilogue_affine<BN, Out>(Cs, mul, add, y, keep, rows);
+  if (keep) {
+    __syncthreads();
+    const float* Cf = reinterpret_cast<const float*>(Cs);
+    if (pool != nullptr) epilogue_pool<BN>(Cf, pool, rows);
+    if (mask != nullptr) epilogue_head<BN>(Cf, wd, bd, mask, rows);
+  }
+}
+
+template <int BN, class Out>
+int run_conv2x2_s8(const Conv2x2Loader<s8>& ld, const void* w,
+                   const void* mul, const void* add, void* y, void* pool,
+                   const void* wd, const void* bd, void* mask, long long M,
+                   cudaStream_t stream) {
+  return launch<BN, s8>(packed_conv2x2_s8_kernel<BN, Out>, M, stream, 0, ld,
+                        (const s8*)w, (const float*)mul, (const float*)add,
+                        (Out*)y, (Out*)pool, (const bf16*)wd,
+                        (const float*)bd, (uint8_t*)mask, M);
 }
 
 }  // namespace segk
@@ -86,13 +128,41 @@ extern "C" int seg_packed_conv2x2(const void* x, const void* w,
                                   int n, int hp, int wp, int c4, int o4,
                                   void* stream) {
   using namespace segk;
-  const Conv2x2Loader ld{(const bf16*)x, hp, wp, c4, hp - 1, wp - 1};
+  const Conv2x2Loader<bf16> ld{(const bf16*)x, hp, wp, c4, hp - 1, wp - 1};
   const long long M = (long long)n * (hp - 1) * (wp - 1);
   cudaStream_t s = (cudaStream_t)stream;
   if (o4 == 128)
     return run_conv2x2<128>(ld, w, bias, y, pool, wd, bd, mask, M, s);
   if (o4 == 256)
     return run_conv2x2<256>(ld, w, bias, y, pool, wd, bd, mask, M, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The int8 mode: x [n, hp, wp, c4] s8 (c4 % 16 == 0); w [4*c4, o4] s8;
+// mul, add [o4] f32; y and pool s8 (requant != 0) or bf16, or null; the
+// head as above (needs requant == 0).
+extern "C" int seg_packed_conv2x2_s8(const void* x, const void* w,
+                                     const void* mul, const void* add,
+                                     void* y, void* pool, const void* wd,
+                                     const void* bd, void* mask, int n,
+                                     int hp, int wp, int c4, int o4,
+                                     int requant, void* stream) {
+  using namespace segk;
+  const Conv2x2Loader<s8> ld{(const s8*)x, hp, wp, c4, hp - 1, wp - 1};
+  const long long M = (long long)n * (hp - 1) * (wp - 1);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (c4 % 16 || (requant && mask != nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (o4 == 128)
+    return requant ? run_conv2x2_s8<128, s8>(ld, w, mul, add, y, pool, wd,
+                                             bd, mask, M, s)
+                   : run_conv2x2_s8<128, bf16>(ld, w, mul, add, y, pool, wd,
+                                               bd, mask, M, s);
+  if (o4 == 256)
+    return requant ? run_conv2x2_s8<256, s8>(ld, w, mul, add, y, pool, wd,
+                                             bd, mask, M, s)
+                   : run_conv2x2_s8<256, bf16>(ld, w, mul, add, y, pool, wd,
+                                               bd, mask, M, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -16,6 +16,8 @@ ops, as the JAX package leaves them to XLA. This is the JAX 4-D ``apply``
 topology; the padded-flat (PadFlat/PF2) layouts and their gates are TPU
 devices and are not ported. Each packed site calls one op of ``ops``:
 the hand kernels by default, their plain versions with ``PLAIN_OPS``.
+Every conv site goes through a hook method (``_strided``, ``_conv_pool``,
+``_dual``, ...), which the int8 subclass (models/unet_int8.py) overrides.
 """
 
 from __future__ import annotations
@@ -95,10 +97,6 @@ def head_diff(output_w: torch.Tensor, output_b: torch.Tensor):
     return wd, bd
 
 
-def _std_conv(p, name, h):
-    return conv2d(h, p[f"{name}/w"], p[f"{name}/b"])
-
-
 @dataclasses.dataclass
 class UNetS2DInference:
     """Inference over standard UNet params in the packed layout. Needs an
@@ -176,6 +174,52 @@ class UNetS2DInference:
             out["head/bd"] = bd
         return out
 
+    # ---- conv-site hooks (models/unet_int8.py overrides them) -----------
+    def _encode_packed(self, p, lvl, h):
+        """Packed encoder level ``lvl``: (skip, pooled)."""
+        h4 = self._strided(p, f"conv{lvl + 1}_1", h)
+        return self._conv_pool(p, f"conv{lvl + 1}_2", h4)
+
+    def _strided(self, p, name, h):
+        return self.ops.strided_conv4x4s2(h, p[f"{name}/w4"], p[f"{name}/b4"])
+
+    def _conv_pool(self, p, name, h4):
+        return self.ops.packed_conv2x2(h4, p[f"{name}/w2"], p[f"{name}/b4"],
+                                       pool=True)
+
+    def _packed_conv(self, p, name, h4):
+        return self.ops.packed_conv2x2(h4, p[f"{name}/w2"], p[f"{name}/b4"])
+
+    def _head_conv(self, p, name, h4):
+        return self.ops.packed_conv2x2(
+            h4, p[f"{name}/w2"], p[f"{name}/b4"],
+            head=(p["head/wd"], p["head/bd"]), head_only=True,
+        )
+
+    def _deconv(self, p, up, h, scatter):
+        return self.ops.rows_matmul(h.contiguous(), p[f"{up}/wm"],
+                                    p[f"{up}/b4"], scatter=scatter)
+
+    def _dual(self, p, name, skip, h4, offset):
+        return self.ops.packed_conv2x2_dual(
+            skip, h4, p[f"{name}/w2a"], p[f"{name}/w2b"], p[f"{name}/b4"],
+            offset=offset,
+        )
+
+    def _std_conv(self, p, name, h):
+        return conv2d(h, p[f"{name}/w"], p[f"{name}/b"])
+
+    def _std_dual_conv(self, p, name, sk, h):
+        # concat-free: conv(concat(sk, h), w) =
+        #              conv(sk, w[:C]) + conv(h, w[C:])
+        w, ci = p[f"{name}/w"], sk.shape[-1]
+        y = conv2d(sk, w[:, :, :ci], activation=None) \
+            + conv2d(h, w[:, :, ci:], activation=None)
+        return torch.relu(y + p[f"{name}/b"].to(y.dtype))
+
+    def _pool(self, h):
+        return max_pool(h, 2)
+
     # ---- forward ----------------------------------------------------------
     def apply(self, p: Dict[str, torch.Tensor], x: torch.Tensor,
               packed_out: bool = False, head: bool = False):
@@ -184,7 +228,6 @@ class UNetS2DInference:
         ``head`` (n_classes = 2) returns only the fused u8 packed mask
         [N, hp, wp, 4] of the last conv."""
         k, L, pl_ = self.cfg.n_kernels, self.levels, self.packed_levels
-        ops = self.ops
         if x.shape[1] % 2 or x.shape[2] % 2:
             raise ValueError(
                 f"space-to-depth U-Net needs even H/W, got "
@@ -194,20 +237,17 @@ class UNetS2DInference:
         # ---- encoder: packed levels ------------------------------------
         skips, h = [], x
         for lvl in range(pl_):
-            c1, c2 = f"conv{lvl + 1}_1", f"conv{lvl + 1}_2"
-            h4 = ops.strided_conv4x4s2(h, p[f"{c1}/w4"], p[f"{c1}/b4"])
-            h4, h = ops.packed_conv2x2(h4, p[f"{c2}/w2"], p[f"{c2}/b4"],
-                                       pool=True)
-            skips.append(h4)
+            skip, h = self._encode_packed(p, lvl, h)
+            skips.append(skip)
 
         # ---- encoder: standard levels + bottleneck ---------------------
         for lvl in range(pl_, L):
-            h = _std_conv(p, f"conv{lvl + 1}_1", h)
-            h = _std_conv(p, f"conv{lvl + 1}_2", h)
+            h = self._std_conv(p, f"conv{lvl + 1}_1", h)
+            h = self._std_conv(p, f"conv{lvl + 1}_2", h)
             skips.append(h)
-            h = max_pool(h, 2)
-        h = _std_conv(p, f"conv{L + 1}_1", h)
-        h = _std_conv(p, f"conv{L + 1}_2", h)
+            h = self._pool(h)
+        h = self._std_conv(p, f"conv{L + 1}_1", h)
+        h = self._std_conv(p, f"conv{L + 1}_2", h)
 
         # ---- decoder -----------------------------------------------------
         packed = False
@@ -216,34 +256,22 @@ class UNetS2DInference:
                 f"conv{L + 2 + i}_2"
             skip = skips[lvl]
             if lvl < pl_:
-                h4 = ops.rows_matmul(h.contiguous(), p[f"{up}/wm"],
-                                     p[f"{up}/b4"], scatter=packed)
+                h4 = self._deconv(p, up, h, scatter=packed)
                 # center-crop offset in UNPACKED units
                 off = (skip.shape[1] - h4.shape[1],
                        skip.shape[2] - h4.shape[2])
-                h4 = ops.packed_conv2x2_dual(
-                    skip, h4, p[f"{c1}/w2a"], p[f"{c1}/w2b"], p[f"{c1}/b4"],
-                    offset=off,
-                )
+                h4 = self._dual(p, c1, skip, h4, off)
                 if head and lvl == 0:
-                    return ops.packed_conv2x2(
-                        h4, p[f"{c2}/w2"], p[f"{c2}/b4"],
-                        head=(p["head/wd"], p["head/bd"]), head_only=True,
-                    )
-                h = ops.packed_conv2x2(h4, p[f"{c2}/w2"], p[f"{c2}/b4"])
+                    return self._head_conv(p, c2, h4)
+                h = self._packed_conv(p, c2, h4)
                 packed = True
             else:
                 h = conv2d_transpose(h, p[f"{up}/w"], p[f"{up}/b"], 2)
                 dh, dw = skip.shape[1] - h.shape[1], skip.shape[2] - h.shape[2]
                 sk = skip[:, dh // 2 : dh // 2 + h.shape[1],
                           dw // 2 : dw // 2 + h.shape[2]]
-                # concat-free: conv(concat(sk, h), w) = conv(sk, w[:C]) +
-                # conv(h, w[C:])
-                w, ci = p[f"{c1}/w"], sk.shape[-1]
-                y = conv2d(sk, w[:, :, :ci], activation=None) \
-                    + conv2d(h, w[:, :, ci:], activation=None)
-                h = torch.relu(y + p[f"{c1}/b"].to(y.dtype))
-                h = _std_conv(p, c2, h)
+                h = self._std_dual_conv(p, c1, sk, h)
+                h = self._std_conv(p, c2, h)
 
         if packed_out:
             return h

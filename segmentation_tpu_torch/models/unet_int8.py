@@ -1,0 +1,437 @@
+"""Calibrated int8 U-Net serving (segmentation_tpu.models.unet_int8).
+
+Every 3×3 conv site of the space-to-depth U-Net runs int8 with static
+symmetric per-output-channel weight scales and static per-site activation
+scales calibrated on sample batches; the packed-decoder deconvs run int8
+too. Activations stay int8-RESIDENT between sites: each site's epilogue
+requantizes its output at its consumer's calibrated input scale, so no
+bf16 intermediate and no quantize pass exist between them. The std
+deconvs and the 1×1 head stay bf16.
+
+The forward is the JAX package's padded-flat int8 route (_apply_padflat
+with the UNetS2DInt8 hooks) on plain NHWC tensors:
+
+  level 1         H5 entry_chain: bf16 conv1_1 requantized in shared
+                  memory, s8 conv1_2, slot-max pool — one launch
+  level 2         H3 s8 conv2_1, H1 s8 conv2_2 + pool
+  levels 3–5      int8_conv (s8 3×3 conv, requant epilogue; the encoder
+                  pool runs on the codes), conv5_2 emits bf16
+  std decoder     bf16 deconv, int8_std_dual_conv, int8_conv (conv6_2
+                  emits bf16, conv7_2 s8 at upconv3's scale)
+  packed decoder  H4 s8 upconv3/upconv4, H2 s8 duals, H1 s8 conv8_2 and
+                  conv9_2 (bf16 value + mask head, or bf16 logits path)
+
+Without calibrated scales every hook falls through to the bf16 forward of
+UNetS2DInference, as the JAX class does.
+
+    q = UNetS2DInt8(cfg)
+    prepared = q.prepare(params, calib_batches=[x0], device="cuda")
+    masks = q.apply_argmax(prepared, x)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from segmentation_tpu_torch.models.unet_fast import (
+    UNetS2DInference,
+    pack_conv3_weight,
+    pack_conv3_weight_s2,
+)
+from segmentation_tpu_torch.nn.kernels import conv_int8
+from segmentation_tpu_torch.nn.kernels.conv_int8 import Int8Ops, conv3x3_s8
+from segmentation_tpu_torch.nn.packing import crop_packed
+
+S8 = torch.int8
+_PLANNED = "conv1_1/qmul"  # written by UNetS2DInt8.plan
+
+
+# ------------------------------------------------------------ quantization
+def quantize_weight(w: np.ndarray):
+    """[kh, kw, CI, CO] → (int8 weights, per-CO float32 scales):
+    max|w| / 127 per output channel, floored at 1e-8, round half to even,
+    clip to ±127."""
+    w = np.asarray(w, np.float32)
+    s = np.max(np.abs(w), axis=(0, 1, 2)) / 127.0
+    s = np.maximum(s, 1e-8)
+    wq = np.clip(np.round(w / s), -127, 127).astype(np.int8)
+    return wq, s.astype(np.float32)
+
+
+def quantize_matrix(w: np.ndarray):
+    """[K, O] matmul weight (the deconv's packed wm [C, 4O]) → (int8
+    weights, per-O float32 scales)."""
+    w = np.asarray(w, np.float32)
+    s = np.maximum(np.max(np.abs(w), axis=0) / 127.0, 1e-8)
+    wq = np.clip(np.round(w / s), -127, 127).astype(np.int8)
+    return wq, s.astype(np.float32)
+
+
+def quant_act(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """round(x / scale) clipped to ±127, int8 (the XLA-side quantize)."""
+    return torch.clamp(torch.round(x.float() / scale), -127, 127).to(S8)
+
+
+def _requant(y: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(y), -127.0, 127.0).to(S8)
+
+
+def int8_conv(x, wq, w_scale, act_scale: float, b, relu=True,
+              out_scale: Optional[float] = None, conv=conv3x3_s8):
+    """Standard-layout int8 3×3 VALID conv with a float rescale epilogue.
+    ``x`` s8 (resident, stored at ``act_scale``) or float (quantized here).
+    With ``out_scale`` the site requantizes (relu as max, then round half
+    to even and ±127 clip) and emits s8; else it emits bf16 (or x's float
+    type). ``conv`` computes the exact s32 product."""
+    xq = x if x.dtype == S8 else quant_act(x, act_scale)
+    y = conv(xq, wq).float()
+    if out_scale is not None:
+        mult = (w_scale * act_scale) / out_scale
+        y = y * mult + b.float() / out_scale
+        if relu:
+            y = torch.relu(y)
+        return _requant(y)
+    y = y * (w_scale * act_scale) + b.float()
+    if relu:
+        y = torch.relu(y)
+    return y.to(torch.bfloat16 if x.dtype == S8 else x.dtype)
+
+
+def int8_std_dual_conv(sk, up, wqa, wsa, sk_scale: float, wqb, wsb,
+                       asb: float, b, relu=True,
+                       out_scale: Optional[float] = None, conv=conv3x3_s8):
+    """Decoder std conv with the concat weight split per operand (skip
+    half at the skip's stored scale, upsampled half quantized at ``asb``).
+    The skip-side partial is rounded to bf16 before the sum, as the JAX
+    function does."""
+    ska = sk if sk.dtype == S8 else quant_act(sk, sk_scale)
+    upq = up if up.dtype == S8 else quant_act(up, asb)
+    ya = (conv(ska, wqa).float() * (wsa * sk_scale)).to(torch.bfloat16)
+    yb = conv(upq, wqb).float() * (wsb * asb)
+    y = ya.float() + yb + b.float()
+    if out_scale is not None:
+        yq = y / out_scale
+        if relu:
+            yq = torch.relu(yq)
+        return _requant(yq)
+    if relu:
+        y = torch.relu(y)
+    return y.to(torch.bfloat16)
+
+
+def _affine(cs: torch.Tensor, b4: torch.Tensor, out_s: Optional[float]):
+    """(mul, add) of a site's epilogue relu(acc · mul + add): the dequant
+    scale and bias, folded with 1/out_scale at a requantizing site, in the
+    f32 products of nn/pallas/conv.py _epilogue_parts."""
+    if out_s is None:
+        return cs.contiguous(), b4.contiguous()
+    oi = float(np.float32(1.0 / out_s))
+    return cs * oi, b4 * oi
+
+
+# ------------------------------------------------------------------- model
+@dataclasses.dataclass
+class UNetS2DInt8(UNetS2DInference):
+    """Quantized UNetS2DInference: the int8 sites run through ``ops8``
+    (the hand kernels by default, their plain versions with
+    conv_int8.PLAIN_OPS); calibration runs the bf16 forward of ``ops``."""
+
+    ops8: Int8Ops = conv_int8.KERNEL_OPS
+
+    _calibrating = None  # {site: running max|x|} during calibration
+
+    # ---- site names ----------------------------------------------------
+    def _std_conv_names(self):
+        L, pl_ = self.levels, self.packed_levels
+        names = []
+        for lvl in range(pl_, L):
+            names += [f"conv{lvl + 1}_1", f"conv{lvl + 1}_2"]
+        names += [f"conv{L + 1}_1", f"conv{L + 1}_2"]
+        for i, lvl in enumerate(reversed(range(L))):
+            if lvl >= pl_:
+                names += [f"conv{L + 2 + i}_1", f"conv{L + 2 + i}_2"]
+        return names
+
+    def _std_dual_names(self):
+        L, pl_ = self.levels, self.packed_levels
+        return [f"conv{L + 2 + i}_1"
+                for i, lvl in enumerate(reversed(range(L))) if lvl >= pl_]
+
+    # ---- weights and calibration ----------------------------------------
+    def prepare(self, params: Dict[str, torch.Tensor],
+                calib_batches: Sequence[torch.Tensor] = (),
+                dtype: torch.dtype = torch.bfloat16,
+                device=None) -> Dict[str, torch.Tensor]:
+        """The bf16 prepare, plus the int8 weights (quantized from the f32
+        packed weights, per 4O column) and, given calibration batches, the
+        activation scales ``ascale`` / ``ascale_a`` / ``ascale_b`` (0-d
+        f32 host tensors) of every site and the kernels' epilogue vectors.
+        Without calibration batches no activation scale exists and the
+        forward is the bf16 one."""
+        prepared = super().prepare(params, dtype=dtype, device=device)
+
+        def w32(name):
+            v = params[name]
+            v = v.detach().cpu() if isinstance(v, torch.Tensor) else v
+            return np.asarray(v, np.float32)
+
+        def put(name, wq_key, ws_key, quantized):
+            wq, ws = quantized
+            prepared[f"{name}/{wq_key}"] = torch.as_tensor(wq).to(device)
+            prepared[f"{name}/{ws_key}"] = torch.as_tensor(ws).to(device)
+
+        entry, packed, dual, ups = self._site_names()
+        std, std_dual = self._std_conv_names(), self._std_dual_names()
+        for name in entry:
+            put(name, "wq4", "wscale4", quantize_weight(
+                pack_conv3_weight_s2(w32(f"{name}/w"))))
+        for name in packed:
+            put(name, "wq", "wscale",
+                quantize_weight(pack_conv3_weight(w32(f"{name}/w"))))
+        for name in dual:
+            w = w32(f"{name}/w")
+            ci = w.shape[2] // 2  # input = concat(skip C, up C)
+            put(name, "wq_a", "wscale_a",
+                quantize_weight(pack_conv3_weight(w[:, :, :ci])))
+            put(name, "wq_b", "wscale_b",
+                quantize_weight(pack_conv3_weight(w[:, :, ci:])))
+        for name in std:
+            put(name, "wq", "wscale", quantize_weight(w32(f"{name}/w")))
+        for name in std_dual:
+            w = w32(f"{name}/w")
+            ca = w.shape[2] - w.shape[3]
+            if ca != w.shape[3]:
+                raise ValueError(f"{name}: concat width {w.shape}")
+            put(name, "wq_a", "wscale_a", quantize_weight(w[:, :, :ca]))
+            put(name, "wq_b", "wscale_b", quantize_weight(w[:, :, ca:]))
+        for name in ups:
+            w = w32(f"{name}/w")
+            c, o = w.shape[2], w.shape[3]
+            put(name, "wqm", "wscale", quantize_matrix(
+                np.transpose(w, (2, 0, 1, 3)).reshape(c, 4 * o)))
+        for name in params:  # the int8 epilogues add f32 biases
+            if name.endswith("/b"):
+                prepared[name] = torch.as_tensor(w32(name)).to(device)
+        if len(calib_batches):
+            self._calibrate(prepared, calib_batches, dtype)
+        return prepared
+
+    def _calibrate(self, p, calib_batches, dtype) -> None:
+        """Run the bf16 forward on each batch, record max|x| at every
+        quantized site's input (the a and b sides of the duals, the a side
+        on the cropped skip) and store ascale = max(absmax, 1e-6) / 127."""
+        entry, packed, dual, ups = self._site_names()
+        std, std_dual = self._std_conv_names(), self._std_dual_names()
+        dual_a = set(dual) | set(std_dual)
+        sites = (entry + packed + dual + std + ups
+                 + [f"{n}@b" for n in dual + std_dual])
+        self._calibrating = {}
+        try:
+            dev = p["conv1_1/w4"].device
+            with torch.no_grad():
+                for x in calib_batches:
+                    self.apply(p, torch.as_tensor(x).to(dev, dtype))
+            rec = {k: float(v) for k, v in self._calibrating.items()}
+        finally:
+            self._calibrating = None
+        for name in sites:
+            key = (f"{name[:-2]}/ascale_b" if name.endswith("@b")
+                   else f"{name}/ascale_a" if name in dual_a
+                   else f"{name}/ascale")
+            p[key] = torch.tensor(
+                np.float32(max(rec.get(name, 0.0), 1e-6) / 127.0))
+        self.plan(p)
+
+    def _record(self, name, x):
+        m = x.detach().abs().amax().float()
+        prev = self._calibrating.get(name)
+        self._calibrating[name] = m if prev is None else torch.maximum(prev,
+                                                                       m)
+
+    # ---- the int8-resident scale graph -----------------------------------
+    def __post_init__(self):
+        self._out_keys = self._scale_graph()
+
+    def _scale_graph(self) -> Dict[str, str]:
+        """{site: the scale key its OUTPUT is stored at}: its consumer's
+        calibrated input scale; a site missing here emits bf16."""
+        L, pl_ = self.levels, self.packed_levels
+        succ = {}
+        for lvl in range(pl_):
+            succ[f"conv{lvl + 1}_1"] = f"conv{lvl + 1}_2"
+            succ[f"conv{lvl + 1}_2"] = (f"conv{lvl + 2}_1" if lvl + 1 < pl_
+                                        else f"conv{pl_ + 1}_1")
+        # std encoder: through the pool into the next level (max pool
+        # commutes with the positive scale: pooling codes is exact)
+        for lvl in range(pl_, L):
+            succ[f"conv{lvl + 1}_1"] = f"conv{lvl + 1}_2"
+            succ[f"conv{lvl + 1}_2"] = f"conv{lvl + 2}_1"
+        succ[f"conv{L + 1}_1"] = f"conv{L + 1}_2"
+        for i in range(L):
+            succ[f"conv{L + 2 + i}_1"] = f"conv{L + 2 + i}_2"
+            if 0 <= L - 2 - i < pl_:  # the next up is a packed-level deconv
+                succ[f"conv{L + 2 + i}_2"] = f"upconv{i + 2}"
+        for j, lvl in enumerate(reversed(range(L))):
+            if lvl < pl_:  # the deconv feeds its dual's b side
+                succ[f"upconv{j + 1}"] = f"conv{L + 2 + j}_1@b"
+        return {name: (f"{nxt[:-2]}/ascale_b" if nxt.endswith("@b")
+                       else f"{nxt}/ascale") for name, nxt in succ.items()}
+
+    def _out_scale_of(self, p, name) -> Optional[float]:
+        key = self._out_keys.get(name)
+        return None if key is None or key not in p else float(p[key])
+
+    def _in_scale_of(self, p, name, side=None) -> float:
+        return float(p[f"{name}/ascale" + (f"_{side}" if side else "")])
+
+    def _skip_scale_of(self, p, name) -> float:
+        """Scale of the resident skip feeding decoder conv ``name``: the
+        encoder conv's OUT scale (the next level's), not the crop-local
+        ascale_a."""
+        lvl = self.levels - 1 - (int(name[4:].split("_")[0])
+                                 - (self.levels + 2))
+        return self._out_scale_of(p, f"conv{lvl + 1}_2")
+
+    def plan(self, p) -> Dict[str, torch.Tensor]:
+        """Add the hand-kernel sites' epilogue vectors to a calibrated
+        ``p`` and return it: ``qmul``/``qadd`` (and the duals'
+        ``qcs_a``/``qcs_b``), computed once from the activation scales.
+        The int8 route runs on a planned dict only (``_PLANNED`` in it)."""
+        entry, packed, dual, ups = self._site_names()
+        q = {}
+        c1 = entry[0]  # H5's conv1_1: requant at conv1_2's scale, no cs
+        b4 = p[f"{c1}/b4"]
+        q[f"{c1}/qmul"], q[f"{c1}/qadd"] = _affine(
+            torch.ones_like(b4), b4, self._out_scale_of(p, c1))
+        for name in entry[1:] + packed + ups:
+            ws = p[f"{name}/wscale4" if name in entry else f"{name}/wscale"]
+            q[f"{name}/qmul"], q[f"{name}/qadd"] = _affine(
+                ws * self._in_scale_of(p, name), p[f"{name}/b4"],
+                self._out_scale_of(p, name))
+        for name in dual:
+            q[f"{name}/qcs_a"] = (p[f"{name}/wscale_a"]
+                                  * self._skip_scale_of(p, name))
+            q[f"{name}/qcs_b"] = (p[f"{name}/wscale_b"]
+                                  * self._in_scale_of(p, name, "b"))
+            b4 = p[f"{name}/b4"]
+            q[f"{name}/qmul"], q[f"{name}/qadd"] = _affine(
+                torch.ones_like(b4), b4, self._out_scale_of(p, name))
+        p.update(q)  # all at once: a failed plan leaves p unplanned
+        return p
+
+    def _q(self, p) -> bool:
+        """Run the int8 route: ``p`` was calibrated and planned."""
+        return _PLANNED in p
+
+    @staticmethod
+    def _resident(name, x):
+        if x.dtype != S8:
+            raise NotImplementedError(
+                f"{name}: a float input at an int8 packed site needs the "
+                "kernels' inline-quantize mode, which is not ported")
+
+    # ---- hook overrides --------------------------------------------------
+    def _encode_packed(self, p, lvl, h):
+        if lvl == 0 and self._q(p):
+            c1, c2 = "conv1_1", "conv1_2"
+            return self.ops8.entry_chain(
+                h, p[f"{c1}/w4"], p[f"{c1}/qmul"], p[f"{c1}/qadd"],
+                p[f"{c2}/wq"], p[f"{c2}/qmul"], p[f"{c2}/qadd"])
+        return super()._encode_packed(p, lvl, h)
+
+    def _strided(self, p, name, h):
+        if self._calibrating is not None:
+            self._record(name, h)
+        if not self._q(p):
+            return super()._strided(p, name, h)
+        self._resident(name, h)
+        return self.ops8.strided_conv4x4s2(h, p[f"{name}/wq4"],
+                                           p[f"{name}/qmul"],
+                                           p[f"{name}/qadd"])
+
+    def _conv_pool(self, p, name, h4):
+        if self._calibrating is not None:
+            self._record(name, h4)
+        if not self._q(p):
+            return super()._conv_pool(p, name, h4)
+        self._resident(name, h4)
+        return self.ops8.packed_conv2x2(
+            h4, p[f"{name}/wq"], p[f"{name}/qmul"], p[f"{name}/qadd"],
+            requant=self._out_keys.get(name) in p, pool=True)
+
+    def _packed_conv(self, p, name, h4):
+        if self._calibrating is not None:
+            self._record(name, h4)
+        if not self._q(p):
+            return super()._packed_conv(p, name, h4)
+        self._resident(name, h4)
+        return self.ops8.packed_conv2x2(
+            h4, p[f"{name}/wq"], p[f"{name}/qmul"], p[f"{name}/qadd"],
+            requant=self._out_keys.get(name) in p)
+
+    def _head_conv(self, p, name, h4):
+        if not self._q(p):
+            return super()._head_conv(p, name, h4)
+        self._resident(name, h4)
+        return self.ops8.packed_conv2x2(
+            h4, p[f"{name}/wq"], p[f"{name}/qmul"], p[f"{name}/qadd"],
+            requant=False, head=(p["head/wd"], p["head/bd"]),
+            head_only=True)
+
+    def _deconv(self, p, up, h, scatter):
+        if self._calibrating is not None:
+            self._record(up, h)
+        if not self._q(p):
+            return super()._deconv(p, up, h, scatter)
+        self._resident(up, h)
+        return self.ops8.rows_matmul(h.contiguous(), p[f"{up}/wqm"],
+                                     p[f"{up}/qmul"], p[f"{up}/qadd"],
+                                     scatter=scatter)
+
+    def _dual(self, p, name, skip, h4, offset):
+        if self._calibrating is not None:
+            self._record(name, crop_packed(skip, h4.shape, offset))
+            self._record(f"{name}@b", h4)
+        if not self._q(p):
+            return super()._dual(p, name, skip, h4, offset)
+        self._resident(name, skip)
+        self._resident(name, h4)
+        return self.ops8.packed_conv2x2_dual(
+            skip, h4, p[f"{name}/wq_a"], p[f"{name}/wq_b"],
+            p[f"{name}/qcs_a"], p[f"{name}/qcs_b"], p[f"{name}/qmul"],
+            p[f"{name}/qadd"], offset=offset)
+
+    def _std_conv(self, p, name, h):
+        if self._calibrating is not None:
+            self._record(name, h)
+        if not self._q(p):
+            return super()._std_conv(p, name, h)
+        return int8_conv(h, p[f"{name}/wq"], p[f"{name}/wscale"],
+                         self._in_scale_of(p, name), p[f"{name}/b"],
+                         out_scale=self._out_scale_of(p, name),
+                         conv=self.ops8.conv3x3)
+
+    def _std_dual_conv(self, p, name, sk, h):
+        if self._calibrating is not None:
+            self._record(name, sk)
+            self._record(f"{name}@b", h)
+        if not self._q(p):
+            return super()._std_dual_conv(p, name, sk, h)
+        sk_s = (self._skip_scale_of(p, name) if sk.dtype == S8
+                else self._in_scale_of(p, name, "a"))
+        return int8_std_dual_conv(
+            sk, h, p[f"{name}/wq_a"], p[f"{name}/wscale_a"], sk_s,
+            p[f"{name}/wq_b"], p[f"{name}/wscale_b"],
+            self._in_scale_of(p, name, "b"), p[f"{name}/b"],
+            out_scale=self._out_scale_of(p, name), conv=self.ops8.conv3x3)
+
+    def _pool(self, h):
+        if h.dtype != S8:
+            return super()._pool(h)
+        n, hh, ww, c = h.shape  # VALID 2×2/2 on the codes
+        h = h[:, : hh // 2 * 2, : ww // 2 * 2]
+        return h.reshape(n, hh // 2, 2, ww // 2, 2, c).amax((2, 4))

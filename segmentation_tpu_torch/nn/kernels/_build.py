@@ -1,7 +1,8 @@
 """Build and bind the hand-written CUDA kernels (``csrc/`` of this package).
 
 At the first CUDA call, ``nvcc`` compiles every ``csrc/*.cu`` for
-``sm_90a`` into one shared library with a plain C interface, which is
+``sm_90a`` (one process per source, all started together) and links the
+objects into one shared library with a plain C interface, which is
 loaded with ``ctypes`` (no PyTorch headers: a build takes seconds, not
 minutes). The library lands in ``csrc/build/`` under a name keyed by a
 hash of the sources and flags, so an edited source never loads a stale
@@ -24,7 +25,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -34,6 +35,11 @@ _SIGNATURES = {
     "seg_packed_conv2x2_dual": [_P] * 6 + [_I] * 9 + [_P],
     "seg_strided_conv4x4s2": [_P] * 4 + [_I] * 5 + [_P],
     "seg_rows_matmul": [_P] * 4 + [_I] * 6 + [_P],
+    "seg_packed_conv2x2_s8": [_P] * 9 + [_I] * 6 + [_P],
+    "seg_packed_conv2x2_dual_s8": [_P] * 9 + [_I] * 9 + [_P],
+    "seg_strided_conv4x4s2_s8": [_P] * 5 + [_I] * 5 + [_P],
+    "seg_rows_matmul_s8": [_P] * 5 + [_I] * 6 + [_P],
+    "seg_entry_chain": [_P] * 9 + [_I] * 3 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -74,23 +80,32 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-    os.close(fd)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    try:
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = os.path.join(tmp, src.stem + ".o")
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", obj,
+                 str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ))
+        logs = [p.communicate()[0] for p in procs]
+        build_log = "".join(logs)
+        failed = [p.returncode for p in procs if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed}):\n{build_log}")
+        lib = os.path.join(tmp, out.name)
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu],
-            capture_output=True, text=True,
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+             "-o", lib, *objs], capture_output=True, text=True,
         )
-        build_log = proc.stdout + proc.stderr
+        build_log += proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{build_log}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            raise RuntimeError(f"nvcc link failed:\n{build_log}")
+        os.replace(lib, out)
     build_seconds = time.perf_counter() - t0
     return out
 

@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from segmentation_tpu_torch.nn.kernels import _build
-from segmentation_tpu_torch.nn.packing import pack2, unpack2
+from segmentation_tpu_torch.nn.packing import crop_packed, unpack2
 
 NAMES = ("packed_conv2x2", "packed_conv2x2_dual", "strided_conv4x4s2",
          "rows_matmul")
@@ -75,10 +75,7 @@ def packed_conv2x2_plain(x, w2, b4, *, pool=False, head=None,
 
 
 def packed_conv2x2_dual_plain(skip, up, w2a, w2b, b4, *, offset):
-    n, hp, wp, c4 = up.shape
-    oh, ow = offset
-    sk = unpack2(skip.reshape(*skip.shape[:3], 4, c4 // 4))
-    sk = pack2(sk[:, oh : oh + 2 * hp, ow : ow + 2 * wp]).reshape(up.shape)
+    sk = crop_packed(skip, up.shape, offset)
     acc = _conv_nhwc(sk, w2a, 1).float() + _conv_nhwc(up, w2b, 1).float()
     return _epilogue(acc, b4, up.dtype)
 

@@ -31,3 +31,12 @@ def view5(x4: torch.Tensor, c: int) -> torch.Tensor:
     n, hp, wp, _ = x4.shape
     return x4.reshape(n, hp, wp, 4, c)
 
+
+def crop_packed(skip: torch.Tensor, shape, offset) -> torch.Tensor:
+    """Packed skip [N, hpa, wpa, 4C] center-cropped at the UNPACKED offset
+    (oh, ow) to the packed ``shape`` [N, hp, wp, 4C]: even offsets are a
+    packed slice, odd ones a slot phase."""
+    n, hp, wp, c4 = shape
+    oh, ow = offset
+    sk = unpack2(skip.reshape(*skip.shape[:3], 4, c4 // 4))
+    return pack2(sk[:, oh : oh + 2 * hp, ow : ow + 2 * wp]).reshape(shape)

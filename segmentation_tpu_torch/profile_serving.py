@@ -1,0 +1,160 @@
+"""Where a served request's device time goes (torch.profiler, one GPU).
+
+    python -m segmentation_tpu_torch.profile_serving [--requests 3] \
+        [--out FILE]
+
+Serves the flagship (512², B = 8) bf16 model and the calibrated int8 model
+(calibrated on one seeded batch) as chip_smoke.py does. For each it times
+``--requests`` requests by CUDA events, then traces the same requests and
+reads the trace's device activities (kernels, copies, sets) only:
+
+- device ms per request: the union of the activities' intervals, so
+  overlapping streams count once;
+- busy share: that union over the CUDA-event time of the untraced
+  requests (the device's idle share is one minus it);
+- the summed activity time per group: the hand kernels (H1–H5, by kernel
+  name), library GEMMs, library convs, copies and the other (elementwise)
+  kernels.
+
+``--out`` writes every activity (ms per request, launches per request)
+beside the summary lines.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+from typing import Dict, Iterable, List, Tuple
+
+# hand kernels by the name of their __global__ function (csrc/*.cu); the
+# dual's name holds the plain conv's, so it is matched first
+HAND = (("entry_chain", "H5 entry_chain"),
+        ("packed_conv2x2_dual", "H2 packed_conv2x2_dual"),
+        ("packed_conv2x2", "H1 packed_conv2x2"),
+        ("strided_conv4x4s2", "H3 strided_conv4x4s2"),
+        ("rows_matmul", "H4 rows_matmul"))
+
+
+def group_of(name: str) -> str:
+    """The group a device activity's name falls in."""
+    low = name.lower()
+    for key, label in HAND:
+        if key in name:
+            return label
+    if "memcpy" in low or "memset" in low or "copy" in low:
+        return "copies"
+    # cuDNN's convs run as implicit GEMMs: test their names first
+    if any(k in low for k in ("cudnn", "conv", "fprop", "dgrad", "wgrad")):
+        return "library conv"
+    if "gemm" in low:
+        return "library GEMM"
+    return "other (elementwise, pools, reductions)"
+
+
+def union_us(spans: Iterable[Tuple[float, float]]) -> float:
+    """Total length of the union of [start, end) intervals."""
+    total, end = 0.0, None
+    for s, e in sorted(spans):
+        if end is None or s >= end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def breakdown(events, n: int) -> Tuple[float, Dict[str, float], List]:
+    """(device ms per request, {group: ms per request}, [(ms, launches,
+    name) per request, slowest first]) from a trace's FunctionEvents."""
+    from torch.autograd import DeviceType
+
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    spans = [(e.time_range.start, e.time_range.end) for e in dev]
+    groups: Dict[str, float] = collections.defaultdict(float)
+    per_name: Dict[str, List[float]] = collections.defaultdict(list)
+    for e in dev:
+        us = e.time_range.elapsed_us()
+        groups[group_of(e.name)] += us / n / 1e3
+        per_name[e.name].append(us)
+    rows = sorted(((sum(v) / n / 1e3, len(v) / n, k)
+                   for k, v in per_name.items()), reverse=True)
+    return union_us(spans) / n / 1e3, dict(groups), rows
+
+
+def profile(server, reqs):
+    """(CUDA-event ms per request untraced, device ms per request, groups,
+    rows) over ``reqs``, after two warm-up requests."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace
+
+    for _ in range(2):
+        server(reqs[0])
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for x in reqs:
+        server(x)
+    stop.record()
+    stop.synchronize()
+    wall = start.elapsed_time(stop) / len(reqs)
+    with trace(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+        for x in reqs:
+            server(x)
+        torch.cuda.synchronize()
+    return (wall, *breakdown(prof.events(), len(reqs)))
+
+
+def main(argv=None) -> None:
+    import subprocess
+
+    import torch
+
+    from segmentation_tpu_torch.core.rng import generator
+    from segmentation_tpu_torch.serving import entry
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--requests", type=int, default=3)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_serving: needs a CUDA device")
+    smi = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+    ).stdout.strip()
+    torch.backends.cudnn.allow_tf32 = False
+    gen = generator(1234, "cuda")
+    shape = (args.batch, 512, 512, 3)
+    reqs = [torch.rand(shape, generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in range(args.requests)]
+    calib = torch.rand(shape, generator=generator(4321, "cuda"),
+                       device="cuda")
+    lines, table = [smi], []
+    for tag, kw in (("bf16", {}), ("int8", {"int8": True,
+                                             "calib": [calib]})):
+        server, _ = entry("cuda", batch=args.batch, seed=0, **kw)
+        wall, dev_ms, groups, rows = profile(server, reqs)
+        lines.append(f"[profile] {tag} B={args.batch}: CUDA-event ms per "
+                     f"request {wall:.3f}; device ms per request "
+                     f"{dev_ms:.3f}; busy share {dev_ms / wall:.3f}")
+        for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+            lines.append(f"[profile] {tag}   {g}: {ms:.3f} ms "
+                         f"({ms / dev_ms:.3f} of device time)")
+        table += [f"==== {tag}: ms per request, launches per request, "
+                  "activity"]
+        table += [f"{ms:9.4f} {k:6.2f}  {name[:160]}" for ms, k, name in rows]
+        del server
+        torch.cuda.empty_cache()
+    print("\n".join(lines))
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write("\n".join(lines + table) + "\n")
+
+
+if __name__ == "__main__":
+    main()

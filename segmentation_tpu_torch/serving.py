@@ -4,16 +4,21 @@
     masks = server(x0)              # [8, 324, 324] u8 class map
     logits = server.logits(x0)      # [8, 324, 324, 2]
 
+    server8, _ = entry("cuda", batch=8, int8=True, calib=[x_calib])
+
 The flagship configuration (n_kernels = 32, n_classes = 2, 4 levels),
 params from a seeded generator or a JAX ``.npz`` checkpoint, prepared once
 for the packed forward: f32 params, bf16 activations; the packed sites run
-the hand-written kernels.
+the hand-written kernels. ``int8=True`` serves the calibrated int8 model
+(models/unet_int8.py), the counterpart of the JAX CLI's ``infer --int8``:
+the weights are quantized and the activation scales calibrated on
+``calib`` (batches of images) once, at entry.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -23,6 +28,7 @@ from segmentation_tpu_torch.core.rng import generator
 from segmentation_tpu_torch.interop import params_from_jax
 from segmentation_tpu_torch.models.unet import init_params
 from segmentation_tpu_torch.models.unet_fast import UNetS2DInference
+from segmentation_tpu_torch.models.unet_int8 import UNetS2DInt8
 from segmentation_tpu_torch.utils.checkpoint import load_params
 
 
@@ -45,9 +51,13 @@ class Server:
 
 
 def entry(device="cuda", batch: int = 8, *, seed: int = 0,
-          checkpoint: Optional[str] = None):
+          checkpoint: Optional[str] = None, int8: bool = False,
+          calib: Optional[Sequence[torch.Tensor]] = None):
     """(server, (x0,)): the prepared flagship server on ``device`` and a
-    zero input batch of its shape in the compute dtype."""
+    zero input batch of its shape in the compute dtype. With ``int8`` the
+    server runs the calibrated int8 forward, calibrated on ``calib``
+    (default: one batch of ``batch`` uniform [0, 1) images drawn from
+    ``seed``)."""
     cfg = flagship_config()
     if checkpoint is not None:
         params = params_from_jax(load_params(checkpoint))
@@ -55,9 +65,17 @@ def entry(device="cuda", batch: int = 8, *, seed: int = 0,
         params = init_params(cfg, generator(seed))
     params = {k: v.to(device=device, dtype=DEFAULT.param_dtype)
               for k, v in params.items()}
-    model = UNetS2DInference(cfg)
-    prepared = model.prepare(params, dtype=DEFAULT.compute_dtype,
-                             device=device)
-    x0 = torch.zeros((batch, *cfg.hw, cfg.input_channel),
-                     dtype=DEFAULT.compute_dtype, device=device)
+    shape = (batch, *cfg.hw, cfg.input_channel)
+    if int8:
+        if calib is None:
+            calib = [torch.rand(shape, generator=generator(seed + 1, device),
+                                device=device)]
+        model = UNetS2DInt8(cfg)
+        prepared = model.prepare(params, calib_batches=calib,
+                                 dtype=DEFAULT.compute_dtype, device=device)
+    else:
+        model = UNetS2DInference(cfg)
+        prepared = model.prepare(params, dtype=DEFAULT.compute_dtype,
+                                 device=device)
+    x0 = torch.zeros(shape, dtype=DEFAULT.compute_dtype, device=device)
     return Server(model, params, prepared), (x0,)

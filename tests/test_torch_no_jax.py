@@ -16,9 +16,12 @@ _PROBE = textwrap.dedent("""
     import torch
     import segmentation_tpu_torch
     import segmentation_tpu_torch.serving
+    import segmentation_tpu_torch.profile_serving
     from segmentation_tpu_torch.nn.kernels import _build
     from segmentation_tpu_torch.nn.kernels import conv_flat as cf
+    from segmentation_tpu_torch.nn.kernels import conv_int8 as ci
     from segmentation_tpu_torch.models.unet_fast import UNetS2DInference
+    from segmentation_tpu_torch.models.unet_int8 import UNetS2DInt8
     from segmentation_tpu_torch.core.config import ModelConfig
     from segmentation_tpu_torch.models.unet import init_params
     from segmentation_tpu_torch.core.rng import generator
@@ -32,6 +35,17 @@ _PROBE = textwrap.dedent("""
     mask = model.apply_argmax(prepared, torch.rand(1, 188, 188, 3))
     assert tuple(mask.shape) == (1, 4, 4), mask.shape
     assert all(v == 0 for v in cf.launches.values()), cf.launches
+
+    # the calibrated int8 forward, on the plain versions
+    q = UNetS2DInt8(cfg)
+    x = torch.rand(1, 188, 188, 3)
+    prepared = q.prepare(init_params(cfg, generator(0)), calib_batches=[x])
+    assert prepared["conv2_2/wq"].dtype == torch.int8
+    keys = set(prepared)
+    mask = q.apply_argmax(prepared, x.to(torch.bfloat16))
+    assert set(prepared) == keys  # planned at prepare, not in the forward
+    assert tuple(mask.shape) == (1, 4, 4), mask.shape
+    assert all(v == 0 for v in ci.launches.values()), ci.launches
     assert not _build.loaded()
     assert not _build.BUILD_DIR.exists() or not any(
         _build.BUILD_DIR.glob("*.so.tmp"))

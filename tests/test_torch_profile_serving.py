@@ -1,0 +1,45 @@
+"""The serving profiler's bookkeeping (segmentation_tpu_torch/
+profile_serving.py), on CPU: which group a device activity's name falls
+in, and the union of overlapping activity intervals."""
+
+import pytest
+
+from segmentation_tpu_torch import profile_serving as ps
+
+
+@pytest.mark.parametrize("name,group", [
+    ("void entry_chain_kernel(Strided4x4Loader<bf16, false>, ...)",
+     "H5 entry_chain"),
+    ("void packed_conv2x2_dual_s8_kernel(DualLoader<s8>, ...)",
+     "H2 packed_conv2x2_dual"),
+    ("void packed_conv2x2_s8_kernel<true>(Conv2x2Loader<s8>, ...)",
+     "H1 packed_conv2x2"),
+    ("void strided_conv4x4s2_kernel<true>(...)", "H3 strided_conv4x4s2"),
+    ("void rows_matmul_s8_kernel(RowsLoader<s8>, ...)", "H4 rows_matmul"),
+    ("cutlass_80_wmma_tensorop_i161616gemm_s8_32x32_128x1_tn_align16",
+     "library GEMM"),
+    ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc",
+     "library conv"),
+    ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64",
+     "library GEMM"),
+    ("void cudnn::engines_precompiled::nchwToNhwcKernel<float>(...)",
+     "library conv"),
+    ("Memcpy DtoD (Device -> Device)", "copies"),
+    ("void at::native::elementwise_kernel<128, 2, direct_copy_kernel_cuda>",
+     "copies"),
+    ("void at::native::vectorized_elementwise_kernel<4, "
+     "at::native::clamp_scalar_kernel_impl>",
+     "other (elementwise, pools, reductions)"),
+])
+def test_group_of(name, group):
+    assert ps.group_of(name) == group
+
+
+@pytest.mark.parametrize("spans,want", [
+    ([], 0.0),
+    ([(0.0, 2.0), (5.0, 6.0)], 3.0),            # disjoint
+    ([(0.0, 4.0), (1.0, 2.0)], 4.0),            # nested
+    ([(3.0, 6.0), (0.0, 4.0), (6.0, 7.0)], 7.0),  # overlapping, touching
+])
+def test_union_us(spans, want):
+    assert ps.union_us(spans) == want
