@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's U-Net 512² serving paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's U-Net 512² serving and training paths once on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -13,6 +14,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                version's (CUDA events; the first launches warm up);
   3b.        — the same for the int8 path: H5 and the int8 modes of H1–H4
                at every int8 site;
+  3c.        — the same for H6 (the packed-conv input grad), single and
+               dual, at its six training sites;
   4. slice   — 4 requests of B = 8 through serving.entry (apply_argmax),
                whose launches alone are counted, then one apply (logits);
                every kernel must have launched in the requests, the masks
@@ -23,18 +26,30 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                int8 mode must have launched and no bf16 kernel, the masks
                must agree with the int8 forward on the plain versions and
                with the f32 plain U-Net;
-  5. the B = 8 latency of both slices, the kernels' JSON line, then
-     {"ok": true, "device": {...}} last.
+  5. the B = 8 latency of both slices;
+  6. train   — the flagship SegmentationTrainer(UNetS2D) from seed 0:
+               (a) one B = 2 step's loss and param grads on the kernels
+               against the same trainer on the plain versions and against
+               the f32 plain U-Net under autograd; (b) ten Adam steps on
+               one B = 16 synthetic batch, whose loss must fall; (c) the
+               B = 128 step (the JAX bench's batch) on device-resident
+               batches: 2 warm-up steps, then 5 timed by CUDA events, whose
+               launches alone are counted (every training kernel must have
+               launched), on both paths, then the device busy share of the
+               kernel path's step;
+  then the kernels' JSON line and {"ok": true, "device": {...}} last.
 """
 
 from __future__ import annotations
 
 import gc
 import json
+import math
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 B_PARITY, B_SERVE, HW = 2, 8, 512
@@ -64,24 +79,41 @@ CODE_DIFF_SHARE = 1e-3
 INT8_MASK_AGREE = 0.99
 INT8_REF_MASK_AGREE = 0.97
 INT8_REF_CORR = 0.98
+# training, kernels vs the plain versions (both bf16): the loss and each
+# param's grad differ only by bf16 rounding in other orders, through ~20
+# layers forward and back; vs the f32 plain U-Net the bf16 activations
+# move the grads further (cosine bound only)
+TRAIN_LOSS_REL = 1e-2
+GRAD_COS, GRAD_REL_L2 = 0.999, 5e-2
+REF_GRAD_COS = 0.98
+B_TRAIN_PARITY, B_TRAIN_FIT, B_TRAIN = 2, 16, 128
 
 SOURCES = {k: f"segmentation_tpu_torch/csrc/{k}.cu" for k in (
     "packed_conv2x2", "packed_conv2x2_dual", "strided_conv4x4s2",
     "rows_matmul")}
 SOURCES.update({f"{k}_s8": v for k, v in SOURCES.items()})  # int8 modes
 SOURCES["entry_chain"] = "segmentation_tpu_torch/csrc/entry_chain.cu"
-REPLACES = {
-    "packed_conv2x2": "segmentation_tpu/nn/pallas/conv_flat.py:275, "
-                      "segmentation_tpu/nn/pallas/conv_flat.py:1162",
-    "packed_conv2x2_dual": "segmentation_tpu/nn/pallas/conv_flat.py:503, "
-                           "segmentation_tpu/nn/pallas/conv_flat.py:1379",
-    "strided_conv4x4s2": "segmentation_tpu/nn/pallas/conv_flat.py:667, "
-                         "segmentation_tpu/nn/pallas/conv_flat.py:1738",
-    "rows_matmul": "segmentation_tpu/nn/pallas/conv_flat.py:785, "
-                   "segmentation_tpu/nn/pallas/conv_flat.py:896",
+SOURCES["packed_conv2x2_dgrad"] = SOURCES["packed_conv2x2_dgrad_dual"] = \
+    "segmentation_tpu_torch/csrc/packed_conv2x2_dgrad.cu"
+_CF, _CONV = ("segmentation_tpu/nn/pallas/conv_flat.py",
+              "segmentation_tpu/nn/pallas/conv.py")
+# the padded-flat kernels each bf16 kernel replaces, then the 4-D kernels
+# of the training route that it closes too
+_BF16 = {
+    "packed_conv2x2": ((f"{_CF}:275", f"{_CF}:1162"), (f"{_CONV}:372",)),
+    "packed_conv2x2_dual": ((f"{_CF}:503", f"{_CF}:1379"), (f"{_CONV}:677",)),
+    "strided_conv4x4s2": ((f"{_CF}:667", f"{_CF}:1738"), (f"{_CONV}:844",)),
+    "rows_matmul": ((f"{_CF}:785", f"{_CF}:896"),
+                    (f"{_CONV}:974", f"{_CONV}:1078")),
 }
-REPLACES.update({f"{k}_s8": v for k, v in REPLACES.items()})  # int8 modes
-REPLACES["entry_chain"] = "segmentation_tpu/nn/pallas/conv_flat.py:1644"
+REPLACES = {k: ", ".join(flat + conv) for k, (flat, conv) in _BF16.items()}
+REPLACES.update({f"{k}_s8": ", ".join(flat)  # int8 modes
+                 for k, (flat, _) in _BF16.items()})
+REPLACES["entry_chain"] = f"{_CF}:1644"
+REPLACES["packed_conv2x2_dgrad"] = \
+    "segmentation_tpu/nn/pallas/conv_flat_bwd.py:119"
+REPLACES["packed_conv2x2_dgrad_dual"] = \
+    "segmentation_tpu/nn/pallas/conv_flat_bwd.py:217"
 
 
 def _time_ms(fn, iters=10):
@@ -95,6 +127,17 @@ def _time_ms(fn, iters=10):
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def _wgt(gen, *shape):
+    """bf16 weights of unit gain: normal / sqrt(fan-in)."""
+    import torch
+
+    k = 1
+    for s in shape[:-1]:
+        k *= s
+    w = torch.randn(shape, generator=gen, device=gen.device) / k**0.5
+    return w.to(torch.bfloat16)
 
 
 def _sites(n, gen):
@@ -111,11 +154,7 @@ def _sites(n, gen):
         return torch.rand(shape, generator=gen, device=dev).to(torch.bfloat16)
 
     def wgt(*shape):
-        k = 1
-        for s in shape[:-1]:
-            k *= s
-        w = torch.randn(shape, generator=gen, device=dev) / k**0.5
-        return w.to(torch.bfloat16)
+        return _wgt(gen, *shape)
 
     def bias(o4):
         return torch.randn((o4,), generator=gen, device=dev) * 0.1
@@ -157,6 +196,35 @@ def _sites(n, gen):
                                                  wgt(2, 2, 128, 128),
                                                  bias(128)),
          {"head": head, "head_only": True}),
+    ]
+
+
+def _dgrad_sites(n, gen):
+    """H6's six sites in one 512² train step (n_kernels = 32): a
+    ReLU-masked bf16 cotangent g [n, hg, wg, 4O] (zero on about half the
+    elements) and the sites' bf16 packed weights."""
+    import torch
+
+    dev = gen.device
+
+    def cot(*shape):
+        g = torch.randn(shape, generator=gen, device=dev)
+        keep = torch.rand(shape, generator=gen, device=dev) > 0.5
+        return (g * keep).to(torch.bfloat16)
+
+    def w(c4, o4):
+        return _wgt(gen, 2, 2, c4, o4)
+
+    single, dual = "packed_conv2x2_dgrad", "packed_conv2x2_dgrad_dual"
+    return [
+        (single, "conv1_2", (cot(n, 254, 254, 128), w(128, 128)), {}),
+        (single, "conv2_2", (cot(n, 125, 125, 256), w(256, 256)), {}),
+        (dual, "conv8_1", (cot(n, 83, 83, 256), w(256, 256), w(256, 256)),
+         {}),
+        (single, "conv8_2", (cot(n, 82, 82, 256), w(256, 256)), {}),
+        (dual, "conv9_1", (cot(n, 163, 163, 128), w(128, 128), w(128, 128)),
+         {}),
+        (single, "conv9_2", (cot(n, 162, 162, 128), w(128, 128)), {}),
     ]
 
 
@@ -351,6 +419,175 @@ def _latency_line(tag, lat, peak):
     return mean, len(lat) * B_SERVE / sum(lat), peak / 2**20
 
 
+def _grad_agreement(got, want):
+    """Per param: (cosine, relative L2 error) of got's grad against want's."""
+    import torch
+
+    out = {}
+    for name, g in got.items():
+        g, w = g.double().flatten(), want[name].double().flatten()
+        cos = torch.nn.functional.cosine_similarity(g, w, dim=0).item()
+        out[name] = (cos, ((g - w).norm() / w.norm()).item())
+    return out
+
+
+def _train_parity(kern, plain, cfg):
+    """Phase 6a: one B = 2 batch's loss and grads, kernels vs plain
+    versions and vs the f32 plain U-Net under autograd."""
+    import torch
+
+    from segmentation_tpu_torch.data.synthetic import SyntheticSegmentation
+    from segmentation_tpu_torch.models.unet import UNet
+    from segmentation_tpu_torch.nn.shapes import center_crop_or_pad
+    from segmentation_tpu_torch.training.losses import segmentation_xentropy
+
+    batch = SyntheticSegmentation(B_TRAIN_PARITY, cfg.hw, seed=0).get_batch()
+    loss_k, grads = kern.loss_and_grads(batch)
+    grads = {n: g.clone() for n, g in grads.items()}
+    loss_p, grads_p = plain.loss_and_grads(batch)
+    rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    agree = _grad_agreement(grads, grads_p)
+    cos_min = min(agree.items(), key=lambda kv: kv[1][0])
+    rel_max = max(agree.items(), key=lambda kv: kv[1][1])
+    print(f"[train] B={B_TRAIN_PARITY} loss kernels {loss_k.item():.6f}, "
+          f"plain {loss_p.item():.6f}, rel diff {rel:.3e} (<= "
+          f"{TRAIN_LOSS_REL}); grads vs plain: min cosine {cos_min[1][0]:.6f} "
+          f"({cos_min[0]}, >= {GRAD_COS}), max rel L2 {rel_max[1][1]:.3e} "
+          f"({rel_max[0]}, <= {GRAD_REL_L2})")
+    ref = UNet(cfg, params={n: v.clone()
+                            for n, v in kern.model.param_dict().items()})
+    ref = ref.cuda()
+    for p in ref.params.values():
+        p.requires_grad_(True)
+    x = torch.as_tensor(batch["image"], device="cuda")
+    logits = ref(x)
+    mask = center_crop_or_pad(torch.as_tensor(batch["mask"], device="cuda"),
+                              logits.shape[1], logits.shape[2])
+    loss_ref = segmentation_xentropy(logits, mask, cfg.n_classes)
+    loss_ref.backward()
+    ref_agree = _grad_agreement(grads, {n: p.grad for n, p in
+                                        ref.params.items()})
+    worst = min(ref_agree.items(), key=lambda kv: kv[1][0])
+    print(f"[train] vs f32 plain U-Net: loss {loss_ref.item():.6f}; min grad "
+          f"cosine {worst[1][0]:.6f} ({worst[0]}, >= {REF_GRAD_COS})")
+    for tag, table in (("plain", agree), ("f32", ref_agree)):
+        low = sorted(table.items(), key=lambda kv: kv[1][0])[:6]
+        print(f"[train] lowest grad cosines vs {tag}: " + ", ".join(
+            f"{n} {c:.6f}/{r:.3e}" for n, (c, r) in low))
+    if rel > TRAIN_LOSS_REL:
+        raise AssertionError(f"train loss kernels vs plain: {rel}")
+    bad = {n: v for n, v in agree.items()
+           if v[0] < GRAD_COS or v[1] > GRAD_REL_L2}
+    if bad:
+        raise AssertionError(f"grads kernels vs plain: {bad}")
+    if worst[1][0] < REF_GRAD_COS:
+        raise AssertionError(f"grads vs f32 U-Net: {worst}")
+
+
+def _train_throughput(trainer, batch, tag, reset, counts):
+    """Phase 6c: 2 warm-up steps, reset the launch counts, 5 steps timed
+    by CUDA events; (ms per step, peak MiB, the timed steps' launches)."""
+    import torch
+
+    for _ in range(2):
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+    gc.collect()
+    reset()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        metrics = trainer.train_step(batch)
+    stop.record()
+    stop.synchronize()
+    launches = counts()  # the timed steps' launches alone
+    ms = start.elapsed_time(stop) / 5
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    if not math.isfinite(metrics["seg_loss"]):
+        raise AssertionError(f"{tag}: non-finite loss {metrics}")
+    print(f"[train] {tag} B={B_TRAIN} step {ms:.3f} ms, "
+          f"{B_TRAIN * 1e3 / ms:.1f} img/s, peak memory {peak:.1f} MiB; "
+          f"launches {launches}")
+    return ms, peak, launches
+
+
+def _train_phase(cf, cb):
+    """Phase 6; returns the kernel path's timed-step launches and the
+    summary numbers."""
+    import torch
+
+    from segmentation_tpu_torch.core.config import TrainConfig
+    from segmentation_tpu_torch.data.synthetic import SyntheticSegmentation
+    from segmentation_tpu_torch.models.unet_fast import UNetS2D
+    from segmentation_tpu_torch.profile_serving import profile
+    from segmentation_tpu_torch.serving import flagship_config
+    from segmentation_tpu_torch.training.trainer import SegmentationTrainer
+
+    cfg = flagship_config()
+    with tempfile.TemporaryDirectory() as tmp:
+        tcfg = TrainConfig(save_dir=tmp)
+
+        def trainer(ops, params=None):
+            model = UNetS2D(cfg, params=params, seed=tcfg.seed, ops=ops)
+            return SegmentationTrainer(model, device="cuda", train_cfg=tcfg)
+
+        kern = trainer(cf.KERNEL_OPS)
+        plain = trainer(cf.PLAIN_OPS, params=kern.model.param_dict())
+
+        # ---- 6a. one step's loss and grads ------------------------------
+        _train_parity(kern, plain, cfg)
+
+        # ---- 6b. ten Adam steps on one batch ----------------------------
+        fit = kern._place(SyntheticSegmentation(B_TRAIN_FIT, cfg.hw,
+                                                seed=1).get_batch())
+        losses = [kern.train_step(fit)["seg_loss"] for _ in range(10)]
+        print(f"[train] 10 steps on one B={B_TRAIN_FIT} batch: loss "
+              f"{[round(v, 6) for v in losses]}")
+        if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"training did not lower the loss: {losses}")
+
+        # ---- 6c. B = 128 throughput on device-resident batches ----------
+        del fit
+        big = kern._place(SyntheticSegmentation(B_TRAIN, cfg.hw,
+                                                seed=2).get_batch())
+
+        def reset():
+            cf.reset_launches()
+            cb.reset_launches()
+
+        def counts():
+            return {**cf.launches, **cb.launches}
+
+        torch.cuda.empty_cache()
+        k_ms, k_peak, launches = _train_throughput(kern, big, "kernels",
+                                                   reset, counts)
+        missing = [k for k, v in launches.items() if v == 0]
+        if missing:
+            raise AssertionError(f"train kernels never launched: {missing}")
+        torch.cuda.empty_cache()
+        p_ms, p_peak, p_launches = _train_throughput(plain, big, "plain",
+                                                     reset, counts)
+        if any(p_launches.values()):
+            raise AssertionError(f"the plain path launched {p_launches}")
+        del plain
+        torch.cuda.empty_cache()
+
+        # device busy share of the kernel path's step (profile_serving's
+        # method: the trace's device activities over the CUDA-event time)
+        wall, dev_ms, groups, rows = profile(kern.train_step, [big] * 3)
+        print(f"[train] kernels B={B_TRAIN} profile: CUDA-event ms per step "
+              f"{wall:.3f}; device ms per step {dev_ms:.3f}; busy share "
+              f"{dev_ms / wall:.3f}")
+        for g, v in sorted(groups.items(), key=lambda kv: -kv[1]):
+            print(f"[train]   {g}: {v:.3f} ms ({v / dev_ms:.3f} of device "
+                  f"time)")
+        for v, k, name in rows[:15]:  # the costliest device activities
+            print(f"[train]     {v:8.3f} ms {k:5.1f}x {name[:110]}")
+    return launches, (k_ms, k_peak, p_ms, p_peak, dev_ms / wall)
+
+
 def main() -> None:
     import torch
 
@@ -362,6 +599,7 @@ def main() -> None:
     from segmentation_tpu_torch.models.unet_fast import UNetS2DInference
     from segmentation_tpu_torch.models.unet_int8 import UNetS2DInt8
     from segmentation_tpu_torch.nn.kernels import _build
+    from segmentation_tpu_torch.nn.kernels import conv_bwd as cb
     from segmentation_tpu_torch.nn.kernels import conv_flat as cf
     from segmentation_tpu_torch.nn.kernels import conv_int8 as ci
     from segmentation_tpu_torch.serving import Server, entry
@@ -394,8 +632,9 @@ def main() -> None:
 
     # ---- 3. kernel parity (N = 2 and B = 8) and timing (B = 8) ----------
     worst, ms, plain_ms = _kernel_phase(cf, _sites)
-    for k, v in zip(_kernel_phase(ci, _sites8), (worst, ms, plain_ms)):
-        v.update(k)
+    for mod, sites in ((ci, _sites8), (cb, _dgrad_sites)):
+        for k, v in zip(_kernel_phase(mod, sites), (worst, ms, plain_ms)):
+            v.update(k)
 
     # ---- 4. slice: 4 requests of B = 8 ---------------------------------
     torch.cuda.empty_cache()
@@ -496,17 +735,35 @@ def main() -> None:
                              f"correlation {corr8}")
     int8_e2e = _latency_line("int8", lat8, peak8)
 
-    # ---- 5. results -----------------------------------------------------
+    # ---- 5. serving results ----------------------------------------------
     for tag, (mean, ips, mib) in (("bf16", bf16_e2e), ("int8", int8_e2e)):
         print(f"[summary] {smi}: {tag} B={B_SERVE} latency {mean:.3f} ms, "
               f"{ips:.1f} img/s, peak {mib:.1f} MiB")
-    counts.update(counts8)
-    kernels = [
-        {"name": k, "route": "cuda", "source": SOURCES[k],
-         "replaces": REPLACES[k], "launches": counts[k],
-         "max_abs_err": worst[k], "ms": ms[k], "plain_ms": plain_ms[k]}
-        for k in cf.NAMES + ci.NAMES
-    ]
+    del server8, plain8
+    torch.cuda.empty_cache()
+
+    # ---- 6. the training slice -------------------------------------------
+    train_counts, (k_ms, k_peak, p_ms, p_peak, busy) = _train_phase(cf, cb)
+    print(f"[summary] {smi}: train B={B_TRAIN} step kernels {k_ms:.3f} ms "
+          f"({B_TRAIN * 1e3 / k_ms:.1f} img/s, peak {k_peak:.1f} MiB), plain "
+          f"{p_ms:.3f} ms ({B_TRAIN * 1e3 / p_ms:.1f} img/s, peak "
+          f"{p_peak:.1f} MiB); device busy share {busy:.3f}")
+
+    # launches: each path's counted run (the 4 bf16 and the 4 int8
+    # requests, the 5 timed B = 128 train steps) per kernel; ``launches``
+    # is the count of this slice's path, the train steps, where the kernel
+    # runs there, else of the serving path it runs on
+    by_path = {"serve_bf16": counts, "serve_int8": counts8,
+               "train": train_counts}
+    kernels = []
+    for k in cf.NAMES + ci.NAMES + cb.NAMES:
+        paths = {tag: c[k] for tag, c in by_path.items() if k in c}
+        kernels.append({
+            "name": k, "route": "cuda", "source": SOURCES[k],
+            "replaces": REPLACES[k],
+            "launches": paths.get("train", sum(paths.values())),
+            "launches_by_path": paths, "max_abs_err": worst[k],
+            "ms": ms[k], "plain_ms": plain_ms[k]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,11 @@
-"""Model configuration (the fields of segmentation_tpu.core.config.ModelConfig
-that the U-Net serving path reads, with the same names and defaults)."""
+"""Model and trainer configuration (the fields of
+segmentation_tpu.core.config.ModelConfig and TrainConfig that the U-Net
+serving and training paths read, with the same names and defaults)."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 
 def _as_hw(dims) -> Tuple[int, int]:
@@ -28,3 +29,21 @@ class ModelConfig:
     @property
     def hw(self) -> Tuple[int, int]:
         return _as_hw(self.input_dims)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    mode: str = "TRAINING"  # 'TRAINING' | 'INFERENCE'
+    save_dir: str = "./snapshot"
+    learning_rate: float = 1e-4
+    adam_beta1: float = 0.9
+    load_snapshot: bool = False
+    load_snapshot_from: Optional[str] = None
+    max_to_keep: int = 1
+    # the seed of the model's fresh params: UNetS2D(cfg, seed=train_cfg.seed)
+    seed: int = 0
+    compute_dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    # split each batch into k microbatches, average their grads, take one
+    # optimizer step (the batch must divide by k)
+    grad_accum: int = 1

@@ -23,7 +23,7 @@ _TPU_ONLY = ("we", "wh", "wl")
 def params_from_jax(params: Mapping[str, np.ndarray]
                     ) -> Dict[str, torch.Tensor]:
     """JAX params (numpy or jax arrays, by name) → float32 port params."""
-    return {name: torch.as_tensor(np.asarray(v, np.float32))
+    return {name: torch.tensor(np.asarray(v, np.float32))
             for name, v in params.items()}
 
 

@@ -17,25 +17,42 @@ topology; the padded-flat (PadFlat/PF2) layouts and their gates are TPU
 devices and are not ported. Each packed site calls one op of ``ops``:
 the hand kernels by default, their plain versions with ``PLAIN_OPS``.
 Every conv site goes through a hook method (``_strided``, ``_conv_pool``,
-``_dual``, ...), which the int8 subclass (models/unet_int8.py) overrides.
+``_dual``, ...), which the int8 subclass (models/unet_int8.py) and the
+training hooks (``UNetS2DTrain``) override.
+
+``UNetS2D`` is the trainable model: an ``nn.Module`` holding the f32 U-Net
+params, whose forward packs the weights differentiably (a gather of the
+[3, 3, C, O] kernels) and runs ``apply`` through the train hooks: each
+packed site a ``torch.autograd.Function`` of nn/kernels/train.py (H1–H4
+forward, H6 input grads), the pool an argmax-index ``pool4_select``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict
 
 import numpy as np
 import torch
+from torch import nn
 
 from segmentation_tpu_torch.core.config import ModelConfig
-from segmentation_tpu_torch.nn.kernels.conv_flat import KERNEL_OPS, Ops
+from segmentation_tpu_torch.core.rng import generator
+from segmentation_tpu_torch.models.unet import init_params, unet_param_shapes
+from segmentation_tpu_torch.nn.kernels import train as kt
+from segmentation_tpu_torch.nn.kernels.conv_flat import (
+    KERNEL_OPS,
+    Ops,
+    _conv_nhwc,
+)
 from segmentation_tpu_torch.nn.layers import (
     conv2d,
     conv2d_transpose,
     max_pool,
 )
 from segmentation_tpu_torch.nn.packing import (  # noqa: F401 (re-export)
+    crop_packed,
     pack2,
     unpack2,
     view5,
@@ -75,6 +92,81 @@ def pack_conv3_weight_s2(w: np.ndarray) -> np.ndarray:
         for e in range(2):
             k4[d : d + 3, e : e + 3, :, 2 * d + e, :] = w
     return k4.reshape(4, 4, c, 4 * o)
+
+
+@functools.lru_cache(None)
+def _pack_index(s2: bool, device: torch.device):
+    """(ky, kx, valid) of the packed kernels, built once per device: tap
+    (ky, kx) of the [3, 3, C, O] kernel that each packed (position, slot
+    pair) reads, and whether it lies in the 3×3 window.
+      2×2 over 4C → 4O: [u, v, s_in, s_out], ky = 2u + a - d, kx = 2v + b - e
+      4×4/2 → 4O:      [u, v, s_out],       ky = u - d,      kx = v - e
+    with slots s_in = 2a + b, s_out = 2d + e."""
+    if s2:
+        u, v, s = np.ix_(range(4), range(4), range(4))
+        ky, kx = u - s // 2, v - s % 2
+    else:
+        u, v, si, so = np.ix_(range(2), range(2), range(4), range(4))
+        ky, kx = 2 * u + si // 2 - so // 2, 2 * v + si % 2 - so % 2
+    valid = (ky >= 0) & (ky < 3) & (kx >= 0) & (kx < 3)
+    return tuple(torch.as_tensor(a, device=device) for a in
+                 (np.clip(ky, 0, 2), np.clip(kx, 0, 2), valid))
+
+
+def _gather_taps(w: torch.Tensor, s2: bool) -> torch.Tensor:
+    ky, kx, valid = _pack_index(s2, w.device)
+    taps = w[ky, kx]  # [..index.., C, O]
+    return torch.where(valid[..., None, None], taps, taps.new_zeros(()))
+
+
+def pack_conv3_weight_t(w: torch.Tensor) -> torch.Tensor:
+    """pack_conv3_weight as a differentiable gather + mask of a [3, 3, C, O]
+    tensor (segmentation_tpu.models.unet_fast.pack_conv3_weight_jnp)."""
+    c, o = w.shape[2], w.shape[3]
+    w2 = _gather_taps(w, False)  # [u, v, s_in, s_out, C, O]
+    return w2.permute(0, 1, 2, 4, 3, 5).reshape(2, 2, 4 * c, 4 * o)
+
+
+def pack_conv3_weight_s2_t(w: torch.Tensor) -> torch.Tensor:
+    """pack_conv3_weight_s2 as a differentiable gather + mask
+    (pack_conv3_weight_s2_jnp)."""
+    c, o = w.shape[2], w.shape[3]
+    w4 = _gather_taps(w, True)  # [u, v, s_out, C, O]
+    return w4.permute(0, 1, 3, 2, 4).reshape(4, 4, c, 4 * o)
+
+
+class _Pool4Select(torch.autograd.Function):
+    """2×2/2 max pool of a flat packed tensor (the max over its 4 slots)
+    that saves only the winning slot's int8 index: the first slot that
+    attains the max (strict >), so that tied post-ReLU zeros send their
+    grad where the JAX package's pool4_select does."""
+
+    @staticmethod
+    def forward(ctx, x4):
+        c = x4.shape[-1] // 4
+        y = x4[..., :c]
+        idx = torch.zeros(y.shape, dtype=torch.int8, device=x4.device)
+        for s in range(1, 4):
+            sl = x4[..., s * c : (s + 1) * c]
+            idx.masked_fill_(sl > y, s)
+            y = torch.maximum(y, sl)
+        ctx.save_for_backward(idx)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        n, hp, wp, c = g.shape
+        slots = torch.arange(4, dtype=torch.int8, device=g.device)
+        d5 = torch.where(idx[..., None, :] == slots[:, None],
+                         g[..., None, :], 0.0)
+        return d5.reshape(n, hp, wp, 4 * c)
+
+
+def pool4_select(x4: torch.Tensor) -> torch.Tensor:
+    """[N, hp, wp, 4C] → [N, hp, wp, C], the argmax-index pool
+    (segmentation_tpu.models.unet_fast.pool4_select)."""
+    return _Pool4Select.apply(x4)
 
 
 def tile_bias4(b: torch.Tensor) -> torch.Tensor:
@@ -298,3 +390,102 @@ class UNetS2DInference:
 
     def output_hw(self, in_hw):
         return unet_output_hw(in_hw, self.levels)
+
+
+@dataclasses.dataclass
+class UNetS2DTrain(UNetS2DInference):
+    """The train route's hooks (the JAX UNetS2DInference with
+    pallas_vjp=True, pool_select_vjp=True, allow_pallas=False): every
+    packed site runs its autograd.Function over ``ops``, with no shape
+    gate: on CUDA tensors the kernels, whose wrappers raise for a shape
+    they do not take; on CPU tensors their plain versions. The image entry
+    (conv1_1, C = 3) runs plain PyTorch ops in the compute dtype, as the
+    JAX package leaves it to XLA."""
+
+    def _encode_packed(self, p, lvl, h):
+        name = f"conv{lvl + 1}_1"
+        if lvl == 0:
+            y = _conv_nhwc(h, p[f"{name}/w4"], 2)
+            h4 = torch.relu(y + p[f"{name}/b4"].to(y.dtype))
+        else:
+            h4 = self._strided(p, name, h)
+        h4 = self._packed_conv(p, f"conv{lvl + 1}_2", h4)
+        return h4, pool4_select(h4)
+
+    def _strided(self, p, name, h):
+        return kt.conv4x4s2_t(h, p[f"{name}/w4"], p[f"{name}/b4"],
+                              ops=self.ops)
+
+    def _packed_conv(self, p, name, h4):
+        return kt.conv2x2_t(h4, p[f"{name}/w2"], p[f"{name}/b4"],
+                            ops=self.ops)
+
+    def _deconv(self, p, up, h, scatter):
+        f = kt.deconv_packed_t if scatter else kt.matmul_rows_t
+        return f(h, p[f"{up}/wm"], p[f"{up}/b4"], ops=self.ops)
+
+    def _dual(self, p, name, skip, h4, offset):
+        sk = crop_packed(skip, h4.shape, offset)  # materialized, as in JAX
+        return kt.conv2x2_dual_t(sk, h4, p[f"{name}/w2a"], p[f"{name}/w2b"],
+                                 p[f"{name}/b4"], ops=self.ops)
+
+
+class UNetS2D(nn.Module):
+    """Trainable space-to-depth U-Net (segmentation_tpu.models.unet_fast.
+    UNetS2D): the U-Net's params under its names and HWIO shapes (so
+    checkpoints interchange with models.unet.UNet and the JAX package),
+    and a packed forward. Needs an even input H/W.
+
+    ``ops``: the hand kernels by default; ``PLAIN_OPS`` runs the same step
+    on their plain versions."""
+
+    IN_OUT_CROP = True
+    model_name = "unet"  # checkpoint-compatible with the standard U-Net
+
+    def __init__(self, cfg: ModelConfig, levels: int = 4,
+                 params: Dict[str, torch.Tensor] = None, seed: int = 0,
+                 ops: Ops = KERNEL_OPS):
+        super().__init__()
+        self.cfg, self.levels = cfg, levels
+        if params is None:
+            params = init_params(cfg, generator(seed), levels)
+        names = [n for n, _ in unet_param_shapes(cfg, levels)]
+        if set(params) != set(names):
+            raise ValueError("params do not match the U-Net's names")
+        self.params = nn.ParameterDict({
+            n: nn.Parameter(torch.as_tensor(params[n], dtype=torch.float32))
+            for n in names})
+        self.net = UNetS2DTrain(cfg, levels, ops=ops)
+
+    def output_hw(self, in_hw):
+        return unet_output_hw(in_hw, self.levels)
+
+    def param_dict(self) -> Dict[str, torch.Tensor]:
+        return {n: p.detach() for n, p in self.params.items()}
+
+    def packed(self) -> Dict[str, torch.Tensor]:
+        """The params plus the packed weights and tiled biases of the
+        packed sites, every one differentiable in the params."""
+        p = dict(self.params.items())
+        entry, packed, dual, ups = self.net._site_names()
+        for name in entry:
+            p[f"{name}/w4"] = pack_conv3_weight_s2_t(p[f"{name}/w"])
+        for name in packed:
+            p[f"{name}/w2"] = pack_conv3_weight_t(p[f"{name}/w"])
+        for name in dual:
+            w = p[f"{name}/w"]
+            ci = w.shape[2] // 2  # input = concat(skip C, up C)
+            p[f"{name}/w2a"] = pack_conv3_weight_t(w[:, :, :ci])
+            p[f"{name}/w2b"] = pack_conv3_weight_t(w[:, :, ci:])
+        for name in ups:
+            w = p[f"{name}/w"]
+            c, o = w.shape[2], w.shape[3]
+            p[f"{name}/wm"] = w.permute(2, 0, 1, 3).reshape(c, 4 * o)
+        for name in entry + packed + dual + ups:
+            p[f"{name}/b4"] = tile_bias4(p[f"{name}/b"])
+        return p
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x [N, H, W, C] in the compute dtype → logits [N, h, w,
+        n_classes]."""
+        return self.net.apply(self.packed(), x)

@@ -6,7 +6,8 @@ objects into one shared library with a plain C interface, which is
 loaded with ``ctypes`` (no PyTorch headers: a build takes seconds, not
 minutes). The library lands in ``csrc/build/`` under a name keyed by a
 hash of the sources and flags, so an edited source never loads a stale
-build. Nothing is built or loaded at import time.
+build. Nothing is built or loaded at import time. The helpers at the end
+are the wrappers' shared checks and ctypes arguments.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import tempfile
 import time
 from pathlib import Path
 from typing import Optional
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -40,6 +43,7 @@ _SIGNATURES = {
     "seg_strided_conv4x4s2_s8": [_P] * 5 + [_I] * 5 + [_P],
     "seg_rows_matmul_s8": [_P] * 5 + [_I] * 6 + [_P],
     "seg_entry_chain": [_P] * 9 + [_I] * 3 + [_P],
+    "seg_packed_conv2x2_dgrad": [_P] * 4 + [_I] * 5 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -134,3 +138,32 @@ def check(err: int, what: str) -> None:
     if err != 0:
         msg = library().seg_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+# ------------------------------------------------------------ wrapper helpers
+def _on_cpu(x: torch.Tensor) -> bool:
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    return False
+
+
+def _require(t, name, dtype, shape, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream

@@ -22,12 +22,24 @@ activations and weights, f32 bias; every tensor contiguous.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from segmentation_tpu_torch.nn.kernels import _build
+from segmentation_tpu_torch.nn.kernels._build import (
+    _on_cpu,
+    _ptr,
+    _require,
+    _stream,
+)
+from segmentation_tpu_torch.nn.kernels.conv_bwd import (
+    packed_conv2x2_dgrad,
+    packed_conv2x2_dgrad_dual,
+    packed_conv2x2_dgrad_dual_plain,
+    packed_conv2x2_dgrad_plain,
+)
 from segmentation_tpu_torch.nn.packing import crop_packed, unpack2
 
 NAMES = ("packed_conv2x2", "packed_conv2x2_dual", "strided_conv4x4s2",
@@ -92,37 +104,9 @@ def rows_matmul_plain(x, wm, b4, *, scatter=False):
 
 
 # ------------------------------------------------------------ kernel wrappers
-def _on_cpu(x: torch.Tensor) -> bool:
-    if x.device.type == "cpu":
-        return True
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
-    return False
-
-
-def _require(t, name, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _o4_ok(o4, name):
     if o4 not in (128, 256):
         raise ValueError(f"{name}: 4O = {o4}; the kernel takes 128 or 256")
-
-
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
-
-
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def packed_conv2x2(x, w2, b4, *, pool=False, head=None, head_only=False):
@@ -257,15 +241,20 @@ def rows_matmul(x, wm, b4, *, scatter=False):
 
 
 class Ops(NamedTuple):
-    """The four packed-site ops a model runs through."""
+    """The packed-site ops a model runs through: the four forward ops and
+    the input grads of the 2×2 sites (H6, conv_bwd.py), which training
+    runs."""
 
     packed_conv2x2: Callable
     packed_conv2x2_dual: Callable
     strided_conv4x4s2: Callable
     rows_matmul: Callable
+    packed_conv2x2_dgrad: Callable
+    packed_conv2x2_dgrad_dual: Callable
 
 
 KERNEL_OPS = Ops(packed_conv2x2, packed_conv2x2_dual, strided_conv4x4s2,
-                 rows_matmul)
+                 rows_matmul, packed_conv2x2_dgrad, packed_conv2x2_dgrad_dual)
 PLAIN_OPS = Ops(packed_conv2x2_plain, packed_conv2x2_dual_plain,
-                strided_conv4x4s2_plain, rows_matmul_plain)
+                strided_conv4x4s2_plain, rows_matmul_plain,
+                packed_conv2x2_dgrad_plain, packed_conv2x2_dgrad_dual_plain)

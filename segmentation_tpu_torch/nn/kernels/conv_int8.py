@@ -44,14 +44,16 @@ from typing import Callable, NamedTuple
 import torch
 
 from segmentation_tpu_torch.nn.kernels import _build
-from segmentation_tpu_torch.nn.kernels.conv_flat import (
-    _conv_nhwc,
-    _head_mask,
-    _o4_ok,
+from segmentation_tpu_torch.nn.kernels._build import (
     _on_cpu,
     _ptr,
     _require,
     _stream,
+)
+from segmentation_tpu_torch.nn.kernels.conv_flat import (
+    _conv_nhwc,
+    _head_mask,
+    _o4_ok,
 )
 from segmentation_tpu_torch.nn.packing import crop_packed, unpack2
 

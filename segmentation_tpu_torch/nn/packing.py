@@ -34,9 +34,20 @@ def view5(x4: torch.Tensor, c: int) -> torch.Tensor:
 
 def crop_packed(skip: torch.Tensor, shape, offset) -> torch.Tensor:
     """Packed skip [N, hpa, wpa, 4C] center-cropped at the UNPACKED offset
-    (oh, ow) to the packed ``shape`` [N, hp, wp, 4C]: even offsets are a
-    packed slice, odd ones a slot phase."""
+    (oh, ow) to the packed ``shape`` [N, hp, wp, 4C]
+    (segmentation_tpu.models.unet_fast.packed_center_crop_flat): even
+    offsets are a packed slice (a view), odd ones a slot phase, where
+    output slot (d, e) reads input slot ((oh+d) % 2, (ow+e) % 2) at packed
+    offset ((oh+d) // 2, (ow+e) // 2)."""
     n, hp, wp, c4 = shape
     oh, ow = offset
-    sk = unpack2(skip.reshape(*skip.shape[:3], 4, c4 // 4))
-    return pack2(sk[:, oh : oh + 2 * hp, ow : ow + 2 * wp]).reshape(shape)
+    if oh % 2 == 0 and ow % 2 == 0:
+        return skip[:, oh // 2 : oh // 2 + hp, ow // 2 : ow // 2 + wp]
+    x5 = view5(skip, c4 // 4)
+    slots = []
+    for d in range(2):
+        for e in range(2):
+            ro, co = (oh + d) // 2, (ow + e) // 2
+            src = 2 * ((oh + d) % 2) + (ow + e) % 2
+            slots.append(x5[:, ro : ro + hp, co : co + wp, src])
+    return torch.stack(slots, dim=3).reshape(n, hp, wp, c4)

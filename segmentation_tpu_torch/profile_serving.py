@@ -27,8 +27,10 @@ import collections
 from typing import Dict, Iterable, List, Tuple
 
 # hand kernels by the name of their __global__ function (csrc/*.cu); the
-# dual's name holds the plain conv's, so it is matched first
+# dual's and the dgrad's names hold the plain conv's, so they are matched
+# first
 HAND = (("entry_chain", "H5 entry_chain"),
+        ("packed_conv2x2_dgrad", "H6 packed_conv2x2_dgrad"),
         ("packed_conv2x2_dual", "H2 packed_conv2x2_dual"),
         ("packed_conv2x2", "H1 packed_conv2x2"),
         ("strided_conv4x4s2", "H3 strided_conv4x4s2"),
@@ -84,7 +86,8 @@ def breakdown(events, n: int) -> Tuple[float, Dict[str, float], List]:
 
 def profile(server, reqs):
     """(CUDA-event ms per request untraced, device ms per request, groups,
-    rows) over ``reqs``, after two warm-up requests."""
+    rows) over ``reqs``, after two warm-up requests. ``server`` is any
+    callable of one request (chip_smoke.py passes a trainer's step)."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as trace

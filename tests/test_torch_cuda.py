@@ -251,3 +251,184 @@ def test_int8_forward_kernels_vs_plain(gen):
     plain = UNetS2DInt8(cfg, ops=cf.PLAIN_OPS, ops8=ci.PLAIN_OPS)
     want = plain.apply_argmax(prepared, x)
     assert (got == want).float().mean().item() >= 0.99
+
+
+# ------------------------------------------------------------- training
+def _cot(gen, *shape):
+    """A ReLU-masked cotangent: normal, zero on about half the elements."""
+    g = torch.randn(shape, generator=gen, device="cuda")
+    keep = torch.rand(shape, generator=gen, device="cuda") > 0.5
+    return (g * keep).to(torch.bfloat16)
+
+
+# g's shape and 4C at the 512² sites (N = 1), and ragged pixel counts
+# M = N (hg+1)(wg+1) for both tile heights
+DGRAD = {"conv1_2": ((1, 254, 254, 128), 128),
+         "conv2_2": ((1, 125, 125, 256), 256),
+         "conv8_2": ((1, 82, 82, 256), 256),
+         "conv9_2": ((1, 162, 162, 128), 128),
+         "ragged 4C=128": ((2, 6, 10, 128), 128),
+         "ragged 4C=256": ((1, 4, 6, 256), 256)}
+DGRAD_DUAL = {"conv8_1": ((1, 83, 83, 256), 256),
+              "conv9_1": ((1, 163, 163, 128), 128),
+              "ragged 4C=128": ((2, 5, 9, 256), 128),
+              "ragged 4C=256": ((1, 3, 4, 128), 256)}
+
+
+@pytest.mark.parametrize("site", list(DGRAD))
+def test_packed_conv2x2_dgrad_kernel(gen, site):
+    from segmentation_tpu_torch.nn.kernels import conv_bwd as cb
+
+    shape, c4 = DGRAD[site]
+    g, w = _cot(gen, *shape), _wgt(gen, 2, 2, c4, shape[-1])
+    _check(cb.packed_conv2x2_dgrad(g, w), cb.packed_conv2x2_dgrad_plain(g, w))
+
+
+@pytest.mark.parametrize("site", list(DGRAD_DUAL))
+def test_packed_conv2x2_dgrad_dual_kernel(gen, site):
+    from segmentation_tpu_torch.nn.kernels import conv_bwd as cb
+
+    shape, c4 = DGRAD_DUAL[site]
+    g = _cot(gen, *shape)
+    wa, wb = (_wgt(gen, 2, 2, c4, shape[-1]) for _ in range(2))
+    _check(cb.packed_conv2x2_dgrad_dual(g, wa, wb),
+           cb.packed_conv2x2_dgrad_dual_plain(g, wa, wb))
+
+
+def _fn_operands(gen, site):
+    def act(*s):
+        return _act(gen, *s).requires_grad_()
+
+    def wgt(*s):
+        return _wgt(gen, *s).float().requires_grad_()
+
+    # biases of ±4 keep every pre-activation far from 0, so that bf16
+    # rounding in either forward flips no ReLU mask; half the outputs are 0
+    o4 = 256 if site != "deconv_packed_t" else 128
+    b = 4.0 - 8.0 * (torch.arange(o4, device="cuda") % 2).float()
+    return {
+        "conv2x2_t": (act(2, 13, 21, 128), wgt(2, 2, 128, 256)),
+        "conv2x2_dual_t": (act(2, 9, 11, 256), act(2, 9, 11, 256),
+                           wgt(2, 2, 256, 256), wgt(2, 2, 256, 256)),
+        "conv4x4s2_t": (act(2, 22, 20, 32), wgt(4, 4, 32, 256)),
+        "matmul_rows_t": (act(2, 7, 9, 128), wgt(128, 256)),
+        "deconv_packed_t": (act(2, 7, 9, 256), wgt(64, 128)),
+    }[site] + (b.requires_grad_(),)
+
+
+@pytest.mark.parametrize("site", ["conv2x2_t", "conv2x2_dual_t",
+                                  "conv4x4s2_t", "matmul_rows_t",
+                                  "deconv_packed_t"])
+def test_train_function_kernels_vs_plain(gen, site):
+    """Value and the grads to every operand, on the kernels (H1–H4
+    forward, H6 dgrad) against the same Function on the plain versions."""
+    from segmentation_tpu_torch.nn.kernels import train as kt
+
+    fn = getattr(kt, site)
+    args = _fn_operands(gen, site)
+    outs, grads = [], []
+    for kw in ({}, {"ops": cf.PLAIN_OPS}):
+        for a in args:
+            a.grad = None
+        y = fn(*args, **kw)
+        cot = torch.randn(y.shape, generator=generator(1, "cuda"),
+                          device="cuda")
+        (y.float() * cot).sum().backward()
+        outs.append(y.detach())
+        grads.append([a.grad.clone() for a in args])
+    _check(outs[0], outs[1])
+    for g, w in zip(*grads):
+        _check(g, w)
+
+
+def _step_grads(hw, save_dir):
+    """One bf16 train step's loss and param grads (the flagship, n_kernels
+    = 32 and 4 levels, at hw², B = 2, the xentropy objective on a
+    synthetic batch) on the kernels and on the plain versions, from the
+    same params; and the f32 plain U-Net's grads under autograd. Every
+    kernel must launch in the kernel path's step."""
+    from segmentation_tpu_torch.core.config import ModelConfig, TrainConfig
+    from segmentation_tpu_torch.data.synthetic import SyntheticSegmentation
+    from segmentation_tpu_torch.models.unet import UNet
+    from segmentation_tpu_torch.models.unet_fast import UNetS2D
+    from segmentation_tpu_torch.nn.kernels import conv_bwd as cb
+    from segmentation_tpu_torch.nn.shapes import center_crop_or_pad
+    from segmentation_tpu_torch.training.losses import segmentation_xentropy
+    from segmentation_tpu_torch.training.trainer import SegmentationTrainer
+
+    cfg = ModelConfig(n_classes=2, input_dims=(hw, hw), n_kernels=32)
+    batch = SyntheticSegmentation(2, (hw, hw), seed=3).get_batch()
+    out = []
+    for ops in (cf.KERNEL_OPS, cf.PLAIN_OPS):
+        trainer = SegmentationTrainer(
+            UNetS2D(cfg, seed=1, ops=ops), device="cuda",
+            train_cfg=TrainConfig(save_dir=str(save_dir)))
+        cf.reset_launches()
+        cb.reset_launches()
+        loss, grads = trainer.loss_and_grads(batch)
+        if ops is cf.KERNEL_OPS:
+            assert all(v > 0 for v in cf.launches.values()), cf.launches
+            assert all(v > 0 for v in cb.launches.values()), cb.launches
+        out.append((loss.item(), grads))
+    ref = UNet(cfg, params=trainer.model.param_dict()).cuda()
+    for p in ref.params.values():
+        p.requires_grad_(True)
+    logits = ref(torch.as_tensor(batch["image"], device="cuda"))
+    mask = center_crop_or_pad(torch.as_tensor(batch["mask"], device="cuda"),
+                              logits.shape[1], logits.shape[2])
+    segmentation_xentropy(logits, mask, 2).backward()
+    return out, {n: p.grad for n, p in ref.params.items()}
+
+
+def _agree(got, want):
+    """(cosine, relative L2 error) of got against want."""
+    g, w = got.double().flatten(), want.double().flatten()
+    cos = torch.nn.functional.cosine_similarity(g, w, dim=0).item()
+    return cos, ((g - w).norm() / w.norm()).item()
+
+
+def test_unet_s2d_step_kernels_vs_plain(gen, tmp_path):
+    """The 512² step on the kernels against the same trainer on the plain
+    versions, at chip_smoke.py's bars: the loss agrees to 1e-2 relative,
+    each param's grad has cosine >= 0.999 and relative L2 error <= 5e-2."""
+    ((loss_k, g_k), (loss_p, g_p)), _ = _step_grads(512, tmp_path)
+    assert abs(loss_k - loss_p) <= 1e-2 * abs(loss_p)
+    for n, g in g_k.items():
+        cos, rel = _agree(g, g_p[n])
+        assert cos >= 0.999 and rel <= 5e-2, (n, cos, rel)
+
+
+def test_unet_s2d_step_208_no_further_from_f32_than_plain(gen, tmp_path):
+    """At 208² (the output is 20², and on either path the bf16 grads of the
+    worst params lie 13–28 % in relative L2 from the f32 U-Net's) the 512² bar
+    fails even between two plain-version runs that differ only in the
+    batch split. So each param's grad is held against the f32 plain U-Net:
+    the kernel path's relative L2 error may be at most 1.5x the plain
+    path's, plus 2e-3 (six seeds on the card gave at most 1.29x), and the
+    median over the params of its error against the plain path at most
+    5e-2 (at most 2.7e-2 seen)."""
+    ((loss_k, g_k), (loss_p, g_p)), g_f32 = _step_grads(208, tmp_path)
+    assert abs(loss_k - loss_p) <= 1e-2 * abs(loss_p)
+    vs_plain = []
+    for n, g in g_k.items():
+        rel_k, rel_p = _agree(g, g_f32[n])[1], _agree(g_p[n], g_f32[n])[1]
+        assert rel_k <= 1.5 * rel_p + 2e-3, (n, rel_k, rel_p)
+        vs_plain.append(_agree(g, g_p[n])[1])
+    vs_plain.sort()
+    assert vs_plain[len(vs_plain) // 2] <= 5e-2, vs_plain
+
+
+def test_unet_s2d_shape_outside_kernels_raises(gen):
+    """On the card the train hooks have no shape gate and no plain branch
+    but the C = 3 entry: n_kernels = 16 gives 4O = 64 at conv1_2, which H1
+    does not take, so the step raises instead of training on cuDNN."""
+    from segmentation_tpu_torch.core.config import ModelConfig
+    from segmentation_tpu_torch.models.unet_fast import UNetS2D
+
+    cfg = ModelConfig(n_classes=2, input_dims=(92, 92), n_kernels=16)
+    model = UNetS2D(cfg, levels=2).cuda()
+    x = _act(gen, 1, 92, 92, 3)
+    cf.reset_launches()
+    with pytest.raises(ValueError, match="4O = 64"):
+        model(x)
+    assert not any(cf.launches.values()), cf.launches

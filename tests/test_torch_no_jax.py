@@ -17,6 +17,12 @@ _PROBE = textwrap.dedent("""
     import segmentation_tpu_torch
     import segmentation_tpu_torch.serving
     import segmentation_tpu_torch.profile_serving
+    import tempfile
+    from segmentation_tpu_torch.core.config import TrainConfig
+    from segmentation_tpu_torch.data.synthetic import SyntheticSegmentation
+    from segmentation_tpu_torch.models.unet_fast import UNetS2D
+    from segmentation_tpu_torch.nn.kernels import conv_bwd as cb
+    from segmentation_tpu_torch.training.trainer import SegmentationTrainer
     from segmentation_tpu_torch.nn.kernels import _build
     from segmentation_tpu_torch.nn.kernels import conv_flat as cf
     from segmentation_tpu_torch.nn.kernels import conv_int8 as ci
@@ -46,6 +52,17 @@ _PROBE = textwrap.dedent("""
     assert set(prepared) == keys  # planned at prepare, not in the forward
     assert tuple(mask.shape) == (1, 4, 4), mask.shape
     assert all(v == 0 for v in ci.launches.values()), ci.launches
+
+    # one bf16 train step of the trainable model (every packed site on its
+    # Function, on the plain versions)
+    cfg92 = ModelConfig(n_classes=2, input_dims=(92, 92), n_kernels=32)
+    trainer = SegmentationTrainer(
+        UNetS2D(cfg92, levels=2), SyntheticSegmentation(1, (92, 92)),
+        train_cfg=TrainConfig(save_dir=tempfile.mkdtemp()))
+    loss = trainer.train_step()["seg_loss"]
+    assert 0.0 < loss < 10.0, loss
+    assert all(v == 0 for v in cb.launches.values()), cb.launches
+    assert all(v == 0 for v in cf.launches.values()), cf.launches
     assert not _build.loaded()
     assert not _build.BUILD_DIR.exists() or not any(
         _build.BUILD_DIR.glob("*.so.tmp"))
