@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's U-Net 512² serving and training paths once on
-one NVIDIA GPU.
+"""Drive the PyTorch port's U-Net 512² serving, training and data paths once
+on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -11,7 +11,12 @@ Phases (each prints its lines; any failure raises and exits non-zero):
   3. kernels — each bf16 kernel against its plain PyTorch version at the
                512² sites' shapes (N = 2 and B = 8), every mode on the
                path, then each site's time at B = 8 against the plain
-               version's (CUDA events; the first launches warm up);
+               version's and against the one PyTorch call that computes
+               the site's function on the unpacked tensors (F.conv2d,
+               F.conv_transpose2d; CUDA events, in turns), beside its
+               bound (the larger of its bytes over the HBM rate and its
+               operations of the site's function, not of its packed form,
+               over the tensor cores' peak);
   3b.        — the same for the int8 path: H5 and the int8 modes of H1–H4
                at every int8 site;
   3c.        — the same for H6 (the packed-conv input grad), single and
@@ -37,6 +42,19 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                launches alone are counted (every training kernel must have
                launched), on both paths, then the device busy share of the
                kernel path's step;
+  7. data    — (a) H7 (crop_normalize) against its plain version at the
+               data path's shape, B = 128 staging tiles of 600²×3 and
+               600²×1, crop 512, mixed flips, bf16, f32 and u8 out: exact;
+               timed beside its bound; (b) the data path into the
+               flagship trainer: GeneratorDataSet over seeded 600² u8
+               tiles → DevicePrefetcher (pinned, side stream) →
+               fused_augment (H7) → train_step at B = 128, 2 warm-up then
+               5 timed steps whose launches alone are counted (H1–H4, H6
+               and H7 must launch), the busy share, the pinned H2D rate;
+               (c) 48 PNG pairs of 600² on disk → the native u8 loader
+               alone at 1, 2 and 4 threads, then → prefetcher → H7 →
+               trainer at B = 16; skipped with g++'s error on one line
+               where the native loader cannot build;
   then the kernels' JSON line and {"ok": true, "device": {...}} last.
 """
 
@@ -45,12 +63,15 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import re
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 B_PARITY, B_SERVE, HW = 2, 8, 512
 # bf16 outputs: the kernel and the plain version round the same f32 sum
@@ -87,6 +108,12 @@ TRAIN_LOSS_REL = 1e-2
 GRAD_COS, GRAD_REL_L2 = 0.999, 5e-2
 REF_GRAD_COS = 0.98
 B_TRAIN_PARITY, B_TRAIN_FIT, B_TRAIN = 2, 16, 128
+# the data path: 600² staging tiles (the JAX bench's files, bench.py:865),
+# the disk phase at the JAX bench's pipeline batch (bench.py:907)
+TILE, B_DISK, N_DISK_FILES, DATA_SEED = 600, 16, 48, 3
+# the card's published peaks (NVIDIA's data sheet, H100 SXM, dense, 700 W)
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"bf16": 989e12, "s8": 1979e12, "f32": 67e12}
 
 SOURCES = {k: f"segmentation_tpu_torch/csrc/{k}.cu" for k in (
     "packed_conv2x2", "packed_conv2x2_dual", "strided_conv4x4s2",
@@ -95,6 +122,7 @@ SOURCES.update({f"{k}_s8": v for k, v in SOURCES.items()})  # int8 modes
 SOURCES["entry_chain"] = "segmentation_tpu_torch/csrc/entry_chain.cu"
 SOURCES["packed_conv2x2_dgrad"] = SOURCES["packed_conv2x2_dgrad_dual"] = \
     "segmentation_tpu_torch/csrc/packed_conv2x2_dgrad.cu"
+SOURCES["crop_normalize"] = "segmentation_tpu_torch/csrc/crop_normalize.cu"
 _CF, _CONV = ("segmentation_tpu/nn/pallas/conv_flat.py",
               "segmentation_tpu/nn/pallas/conv.py")
 # the padded-flat kernels each bf16 kernel replaces, then the 4-D kernels
@@ -114,6 +142,7 @@ REPLACES["packed_conv2x2_dgrad"] = \
     "segmentation_tpu/nn/pallas/conv_flat_bwd.py:119"
 REPLACES["packed_conv2x2_dgrad_dual"] = \
     "segmentation_tpu/nn/pallas/conv_flat_bwd.py:217"
+REPLACES["crop_normalize"] = "segmentation_tpu/nn/pallas/augment.py:65"
 
 
 def _time_ms(fn, iters=10):
@@ -336,10 +365,142 @@ def _parity(label, got, want, margin=None) -> float:
     return err
 
 
+def _bytes(*ts) -> int:
+    import torch
+
+    return sum(t.numel() * t.element_size() for t in ts
+               if isinstance(t, torch.Tensor))
+
+
+def _bound_ms(nbytes, ops):
+    """(the least time the card could take, ms; the resource that binds):
+    the larger of the bytes over the HBM rate and the operations of each
+    type over that type's peak."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = sum(v / PEAK_OPS_S[k] for k, v in ops.items()) * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _site_work(name, args, kw, outs):
+    """(bytes, {type: operations}) of one launch at a site: each input read
+    once (the dual's skip: only the window it reads, of up's shape), each
+    output written once, and the operations of the function itself, not
+    of its packed form (whose 2×2 taps over 4C hold the 3×3 conv's zero
+    taps too): 2·9·C·O per unpacked output pixel of a 3×3 conv C → O (the
+    dual: 2C inputs; the dgrads: per output pixel of the forward conv, for
+    each weight), 2·C·4O per input pixel of the 2×2/2 deconv, 2·O per
+    pixel of the nc=2 head (the two logits' difference); H5 its two
+    convs, conv1_1 in bf16 and conv1_2 in s8."""
+    base = name.removesuffix("_s8")
+    kind = "s8" if name.endswith("_s8") else "bf16"
+    nbytes = _bytes(*args, *kw.get("head", ()), *outs)
+
+    def conv3x3(pixels, c, o):
+        return 2 * pixels * 9 * c * o
+
+    if base == "packed_conv2x2_dual":
+        skip, up = args[:2]
+        nbytes -= (skip.numel() - up.numel()) * skip.element_size()
+    if name == "entry_chain":
+        x, w4, wq2 = args[0], args[1], args[4]
+        n, h, w, c = x.shape
+        ho, wo = (h - 2) // 2, (w - 2) // 2
+        return nbytes, {
+            "bf16": conv3x3(4 * n * ho * wo, c, w4.shape[-1] // 4),
+            "s8": conv3x3(4 * n * (ho - 1) * (wo - 1), wq2.shape[2] // 4,
+                          wq2.shape[3] // 4)}
+    if base == "packed_conv2x2":
+        x, w2 = args[:2]
+        n, hp, wp, c4 = x.shape
+        px, o = 4 * n * (hp - 1) * (wp - 1), w2.shape[-1] // 4
+        ops = conv3x3(px, c4 // 4, o) + (2 * px * o if "head" in kw else 0)
+    elif base == "packed_conv2x2_dual":
+        up, wa = args[1], args[2]
+        n, hp, wp, c4 = up.shape
+        ops = conv3x3(4 * n * (hp - 1) * (wp - 1), 2 * (c4 // 4),
+                      wa.shape[-1] // 4)
+    elif base == "strided_conv4x4s2":
+        x, w4 = args[:2]
+        n, h, w, c = x.shape
+        ops = conv3x3(4 * n * ((h - 2) // 2) * ((w - 2) // 2), c,
+                      w4.shape[-1] // 4)
+    elif base == "rows_matmul":
+        x, wm = args[:2]
+        ops = 2 * (x.numel() // wm.shape[0]) * wm.shape[0] * wm.shape[1]
+    else:  # the dgrads: g [n, hg, wg, 4O] against one or two weights
+        g, *ws = args
+        n, hg, wg, o4 = g.shape
+        ops = conv3x3(4 * n * hg * wg, ws[0].shape[2] // 4, o4 // 4) * len(ws)
+    return nbytes, {kind: ops}
+
+
+def _library_call(name, args, kw):
+    """The one PyTorch call that computes a bf16 site's function on the
+    unpacked tensors, NCHW channels_last: F.conv2d 3×3 for H1–H3 (the
+    dual's cropped skip and up concatenated along channels),
+    F.conv_transpose2d 2×2/2 for H4 and the 3×3 conv's input grad for H6,
+    with random weights of the unpacked shapes (values do not change a
+    conv's time). None where PyTorch has none (the int8 modes, H5)."""
+    import torch
+    import torch.nn.functional as F
+
+    from segmentation_tpu_torch.nn.packing import crop_packed, unpack2
+
+    if name.endswith("_s8") or name == "entry_chain":
+        return None
+    cl, dev = torch.channels_last, args[0].device
+
+    def nchw(x):
+        return x.permute(0, 3, 1, 2).contiguous(memory_format=cl)
+
+    def unpacked(xp):
+        n, hp, wp, c4 = xp.shape
+        return nchw(unpack2(xp.reshape(n, hp, wp, 4, c4 // 4)))
+
+    def weight(*shape):
+        w = torch.randn(shape, device=dev) / (shape[1] * 9) ** 0.5
+        return w.to(torch.bfloat16).contiguous(memory_format=cl)
+
+    def bias(o):
+        return torch.zeros((o,), device=dev, dtype=torch.bfloat16)
+
+    if name == "packed_conv2x2":
+        x, w2 = args[:2]
+        xu, w, b = unpacked(x), weight(w2.shape[-1] // 4, x.shape[-1] // 4,
+                                       3, 3), bias(w2.shape[-1] // 4)
+        return lambda: F.conv2d(xu, w, b)
+    if name == "packed_conv2x2_dual":
+        skip, up, wa = args[:3]
+        sk = crop_packed(skip, up.shape, kw["offset"]).contiguous()
+        xu = torch.cat([unpacked(sk), unpacked(up)], 1).contiguous(
+            memory_format=cl)
+        w, b = weight(wa.shape[-1] // 4, xu.shape[1], 3, 3), bias(
+            wa.shape[-1] // 4)
+        return lambda: F.conv2d(xu, w, b)
+    if name == "strided_conv4x4s2":
+        x, w4 = args[:2]
+        xu, w, b = nchw(x), weight(w4.shape[-1] // 4, x.shape[-1], 3, 3), \
+            bias(w4.shape[-1] // 4)
+        return lambda: F.conv2d(xu, w, b)
+    if name == "rows_matmul":
+        x, wm = args[:2]
+        xu = unpacked(x) if kw.get("scatter") else nchw(x)
+        w, b = weight(wm.shape[0], wm.shape[1] // 4, 2, 2), bias(
+            wm.shape[1] // 4)
+        return lambda: F.conv_transpose2d(xu, w, b, stride=2)
+    g, *ws = args  # the dgrads: dx of the 3×3 conv C → O, both halves
+    gu = unpacked(g)
+    w = weight(g.shape[-1] // 4, ws[0].shape[2] // 4 * len(ws), 3, 3)
+    return lambda: F.conv_transpose2d(gu, w)
+
+
 def _kernel_phase(mod, sites):
     """Each kernel of ``mod`` against its plain version at every site of
-    the path, N = 2 and B = 8; each site's time at B = 8. Returns per
-    kernel the max abs error and the summed kernel and plain times (ms)."""
+    the path, N = 2 and B = 8; each site's time at B = 8 beside the plain
+    version's, the library call's and its bound. Returns per kernel the
+    max abs error and the times summed over the sites (ms): kernel, plain,
+    bound, the resource that binds most of the bound, library (None
+    without one)."""
     import torch
 
     from segmentation_tpu_torch.core.rng import generator
@@ -349,6 +510,9 @@ def _kernel_phase(mod, sites):
     worst = dict.fromkeys(mod.NAMES, 0.0)
     ms = dict.fromkeys(mod.NAMES, 0.0)
     plain_ms = dict.fromkeys(mod.NAMES, 0.0)
+    bound = dict.fromkeys(mod.NAMES, 0.0)
+    bound_parts = {k: {"bytes": 0.0, "operations": 0.0} for k in mod.NAMES}
+    library_ms = dict.fromkeys(mod.NAMES)
     for n in (B_PARITY, B_SERVE):
         for name, label, args, kw in sites(n, generator(7 + n, "cuda")):
             got = _outs(wrappers[name](*args, **kw))
@@ -365,16 +529,29 @@ def _kernel_phase(mod, sites):
                     f"N={n} {name} {label}", g, w, margin))
             if n != B_SERVE:
                 continue
-            k_fn = lambda: wrappers[name](*args, **kw)  # noqa: E731
-            p_fn = lambda: plains[name](*args, **kw)  # noqa: E731
-            t_p1, t_k1, t_k2, t_p2 = (_time_ms(f) for f in
-                                      (p_fn, k_fn, k_fn, p_fn))
-            t_k, t_p = (t_k1 + t_k2) / 2, (t_p1 + t_p2) / 2
-            ms[name] += t_k
-            plain_ms[name] += t_p
-            print(f"[kernels] time B={n} {name} {label}: {t_k:.4f} ms, "
-                  f"plain {t_p:.4f} ms")
-    return worst, ms, plain_ms
+            fns = {"plain": lambda: plains[name](*args, **kw),
+                   "kernel": lambda: wrappers[name](*args, **kw)}
+            lib = _library_call(name, args, kw)
+            if lib is not None:
+                fns["library"] = lib
+            t = dict.fromkeys(fns, 0.0)
+            for k in list(fns) + list(fns)[::-1]:  # in turns
+                t[k] += _time_ms(fns[k]) / 2
+            b, by = _bound_ms(*_site_work(name, args, kw, got))
+            ms[name] += t["kernel"]
+            plain_ms[name] += t["plain"]
+            bound[name] += b
+            bound_parts[name][by] += b
+            lib_txt = "none"
+            if lib is not None:
+                library_ms[name] = (library_ms[name] or 0.0) + t["library"]
+                lib_txt = f"{t['library']:.4f} ms"
+            print(f"[kernels] time B={n} {name} {label}: "
+                  f"{t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, "
+                  f"library {lib_txt}, bound {b:.4f} ms ({by})")
+            del fns, lib
+    bound_by = {k: max(v, key=v.get) for k, v in bound_parts.items()}
+    return worst, ms, plain_ms, bound, bound_by, library_ms
 
 
 def _serve(server, reqs, reset):
@@ -588,6 +765,267 @@ def _train_phase(cf, cb):
     return launches, (k_ms, k_peak, p_ms, p_peak, dev_ms / wall)
 
 
+# ------------------------------------------------------------- 7. data path
+def _data_tiles(n):
+    """n seeded TILE² staging tiles, SyntheticSegmentation's discs as bytes:
+    images u8 [n, TILE, TILE, 3], masks u8 [n, TILE, TILE, 1] in {0, 1}."""
+    import numpy as np
+
+    from segmentation_tpu_torch.data.synthetic import SyntheticSegmentation
+
+    b = SyntheticSegmentation(n, (TILE, TILE), seed=DATA_SEED).get_batch()
+    return np.rint(b["image"] * 255).astype(np.uint8), b["mask"]
+
+
+def _h7_phase(tiles):
+    """Phase 7a: H7 against its plain version at the data path's shape (B =
+    128 staging tiles, crop 512, fused_augment's offsets, mixed flips):
+    exact in every mode. Returns (kernel ms, plain ms, bound ms, the
+    resource that binds) of the path's two launches, the bf16 image and
+    the u8 mask, and the largest max abs err of the three modes."""
+    import numpy as np
+    import torch
+
+    from segmentation_tpu_torch.core.rng import generator
+    from segmentation_tpu_torch.nn.kernels import augment as aug
+
+    imgs, masks = tiles
+    idx = np.random.default_rng(DATA_SEED).integers(0, len(imgs), B_TRAIN)
+    imgs = torch.from_numpy(imgs[idx]).cuda()
+    masks = torch.from_numpy(masks[idx]).cuda()
+    n = B_TRAIN
+    ys, xs, flips = aug.random_offsets(generator(DATA_SEED, "cuda"),
+                                       imgs.shape, HW, x_step=8)
+    print(f"[data] H7 offsets: {int(flips.sum())} of {n} flipped, x in "
+          f"[{int(xs.min())}, {int(xs.max())}]")
+    out = {}
+    for label, x, dt in (("image bf16", imgs, torch.bfloat16),
+                         ("image f32", imgs, torch.float32),
+                         ("mask u8", masks, torch.uint8)):
+        def k_fn(x=x, dt=dt):
+            return aug.crop_normalize(x, ys, xs, flips, HW, dt)
+
+        def p_fn(x=x, dt=dt):
+            return aug.crop_normalize_plain(x, ys, xs, flips, HW, dt)
+
+        got, want = k_fn(), p_fn()
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        if not torch.equal(got, want):
+            raise AssertionError(f"H7 {label}: differs from the plain "
+                                 f"version (max abs err {err})")
+        t_p1, t_k1, t_k2, t_p2 = (_time_ms(f) for f in
+                                  (p_fn, k_fn, k_fn, p_fn))
+        t_k, t_p = (t_k1 + t_k2) / 2, (t_p1 + t_p2) / 2
+        # the windows read, the output written, the offsets; a multiply
+        # per float output
+        nbytes = n * HW * HW * x.shape[-1] + _bytes(got, ys, xs, flips)
+        ops = {} if dt == torch.uint8 else {"f32": got.numel()}
+        b, by = _bound_ms(nbytes, ops)
+        out[label] = (t_k, t_p, b, by, err)
+        print(f"[data] H7 {label} B={n} {TILE}²→{HW}²: equal to the plain "
+              f"version (max abs err {err}); {t_k:.4f} ms, plain "
+              f"{t_p:.4f} ms, bound {b:.4f} ms ({by}), "
+              f"{nbytes / t_k / 1e6:.1f} GB/s")
+        del got, want
+    path = [out["image bf16"], out["mask u8"]]
+    by = max(path, key=lambda v: v[2])[3]
+    return (*(sum(v[i] for v in path) for i in range(3)), by,
+            max(v[4] for v in out.values()))
+
+
+def _write_png(path, a):
+    """8-bit gray ([H, W]) or RGB ([H, W, 3]) PNG, zlib level 1: no image
+    library needed."""
+    h, w = a.shape[:2]
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    rows = a.reshape(h, -1)
+    raw = b"".join(b"\x00" + rows[r].tobytes() for r in range(h))
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8,
+                                             0 if a.ndim == 2 else 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def _disk_phase(trainer, tiles, gen):
+    """Phase 7c: N_DISK_FILES PNG pairs of TILE² → the native loader (u8
+    staging, its crop the identity); the loader alone at 1, 2 and 4
+    threads, then loader → prefetcher → H7 → train step at B = 16, beside
+    the same step on a device-resident batch. Returns (disk→step img/s,
+    step-alone img/s), or None when g++ cannot build the native loader
+    (the phase is then skipped with its error)."""
+    import numpy as np
+    import torch
+
+    from segmentation_tpu_torch.data import native
+    from segmentation_tpu_torch.data.pipeline import DevicePrefetcher
+    from segmentation_tpu_torch.nn.kernels import augment as aug
+
+    if not native.available():
+        err = " | ".join(native.build_error().strip().splitlines())
+        print(f"[data] disk phase skipped: {err}")
+        return None
+    imgs, masks = tiles
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = [os.path.join(tmp, d) for d in ("features", "labels")]
+        for d in dirs:
+            os.makedirs(d)
+        t0 = time.perf_counter()
+        for i in range(N_DISK_FILES):  # each tile three times, shifted
+            k, shift = i % len(imgs), 37 * (i // len(imgs))
+            _write_png(os.path.join(dirs[0], f"{i:03d}.png"),
+                       np.roll(imgs[k], shift, axis=1))
+            _write_png(os.path.join(dirs[1], f"{i:03d}.png"),
+                       np.roll(masks[k, ..., 0], shift, axis=1) * 255)
+        print(f"[data] wrote {N_DISK_FILES} PNG pairs of {TILE}² in "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        def make(threads):
+            return native.NativeImageMaskDataSet(
+                *dirs, batch_size=B_DISK, crop_size=TILE, image_ext="png",
+                seed=DATA_SEED, threads=threads, uint8_images=True)
+
+        rates = {}
+        for threads in (1, 2, 4):
+            ds = make(threads)
+            for _ in range(2):  # decode warm-up, drain the prefill
+                ds.get_batch()
+            t0 = time.perf_counter()
+            for _ in range(6):
+                ds.get_batch()
+            rates[threads] = 6 * B_DISK / (time.perf_counter() - t0)
+            ds.close()
+        print(f"[data] native loader alone, B={B_DISK} {TILE}² PNG pairs, "
+              f"img/s by threads: " + ", ".join(
+                  f"{t}: {r:.1f}" for t, r in rates.items()))
+        best = max(rates, key=rates.get)
+        ds = make(best)
+        pf = DevicePrefetcher(ds, depth=2)
+        last = {}
+
+        def step():
+            b = next(pf)
+            img, mask = aug.fused_augment(gen, b["image"], b["mask"], HW,
+                                          out_dtype=torch.bfloat16)
+            last.update(image=img, mask=mask)
+            return trainer.train_step(last)
+
+        for _ in range(2):
+            step()
+        disk_ms = _time_ms(step, 5)  # each step ends in a sync
+        pf.stop()
+        ds.close()
+        alone_ms = _time_ms(lambda: trainer.train_step(last), 5)
+    disk_ips, alone_ips = B_DISK * 1e3 / disk_ms, B_DISK * 1e3 / alone_ms
+    print(f"[data] disk→step B={B_DISK} (native u8 loader, {best} threads): "
+          f"{disk_ms:.3f} ms a step, {disk_ips:.1f} img/s; the same step on "
+          f"a device-resident batch {alone_ms:.3f} ms, {alone_ips:.1f} img/s")
+    return disk_ips, alone_ips
+
+
+def _data_phase(cf, cb, tiles):
+    """Phase 7b (and 7c): the data path into the flagship trainer at B =
+    128, its launches, step time, busy share and the pinned H2D rate."""
+    import numpy as np
+    import torch
+
+    from segmentation_tpu_torch.core.config import TrainConfig
+    from segmentation_tpu_torch.core.rng import generator
+    from segmentation_tpu_torch.data.pipeline import (
+        DevicePrefetcher,
+        GeneratorDataSet,
+    )
+    from segmentation_tpu_torch.models.unet_fast import UNetS2D
+    from segmentation_tpu_torch.nn.kernels import augment as aug
+    from segmentation_tpu_torch.profile_serving import profile
+    from segmentation_tpu_torch.serving import flagship_config
+    from segmentation_tpu_torch.training.trainer import SegmentationTrainer
+
+    imgs, masks = tiles
+    rng = np.random.default_rng(DATA_SEED + 1)
+    host = []
+    for _ in range(2):  # two staging batches, made once (set-up)
+        idx = rng.integers(0, len(imgs), B_TRAIN)
+        host.append({"image": imgs[idx], "mask": masks[idx]})
+
+    pinned = [torch.from_numpy(v).pin_memory() for v in host[0].values()]
+    nbytes = _bytes(*pinned)
+    h2d_ms = _time_ms(lambda: [t.to("cuda", non_blocking=True)
+                               for t in pinned], iters=5)
+    h2d = nbytes / h2d_ms / 1e6
+    print(f"[data] pinned H2D of one B={B_TRAIN} staging batch "
+          f"({nbytes / 1e6:.1f} MB): {h2d_ms:.3f} ms, {h2d:.2f} GB/s")
+    del pinned
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # no device argument: the trainer's default is the card
+        trainer = SegmentationTrainer(
+            UNetS2D(flagship_config(), seed=0, ops=cf.KERNEL_OPS),
+            train_cfg=TrainConfig(save_dir=tmp))
+        ds = GeneratorDataSet(lambda worker: iter(host), B_TRAIN,
+                              capacity=2, has_masks=True)
+        pf = DevicePrefetcher(ds, depth=2)
+        gen = generator(DATA_SEED, "cuda")
+
+        last, metrics = {}, {}
+
+        def step(_=None):
+            b = next(pf)
+            img, mask = aug.fused_augment(gen, b["image"], b["mask"], HW,
+                                          out_dtype=torch.bfloat16)
+            last.update(image=img, mask=mask)
+            metrics.update(trainer.train_step(last))
+
+        def resident():  # the same step on the last batch, on the card
+            trainer.train_step(last)
+
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        gc.collect()
+        for mod in (cf, cb, aug):  # counted: the first 5 timed steps alone
+            mod.reset_launches()
+        ms = _time_ms(step, 5)
+        launches = {**cf.launches, **cb.launches, **aug.launches}
+        print(f"[data] B={B_TRAIN} prefetcher → H7 → train step: {ms:.3f} "
+              f"ms a step, {B_TRAIN * 1e3 / ms:.1f} img/s, loss "
+              f"{metrics['seg_loss']:.6f}; launches {launches}")
+        if not math.isfinite(metrics["seg_loss"]):
+            raise AssertionError(f"data path: non-finite loss {metrics}")
+        missing = [k for k, v in launches.items() if v == 0]
+        if missing:
+            raise AssertionError(f"data path: never launched {missing}")
+        if launches["crop_normalize"] != 2 * 5:
+            raise AssertionError("H7 did not launch twice a step")
+        # what the data path costs the step: the same trainer in turns
+        # (data, resident, resident, data), 5 steps each
+        r1, r2, d2 = (_time_ms(f, 5) for f in (resident, resident, step))
+        data_ms, resident_ms = (ms + d2) / 2, (r1 + r2) / 2
+        print(f"[data] B={B_TRAIN} in turns: data path {ms:.3f}, {d2:.3f} ms; "
+              f"device-resident batch {r1:.3f}, {r2:.3f} ms; the data path "
+              f"adds {data_ms - resident_ms:.3f} ms a step")
+        wall, dev_ms, groups, rows = profile(step, [None] * 3)
+        print(f"[data] B={B_TRAIN} data path profile: CUDA-event ms per step "
+              f"{wall:.3f}; device ms per step {dev_ms:.3f}; busy share "
+              f"{dev_ms / wall:.3f}")
+        for g, v in sorted(groups.items(), key=lambda kv: -kv[1]):
+            print(f"[data]   {g}: {v:.3f} ms ({v / dev_ms:.3f} of device "
+                  "time)")
+        for v, k, name in rows:  # the host→device copies and H7
+            if "HtoD" in name or "crop_normalize" in name:
+                print(f"[data]     {v:8.3f} ms {k:5.1f}x {name[:110]}")
+        pf.stop()
+        ds.request_stop()
+        del host
+        disk = _disk_phase(trainer, tiles, gen)
+    return launches, (data_ms, resident_ms, dev_ms / wall, h2d, disk)
+
+
 def main() -> None:
     import torch
 
@@ -599,6 +1037,7 @@ def main() -> None:
     from segmentation_tpu_torch.models.unet_fast import UNetS2DInference
     from segmentation_tpu_torch.models.unet_int8 import UNetS2DInt8
     from segmentation_tpu_torch.nn.kernels import _build
+    from segmentation_tpu_torch.nn.kernels import augment as aug
     from segmentation_tpu_torch.nn.kernels import conv_bwd as cb
     from segmentation_tpu_torch.nn.kernels import conv_flat as cf
     from segmentation_tpu_torch.nn.kernels import conv_int8 as ci
@@ -631,10 +1070,11 @@ def main() -> None:
           f"{spills} B")
 
     # ---- 3. kernel parity (N = 2 and B = 8) and timing (B = 8) ----------
-    worst, ms, plain_ms = _kernel_phase(cf, _sites)
+    tables = _kernel_phase(cf, _sites)
     for mod, sites in ((ci, _sites8), (cb, _dgrad_sites)):
-        for k, v in zip(_kernel_phase(mod, sites), (worst, ms, plain_ms)):
-            v.update(k)
+        for table, part in zip(tables, _kernel_phase(mod, sites)):
+            table.update(part)
+    worst, ms, plain_ms, bound, bound_by, library_ms = tables
 
     # ---- 4. slice: 4 requests of B = 8 ---------------------------------
     torch.cuda.empty_cache()
@@ -749,21 +1189,42 @@ def main() -> None:
           f"{p_ms:.3f} ms ({B_TRAIN * 1e3 / p_ms:.1f} img/s, peak "
           f"{p_peak:.1f} MiB); device busy share {busy:.3f}")
 
+    # ---- 7. the data path ---------------------------------------------------
+    torch.cuda.empty_cache()
+    tiles = _data_tiles(16)
+    h7_ms, h7_plain_ms, h7_bound_ms, h7_by, h7_err = _h7_phase(tiles)
+    torch.cuda.empty_cache()
+    data_counts, (d_ms, r_ms, d_busy, h2d, disk) = _data_phase(cf, cb, tiles)
+    disk_txt = "disk phase skipped (no native loader)" if disk is None else (
+        f"disk→step B={B_DISK} {disk[0]:.1f} img/s, the step alone "
+        f"{disk[1]:.1f} img/s")
+    print(f"[summary] {smi}: data B={B_TRAIN} step {d_ms:.3f} ms "
+          f"({B_TRAIN * 1e3 / d_ms:.1f} img/s) vs {r_ms:.3f} ms on a "
+          f"device-resident batch; busy share {d_busy:.3f}; pinned H2D "
+          f"{h2d:.2f} GB/s; H7 {h7_ms:.4f} ms a step (bound "
+          f"{h7_bound_ms:.4f} ms, plain {h7_plain_ms:.4f} ms); {disk_txt}")
+
     # launches: each path's counted run (the 4 bf16 and the 4 int8
-    # requests, the 5 timed B = 128 train steps) per kernel; ``launches``
-    # is the count of this slice's path, the train steps, where the kernel
-    # runs there, else of the serving path it runs on
+    # requests, the 5 timed B = 128 train steps on device-resident batches
+    # and through the data path) per kernel; ``launches`` is the count of
+    # this slice's path, the data path, where the kernel runs there, else
+    # of the training or serving path it runs on
     by_path = {"serve_bf16": counts, "serve_int8": counts8,
-               "train": train_counts}
+               "train": train_counts, "data": data_counts}
+    worst["crop_normalize"] = h7_err
+    ms["crop_normalize"], plain_ms["crop_normalize"] = h7_ms, h7_plain_ms
+    bound["crop_normalize"], bound_by["crop_normalize"] = h7_bound_ms, h7_by
+    library_ms["crop_normalize"] = None  # no one PyTorch call computes it
     kernels = []
-    for k in cf.NAMES + ci.NAMES + cb.NAMES:
+    for k in cf.NAMES + ci.NAMES + cb.NAMES + aug.NAMES:
         paths = {tag: c[k] for tag, c in by_path.items() if k in c}
+        launches = paths.get("data", paths.get("train", sum(paths.values())))
         kernels.append({
             "name": k, "route": "cuda", "source": SOURCES[k],
-            "replaces": REPLACES[k],
-            "launches": paths.get("train", sum(paths.values())),
-            "launches_by_path": paths, "max_abs_err": worst[k],
-            "ms": ms[k], "plain_ms": plain_ms[k]})
+            "replaces": REPLACES[k], "launches": launches,
+            "max_abs_err": worst[k], "ms": ms[k], "plain_ms": plain_ms[k],
+            "bound_ms": bound[k], "bound_by": bound_by[k],
+            "library_ms": library_ms[k], "launches_by_path": paths})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,7 +14,6 @@ class SyntheticSegmentation:
     per example; class = inside/outside (n_classes=2) or ring index."""
 
     has_masks = True
-    use_feed = False
 
     def __init__(
         self,
@@ -55,3 +54,19 @@ class SyntheticSegmentation:
             # Signal: the disc brightens channel 0
             images[i, :, :, 0] += inside * 0.4
         return {"image": np.clip(images, 0, 1), "mask": masks}
+
+
+class SyntheticImages:
+    """Image-only variant (autoencoder / GAN smoke data): the images of
+    ``SyntheticSegmentation`` from the same seed."""
+
+    has_masks = False
+
+    def __init__(self, batch_size=4, hw=(32, 32), channels=3, seed=0):
+        self.batch_size = batch_size
+        self.hw = tuple(hw)
+        self.channels = channels
+        self._seg = SyntheticSegmentation(batch_size, hw, channels, 2, seed)
+
+    def get_batch(self):
+        return {"image": self._seg.get_batch()["image"]}

@@ -44,6 +44,7 @@ _SIGNATURES = {
     "seg_rows_matmul_s8": [_P] * 5 + [_I] * 6 + [_P],
     "seg_entry_chain": [_P] * 9 + [_I] * 3 + [_P],
     "seg_packed_conv2x2_dgrad": [_P] * 4 + [_I] * 5 + [_P],
+    "seg_crop_normalize": [_P] * 5 + [_I] * 6 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -12,7 +12,7 @@ reads the trace's device activities (kernels, copies, sets) only:
   overlapping streams count once;
 - busy share: that union over the CUDA-event time of the untraced
   requests (the device's idle share is one minus it);
-- the summed activity time per group: the hand kernels (H1–H5, by kernel
+- the summed activity time per group: the hand kernels (H1–H7, by kernel
   name), library GEMMs, library convs, copies and the other (elementwise)
   kernels.
 
@@ -34,7 +34,8 @@ HAND = (("entry_chain", "H5 entry_chain"),
         ("packed_conv2x2_dual", "H2 packed_conv2x2_dual"),
         ("packed_conv2x2", "H1 packed_conv2x2"),
         ("strided_conv4x4s2", "H3 strided_conv4x4s2"),
-        ("rows_matmul", "H4 rows_matmul"))
+        ("rows_matmul", "H4 rows_matmul"),
+        ("crop_normalize", "H7 crop_normalize"))
 
 
 def group_of(name: str) -> str:

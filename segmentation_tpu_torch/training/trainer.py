@@ -1,15 +1,17 @@
 """The segmentation trainer (segmentation_tpu.models.base.SegmentationTrainer,
 its xentropy objective).
 
-    trainer = SegmentationTrainer(UNetS2D(cfg), dataset, device="cuda")
+    trainer = SegmentationTrainer(UNetS2D(cfg), dataset)  # on the card
     metrics = trainer.train_step()      # {"seg_xentropy", "seg_loss"}
     trainer.test()                      # {"test_loss", "miou", "pixel_acc"}
     y_sig, argmax_map = trainer.infer(images)
     trainer.snapshot()                  # {save_dir}/unet.ckpt-{step}.npz
 
-f32 params and Adam state; the batch runs in the compute dtype (u8 images
-are normalized on the device), the loss in f32 on labels center-cropped to
-the logits (the VALID U-Net shrinks its output). ``torch.optim.Adam`` with
+The trainer runs on the card unless ``device="cpu"`` is asked for (the
+tests). f32 params and Adam state; the batch runs in the compute dtype
+(u8 images are normalized on the device; a batch already on the device
+is not copied), the loss in f32 on labels center-cropped to the logits
+(the VALID U-Net shrinks its output). ``torch.optim.Adam`` with
 the JAX package's optax.adam rule (β2 0.999, ε 1e-8 added after the
 bias-corrected square root). A snapshot is the JAX package's TrainState
 checkpoint, leaf for leaf, so either package restores the other's. The
@@ -38,7 +40,7 @@ _ADAM = ((".opt_state[0].mu", "exp_avg"), (".opt_state[0].nu", "exp_avg_sq"))
 class SegmentationTrainer:
     def __init__(self, model, dataset=None, test_dataset=None,
                  model_cfg: Optional[ModelConfig] = None,
-                 train_cfg: Optional[TrainConfig] = None, device="cpu"):
+                 train_cfg: Optional[TrainConfig] = None, device="cuda"):
         self.tcfg = train_cfg or TrainConfig()
         self.mcfg = model_cfg or model.cfg
         self.mode = self.tcfg.mode

@@ -432,3 +432,89 @@ def test_unet_s2d_shape_outside_kernels_raises(gen):
     with pytest.raises(ValueError, match="4O = 64"):
         model(x)
     assert not any(cf.launches.values()), cf.launches
+
+
+# ---------------------------------------------------------------- H7 and data
+@pytest.mark.parametrize("n,h,w,c,crop", [
+    (3, 37, 45, 3, 29),    # crop·C = 87, not a multiple of the block
+    (4, 300, 301, 3, 257),  # a row of 771 bytes: four block strides
+    (2, 20, 20, 1, 20),    # the whole image
+    (5, 64, 70, 1, 33),
+])
+@pytest.mark.parametrize("out_dtype", [torch.uint8, torch.float32,
+                                       torch.bfloat16])
+def test_crop_normalize_kernel(gen, n, h, w, c, crop, out_dtype):
+    """H7 against its plain version, exactly: odd x offsets, every flip,
+    and offsets beyond the image (clamped on both sides)."""
+    from segmentation_tpu_torch.nn.kernels import augment as aug
+
+    x = torch.randint(0, 256, (n, h, w, c), generator=gen, device="cuda",
+                      dtype=torch.uint8)
+    ys = torch.randint(0, h - crop + 1, (n,), generator=gen, device="cuda")
+    xs = torch.randint(0, w - crop + 1, (n,), generator=gen, device="cuda")
+    xs[0] = w  # clamped to w - crop
+    if w > crop:  # the largest odd offset that fits
+        xs[-1] = (w - crop) - (1 - (w - crop) % 2)
+    flips = torch.arange(n, device="cuda") % 2
+    aug.reset_launches()
+    got = aug.crop_normalize(x, ys, xs, flips, crop, out_dtype)
+    want = aug.crop_normalize_plain(x, ys, xs, flips, crop, out_dtype)
+    torch.cuda.synchronize()
+    assert aug.launches["crop_normalize"] == 1
+    assert got.dtype == out_dtype and torch.equal(got, want)
+
+
+def test_fused_augment_on_the_card(gen):
+    from segmentation_tpu_torch.nn.kernels import augment as aug
+
+    imgs = torch.randint(0, 256, (6, 40, 47, 3), generator=gen,
+                         device="cuda", dtype=torch.uint8)
+    masks = imgs[..., :1].clone()
+    aug.reset_launches()
+    out_i, out_m = aug.fused_augment(gen, imgs, masks, 24,
+                                     out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert aug.launches["crop_normalize"] == 2
+    table = torch.from_numpy(aug.byte_table()).cuda()
+    assert torch.equal(out_i[..., 0], table[out_m[..., 0].long()])
+
+
+def test_prefetcher_on_the_card_delivers_the_source_bytes(gen):
+    import numpy as np
+
+    from segmentation_tpu_torch.data.pipeline import DevicePrefetcher
+
+    rng = np.random.default_rng(0)
+    src = [{"image": rng.integers(0, 256, (4, 33, 35, 3), dtype=np.uint8),
+            "mask": rng.integers(0, 2, (4, 33, 35, 1), dtype=np.uint8),
+            "weight": rng.random((4,), dtype=np.float32)}
+           for _ in range(7)]
+    pf = DevicePrefetcher(iter(src), depth=2)
+    got = list(pf)
+    assert len(got) == len(src)
+    for g, s in zip(got, src):
+        for k, v in s.items():
+            assert g[k].device.type == "cuda"
+            np.testing.assert_array_equal(g[k].cpu().numpy(), v)
+    # the pinned buffers came back for reuse: fewer than one set a batch
+    kept = sum(map(len, pf._free.values())) + sum(
+        len(bufs) for _, bufs in pf._in_flight)
+    assert kept < 3 * len(src), kept
+
+
+def test_trainer_defaults_to_the_card_and_keeps_device_batches(gen,
+                                                               tmp_path):
+    from segmentation_tpu_torch.core.config import ModelConfig, TrainConfig
+    from segmentation_tpu_torch.models.unet_fast import UNetS2D
+    from segmentation_tpu_torch.training.trainer import SegmentationTrainer
+
+    cfg = ModelConfig(n_classes=2, input_dims=(92, 92), n_kernels=32)
+    trainer = SegmentationTrainer(UNetS2D(cfg, levels=2),
+                                  train_cfg=TrainConfig(save_dir=str(tmp_path)))
+    assert all(p.is_cuda for p in trainer.model.parameters())
+    batch = {"image": _act(gen, 2, 92, 92, 3),
+             "mask": torch.zeros((2, 92, 92, 1), dtype=torch.uint8,
+                                 device="cuda")}
+    placed = trainer._place(batch)
+    assert all(placed[k].data_ptr() == batch[k].data_ptr() for k in batch)
+    assert torch.isfinite(torch.tensor(trainer.train_step(batch)["seg_loss"]))

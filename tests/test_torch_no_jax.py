@@ -31,6 +31,10 @@ _PROBE = textwrap.dedent("""
     from segmentation_tpu_torch.core.config import ModelConfig
     from segmentation_tpu_torch.models.unet import init_params
     from segmentation_tpu_torch.core.rng import generator
+    import segmentation_tpu_torch.data
+    from segmentation_tpu_torch.data import (
+        augment, datasets, decode, native, pipeline, synthetic)
+    from segmentation_tpu_torch.nn.kernels import augment as aug
     assert "jax" not in sys.modules, sorted(
         m for m in sys.modules if m.startswith("jax"))
     assert "segmentation_tpu" not in sys.modules
@@ -58,11 +62,23 @@ _PROBE = textwrap.dedent("""
     cfg92 = ModelConfig(n_classes=2, input_dims=(92, 92), n_kernels=32)
     trainer = SegmentationTrainer(
         UNetS2D(cfg92, levels=2), SyntheticSegmentation(1, (92, 92)),
-        train_cfg=TrainConfig(save_dir=tempfile.mkdtemp()))
+        device="cpu", train_cfg=TrainConfig(save_dir=tempfile.mkdtemp()))
     loss = trainer.train_step()["seg_loss"]
     assert 0.0 < loss < 10.0, loss
     assert all(v == 0 for v in cb.launches.values()), cb.launches
     assert all(v == 0 for v in cf.launches.values()), cf.launches
+
+    # the data path's device tail on the CPU: prefetch, then H7's plain
+    # version through fused_augment
+    import numpy as np
+    src = [{"image": np.full((2, 20, 20, 3), 7, np.uint8),
+            "mask": np.ones((2, 20, 20, 1), np.uint8)}]
+    pf = pipeline.DevicePrefetcher(iter(src), device="cpu")
+    b = next(pf)
+    img, m = aug.fused_augment(generator(0), b["image"], b["mask"], 12,
+                               out_dtype=torch.bfloat16)
+    assert img.dtype == torch.bfloat16 and tuple(m.shape) == (2, 12, 12, 1)
+    assert aug.launches["crop_normalize"] == 0, aug.launches
     assert not _build.loaded()
     assert not _build.BUILD_DIR.exists() or not any(
         _build.BUILD_DIR.glob("*.so.tmp"))

@@ -16,6 +16,8 @@ from segmentation_tpu_torch import profile_serving as ps
      "H1 packed_conv2x2"),
     ("void strided_conv4x4s2_kernel<true>(...)", "H3 strided_conv4x4s2"),
     ("void rows_matmul_s8_kernel(RowsLoader<s8>, ...)", "H4 rows_matmul"),
+    ("void segk::(anonymous namespace)::crop_normalize_kernel<"
+     "__nv_bfloat16>(unsigned char const*, ...)", "H7 crop_normalize"),
     ("cutlass_80_wmma_tensorop_i161616gemm_s8_32x32_128x1_tn_align16",
      "library GEMM"),
     ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc",

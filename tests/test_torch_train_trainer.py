@@ -71,7 +71,7 @@ def _port_trainer(params, save_dir, **tcfg):
     model = UNetS2D(cfg, levels=2, params=interop.params_from_jax(params))
     return SegmentationTrainer(
         model, SyntheticSegmentation(B, (HW, HW), seed=3),
-        SyntheticSegmentation(B, (HW, HW), seed=4),
+        SyntheticSegmentation(B, (HW, HW), seed=4), device="cpu",
         train_cfg=TrainConfig(save_dir=str(save_dir), compute_dtype="float32",
                               learning_rate=LR, **tcfg))
 
