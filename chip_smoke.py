@@ -18,7 +18,11 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                operations of the site's function, not of its packed form,
                over the tensor cores' peak);
   3b.        — the same for the int8 path: H5 and the int8 modes of H1–H4
-               at every int8 site;
+               at every int8 site of the three int8 configurations (s8
+               codes, the inline-quantize modes on bf16 operands, H1's
+               pool at conv1_2 of the 4-D route), and the image entry's
+               requant-only and s8-input modes (whose requant-only codes
+               through H1's pool must equal H5's outputs);
   3c.        — the same for H6 (the packed-conv input grad), single and
                dual, at its six training sites;
   4. slice   — 4 requests of B = 8 through serving.entry (apply_argmax),
@@ -30,8 +34,15 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                seeded B = 8 batch, then the same 4 requests; H5 and every
                int8 mode must have launched and no bf16 kernel, the masks
                must agree with the int8 forward on the plain versions and
-               with the f32 plain U-Net;
-  5. the B = 8 latency of both slices;
+               with the f32 plain U-Net; the standard levels' s8 3×3 conv
+               (im2col + cuBLASLt) timed at each of its calls;
+  4c.        — the other two int8 configurations, UNetS2DInt8(padflat=
+               False) and UNetS2DInt8(quant_deconvs=False), calibrated on
+               4b's batch, the same 4 requests each: exactly the expected
+               launches of every kernel mode, masks against the same
+               configuration on the plain versions and against the f32
+               plain U-Net, latency and peak memory;
+  5. the B = 8 latency of every slice;
   6. train   — the flagship SegmentationTrainer(UNetS2D) from seed 0:
                (a) one B = 2 step's loss and param grads on the kernels
                against the same trainer on the plain versions and against
@@ -74,6 +85,7 @@ import time
 import zlib
 
 B_PARITY, B_SERVE, HW = 2, 8, 512
+ACT_SCALE = 1 / 16.0  # the inline-quantize sites' act_scale (inverse 16)
 # bf16 outputs: the kernel and the plain version round the same f32 sum
 # (in another order, and the plain one sometimes twice) to 8 mantissa bits
 REL_TOL = 2e-2       # max |kernel - plain| <= REL_TOL * max |plain|
@@ -118,31 +130,67 @@ PEAK_OPS_S = {"bf16": 989e12, "s8": 1979e12, "f32": 67e12}
 SOURCES = {k: f"segmentation_tpu_torch/csrc/{k}.cu" for k in (
     "packed_conv2x2", "packed_conv2x2_dual", "strided_conv4x4s2",
     "rows_matmul")}
-SOURCES.update({f"{k}_s8": v for k, v in SOURCES.items()})  # int8 modes
 SOURCES["entry_chain"] = "segmentation_tpu_torch/csrc/entry_chain.cu"
 SOURCES["packed_conv2x2_dgrad"] = SOURCES["packed_conv2x2_dgrad_dual"] = \
     "segmentation_tpu_torch/csrc/packed_conv2x2_dgrad.cu"
 SOURCES["crop_normalize"] = "segmentation_tpu_torch/csrc/crop_normalize.cu"
 _CF, _CONV = ("segmentation_tpu/nn/pallas/conv_flat.py",
               "segmentation_tpu/nn/pallas/conv.py")
-# the padded-flat kernels each bf16 kernel replaces, then the 4-D kernels
-# of the training route that it closes too
+# the padded-flat kernels each kernel replaces, then the 4-D kernels of the
+# training route and of the int8 4-D route that it closes too
 _BF16 = {
-    "packed_conv2x2": ((f"{_CF}:275", f"{_CF}:1162"), (f"{_CONV}:372",)),
+    "packed_conv2x2": ((f"{_CF}:275", f"{_CF}:1162"),
+                       (f"{_CONV}:372", f"{_CONV}:467")),
     "packed_conv2x2_dual": ((f"{_CF}:503", f"{_CF}:1379"), (f"{_CONV}:677",)),
     "strided_conv4x4s2": ((f"{_CF}:667", f"{_CF}:1738"), (f"{_CONV}:844",)),
     "rows_matmul": ((f"{_CF}:785", f"{_CF}:896"),
                     (f"{_CONV}:974", f"{_CONV}:1078")),
 }
 REPLACES = {k: ", ".join(flat + conv) for k, (flat, conv) in _BF16.items()}
-REPLACES.update({f"{k}_s8": ", ".join(flat)  # int8 modes
-                 for k, (flat, _) in _BF16.items()})
+# the int8 modes (conv_int8.NAMES): the same kernels' int8 modes
+_S8 = {"packed_conv2x2_s8": ("packed_conv2x2", (f"{_CF}:275", f"{_CF}:1162",
+                                                f"{_CONV}:372")),
+       "packed_conv2x2_s8_pool": ("packed_conv2x2",
+                                  (f"{_CF}:275", f"{_CF}:1162",
+                                   f"{_CONV}:467")),
+       "packed_conv2x2_dual_s8": ("packed_conv2x2_dual",
+                                  (f"{_CF}:503", f"{_CF}:1379",
+                                   f"{_CONV}:677")),
+       "strided_conv4x4s2_s8": ("strided_conv4x4s2",
+                                (f"{_CF}:667", f"{_CONV}:844")),
+       "rows_matmul_s8": ("rows_matmul", (f"{_CF}:785", f"{_CF}:896",
+                                          f"{_CONV}:974", f"{_CONV}:1078"))}
+_S8["packed_conv2x2_s8_inline"] = (
+    "packed_conv2x2", _S8["packed_conv2x2_s8"][1] + (f"{_CONV}:467",))
+for k in ("packed_conv2x2_dual_s8", "strided_conv4x4s2_s8", "rows_matmul_s8"):
+    _S8[f"{k}_inline"] = _S8[k]
+_S8["conv3entry_requant"] = _S8["conv3entry_s8"] = ("strided_conv4x4s2",
+                                                    (f"{_CF}:1738",))
+for k, (src, lines) in _S8.items():
+    SOURCES[k], REPLACES[k] = SOURCES[src], ", ".join(lines)
 REPLACES["entry_chain"] = f"{_CF}:1644"
 REPLACES["packed_conv2x2_dgrad"] = \
     "segmentation_tpu/nn/pallas/conv_flat_bwd.py:119"
 REPLACES["packed_conv2x2_dgrad_dual"] = \
     "segmentation_tpu/nn/pallas/conv_flat_bwd.py:217"
 REPLACES["crop_normalize"] = "segmentation_tpu/nn/pallas/augment.py:65"
+# each int8 configuration's launches per request (models/unet_int8.py),
+# bf16 and int8 kernel modes alike: the flagship padded-flat route, the
+# 4-D route and the padded-flat route with bf16 deconvs
+ROUTE_LAUNCHES = {
+    "serve_int8": {"entry_chain": 1, "strided_conv4x4s2_s8": 1,
+                   "packed_conv2x2_s8_pool": 1, "rows_matmul_s8": 2,
+                   "packed_conv2x2_dual_s8": 2, "packed_conv2x2_s8": 2},
+    "serve_int8_4d": {"strided_conv4x4s2": 1, "rows_matmul": 2,
+                      "packed_conv2x2_s8_pool": 2, "strided_conv4x4s2_s8": 1,
+                      "packed_conv2x2_dual_s8_inline": 2,
+                      "packed_conv2x2_s8": 2},
+    "serve_int8_fdeconv": {"entry_chain": 1, "rows_matmul": 2,
+                           "packed_conv2x2_s8_pool": 1,
+                           "strided_conv4x4s2_s8": 1,
+                           "packed_conv2x2_dual_s8_inline": 2,
+                           "packed_conv2x2_s8": 2},
+}
 
 
 def _time_ms(fn, iters=10):
@@ -258,9 +306,11 @@ def _dgrad_sites(n, gen):
 
 
 def _sites8(n, gen):
-    """The int8 path's kernel sites of one 512² forward: resident s8
-    activations (post-ReLU codes), s8 weights, and epilogue vectors that
-    spread the requantized outputs over the code range."""
+    """The int8 paths' kernel sites of one 512² forward, every mode:
+    resident s8 activations (post-ReLU codes) or, for the inline-quantize
+    modes, bf16 activations whose codes at ACT_SCALE reach past 127; s8
+    weights, and epilogue vectors that spread the requantized outputs over
+    the code range."""
     import torch
 
     from segmentation_tpu_torch.models.unet_fast import head_diff
@@ -270,6 +320,10 @@ def _sites8(n, gen):
     def codes(*shape):
         return torch.randint(0, 128, shape, generator=gen, device=dev,
                              dtype=torch.int8)
+
+    def acts(*shape):  # bf16, codes 0..150 at ACT_SCALE
+        return (torch.rand(shape, generator=gen, device=dev)
+                * (150 * ACT_SCALE)).to(torch.bfloat16)
 
     def wq(*shape):
         return torch.randint(-127, 128, shape, generator=gen, device=dev,
@@ -292,34 +346,83 @@ def _sites8(n, gen):
     wd, bd = head_diff(torch.randn((1, 1, 32, 2), generator=gen, device=dev)
                        / 32**0.5, torch.randn((2,), generator=gen, device=dev))
     head = (wd.to(torch.bfloat16), bd)
+    inline = {"act_scale": ACT_SCALE}
     return [
         ("entry_chain", "level 1 conv1_1+conv1_2+pool",
          (x.to(torch.bfloat16), w4.to(torch.bfloat16), mul1, add1,
           wq(2, 2, 128, 128), *vecs(128, 512)), {}),
+        ("conv3entry_requant", "conv1_1 bf16 -> s8 (requant-only)",
+         (x.to(torch.bfloat16), w4.to(torch.bfloat16), mul1, add1), {}),
+        ("conv3entry_s8", "conv1_1 s8 image codes (s8-input)",
+         (codes(n, 512, 512, 3), wq(4, 4, 3, 128), *vecs(128, 27)), {}),
+        ("packed_conv2x2_s8_pool", "conv1_2 +pool (4-D route)",
+         (codes(n, 255, 255, 128), wq(2, 2, 128, 128), *vecs(128, 512)),
+         {"pool": True}),
         ("strided_conv4x4s2_s8", "conv2_1 C=32",
          (codes(n, 254, 254, 32), wq(4, 4, 32, 256), *vecs(256, 512)), {}),
-        ("packed_conv2x2_s8", "conv2_2 +pool",
+        ("strided_conv4x4s2_s8_inline", "conv2_1 C=32 bf16 in",
+         (acts(n, 254, 254, 32), wq(4, 4, 32, 256), *vecs(256, 512)),
+         inline),
+        ("packed_conv2x2_s8_pool", "conv2_2 +pool",
          (codes(n, 126, 126, 256), wq(2, 2, 256, 256), *vecs(256, 1024)),
          {"pool": True}),
+        ("packed_conv2x2_s8_inline", "conv2_2 bf16 in",
+         (acts(n, 126, 126, 256), wq(2, 2, 256, 256), *vecs(256, 1024)),
+         inline),
+        ("packed_conv2x2_s8_inline", "conv2_2 bf16 in +pool",
+         (acts(n, 126, 126, 256), wq(2, 2, 256, 256), *vecs(256, 1024)),
+         {"pool": True, **inline}),
         ("rows_matmul_s8", "upconv3 identity",
          (codes(n, 84, 84, 128), wq(128, 256), *vecs(256, 128)),
          {"scatter": False}),
+        ("rows_matmul_s8_inline", "upconv3 identity bf16 in",
+         (acts(n, 84, 84, 128), wq(128, 256), *vecs(256, 128)),
+         {"scatter": False, **inline}),
         ("packed_conv2x2_dual_s8", "conv8_1 odd phase (41,41)",
          (codes(n, 125, 125, 256), codes(n, 84, 84, 256), *dual(256, 256)),
          {"offset": (41, 41)}),
+        ("packed_conv2x2_dual_s8_inline", "conv8_1 odd phase (41,41) bf16 up",
+         (codes(n, 125, 125, 256), acts(n, 84, 84, 256), *dual(256, 256)),
+         {"offset": (41, 41), "act_scale_b": ACT_SCALE}),
         ("packed_conv2x2_s8", "conv8_2",
          (codes(n, 83, 83, 256), wq(2, 2, 256, 256), *vecs(256, 1024)), {}),
         ("rows_matmul_s8", "upconv4 scatter",
          (codes(n, 82, 82, 256), wq(64, 128), *vecs(128, 64)),
          {"scatter": True}),
+        ("rows_matmul_s8_inline", "upconv4 scatter bf16 in",
+         (acts(n, 82, 82, 256), wq(64, 128), *vecs(128, 64)),
+         {"scatter": True, **inline}),
         ("packed_conv2x2_dual_s8", "conv9_1 even (90,90)",
          (codes(n, 254, 254, 128), codes(n, 164, 164, 128),
           *dual(128, 128)), {"offset": (90, 90)}),
+        ("packed_conv2x2_dual_s8_inline", "conv9_1 even (90,90) bf16 up",
+         (codes(n, 254, 254, 128), acts(n, 164, 164, 128),
+          *dual(128, 128)), {"offset": (90, 90), "act_scale_b": ACT_SCALE}),
         ("packed_conv2x2_s8", "conv9_2 head_only (bf16 value)",
          (codes(n, 163, 163, 128), wq(2, 2, 128, 128),
           *vecs(128, 512, 1 / 20)),
          {"requant": False, "head": head, "head_only": True}),
     ]
+
+
+def _entry_modes_agree(n, gen):
+    """H5 against its two-kernel form on the card: H1's pool mode on the
+    requant-only entry's codes (the same requant point). Returns whether
+    both outputs are equal code for code; fails beyond one code."""
+    import torch
+
+    from segmentation_tpu_torch.nn.kernels import conv_int8 as ci
+
+    site = _sites8(n, gen)[0]
+    x, w4, mul1, add1, wq2, mul2, add2 = site[2]
+    codes = ci.conv3entry_requant(x, w4, mul1, add1)
+    two = ci.packed_conv2x2_s8(codes, wq2, mul2, add2, pool=True)
+    one = ci.entry_chain(x, w4, mul1, add1, wq2, mul2, add2)
+    torch.cuda.synchronize()
+    for g, w, what in zip(two, one, ("y", "pooled")):
+        _parity(f"N={n} entry_chain vs conv3entry_requant + H1 pool "
+                f"({what})", g, w)
+    return all(torch.equal(g, w) for g, w in zip(two, one))
 
 
 def _outs(v):
@@ -391,8 +494,10 @@ def _site_work(name, args, kw, outs):
     each weight), 2·C·4O per input pixel of the 2×2/2 deconv, 2·O per
     pixel of the nc=2 head (the two logits' difference); H5 its two
     convs, conv1_1 in bf16 and conv1_2 in s8."""
-    base = name.removesuffix("_s8")
-    kind = "s8" if name.endswith("_s8") else "bf16"
+    base = re.sub(r"(_s8)?(_pool|_inline)?$", "", name)
+    if name.startswith("conv3entry"):
+        base = "strided_conv4x4s2"
+    kind = "s8" if "_s8" in name or name == "conv3entry_s8" else "bf16"
     nbytes = _bytes(*args, *kw.get("head", ()), *outs)
 
     def conv3x3(pixels, c, o):
@@ -446,8 +551,8 @@ def _library_call(name, args, kw):
 
     from segmentation_tpu_torch.nn.packing import crop_packed, unpack2
 
-    if name.endswith("_s8") or name == "entry_chain":
-        return None
+    if name not in _BF16 and not name.startswith("packed_conv2x2_dgrad"):
+        return None  # the int8 modes, H5
     cl, dev = torch.channels_last, args[0].device
 
     def nchw(x):
@@ -505,8 +610,10 @@ def _kernel_phase(mod, sites):
 
     from segmentation_tpu_torch.core.rng import generator
 
-    wrappers = {k: getattr(mod, k) for k in mod.NAMES}
-    plains = {k: getattr(mod, f"{k}_plain") for k in mod.NAMES}
+    # the wrapper that launches each kernel mode, and its plain version
+    fn = {k: getattr(mod, "wrapper_of", lambda m: m)(k) for k in mod.NAMES}
+    wrappers = {k: getattr(mod, fn[k]) for k in mod.NAMES}
+    plains = {k: getattr(mod, f"{fn[k]}_plain") for k in mod.NAMES}
     worst = dict.fromkeys(mod.NAMES, 0.0)
     ms = dict.fromkeys(mod.NAMES, 0.0)
     plain_ms = dict.fromkeys(mod.NAMES, 0.0)
@@ -1026,6 +1133,122 @@ def _data_phase(cf, cb, tiles):
     return launches, (data_ms, resident_ms, dev_ms / wall, h2d, disk)
 
 
+def _check_route(tag, counts, requests):
+    """Every kernel mode of an int8 configuration launched exactly as the
+    route says (ROUTE_LAUNCHES), and no other mode."""
+    want = {k: v * requests for k, v in ROUTE_LAUNCHES[tag].items()}
+    got = {k: v for k, v in counts.items() if v}
+    print(f"[int8] {tag} launches {got}")
+    if got != want:
+        raise AssertionError(f"{tag}: launches {got}, expected {want}")
+
+
+def _std_conv_phase(server, x):
+    """The standard levels' s8 3×3 conv (ops8.conv3x3: im2col and
+    cuBLASLt's s8 GEMM, which the JAX package leaves to XLA; no hand
+    kernel): each of its calls in one B = 8 request, timed in turns
+    against its plain version (the float64 conv) and against the GEMM
+    alone (torch._int_mm, its library column), beside its bound. Returns
+    (calls per request, ms, plain ms, library ms, bound ms, binds)."""
+    import torch
+
+    from segmentation_tpu_torch.nn.kernels import conv_int8 as ci
+
+    calls, ops8 = [], server.model.ops8
+
+    def recorded(xq, wq):
+        calls.append((xq, wq))
+        return ci.conv3x3_s8(xq, wq)
+
+    server.model.ops8 = ops8._replace(conv3x3=recorded)
+    try:
+        server(x)
+    finally:
+        server.model.ops8 = ops8
+    tot = {"kernel": 0.0, "plain": 0.0, "library": 0.0, "bound": 0.0}
+    parts = {"bytes": 0.0, "operations": 0.0}
+    for xq, wq in calls:
+        n, h, w, c = xq.shape
+        o = wq.shape[-1]
+        cols = xq.unfold(1, 3, 1).unfold(2, 3, 1)
+        a = cols.permute(0, 1, 2, 4, 5, 3).reshape(-1, 9 * c)
+        b = wq.reshape(9 * c, o)
+        fns = {"plain": lambda: ci.conv3x3_s8_plain(xq, wq),
+               "kernel": lambda: ci.conv3x3_s8(xq, wq),
+               "library": lambda: torch._int_mm(a, b)}
+        t = dict.fromkeys(fns, 0.0)
+        for k in list(fns) + list(fns)[::-1]:  # in turns
+            t[k] += _time_ms(fns[k], iters=5) / 2
+        pixels = n * (h - 2) * (w - 2)
+        bnd, by = _bound_ms(_bytes(xq, wq) + 4 * pixels * o,
+                            {"s8": 2 * pixels * 9 * c * o})
+        for k in fns:
+            tot[k] += t[k]
+        tot["bound"] += bnd
+        parts[by] += bnd
+        print(f"[int8] std-level s8 conv {tuple(xq.shape)} -> {o}: "
+              f"{t['kernel']:.4f} ms, GEMM alone {t['library']:.4f} ms, "
+              f"plain {t['plain']:.4f} ms, bound {bnd:.4f} ms ({by})")
+        del fns, a, b, cols
+    by = max(parts, key=parts.get)
+    print(f"[int8] std-level s8 conv: {len(calls)} calls a request, "
+          f"{tot['kernel']:.4f} ms (GEMM alone {tot['library']:.4f} ms, "
+          f"plain {tot['plain']:.4f} ms), bound {tot['bound']:.4f} ms "
+          f"({by})")
+    return (len(calls), tot["kernel"], tot["plain"], tot["library"],
+            tot["bound"], by)
+
+
+def _int8_config_phase(tag, kw, reqs, calib, want, out_hw, reset):
+    """Phase 4c for one int8 configuration: serve the 4 requests, check its
+    launches, its masks against the same configuration on the plain
+    versions and against the f32 plain U-Net (``want``, the logits of
+    reqs[0]); return (launch counts, (mean ms, img/s, peak MiB))."""
+    import torch
+
+    from segmentation_tpu_torch.models.unet_int8 import UNetS2DInt8
+    from segmentation_tpu_torch.nn.kernels import conv_flat as cf
+    from segmentation_tpu_torch.nn.kernels import conv_int8 as ci
+    from segmentation_tpu_torch.serving import Server, entry
+
+    t0 = time.perf_counter()
+    server, _ = entry("cuda", batch=B_SERVE, seed=0, int8=True,
+                      calib=[calib], **kw)
+    torch.cuda.synchronize()
+    print(f"[int8] {tag} ({kw}) prepared and calibrated in "
+          f"{time.perf_counter() - t0:.1f} s")
+    masks, lat, peak = _serve(server, reqs, reset)
+    counts = {**cf.launches, **ci.launches}
+    _check_route(tag, counts, len(reqs))
+    logits = server.logits(reqs[0])
+    torch.cuda.synchronize()
+    _check_masks(masks, (B_SERVE, *out_hw))
+    if tuple(logits.shape) != (B_SERVE, *out_hw, 2):
+        raise AssertionError(f"{tag} logits {tuple(logits.shape)}")
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"{tag}: non-finite logits")
+    plain = Server(UNetS2DInt8(server.model.cfg, ops=cf.PLAIN_OPS,
+                               ops8=ci.PLAIN_OPS, **kw),
+                   server.params, server.prepared)
+    with torch.no_grad():
+        agree = min((plain(x) == m).float().mean().item()
+                    for x, m in zip(reqs, masks))
+    ref_agree = (masks[0] == want.argmax(-1)).float().mean().item()
+    corr = torch.corrcoef(torch.stack(
+        [logits.float().flatten(), want.flatten()]))[0, 1].item()
+    print(f"[int8] {tag}: masks vs the same configuration on the plain "
+          f"versions: min agreement {agree:.6f} (>= {INT8_MASK_AGREE}); vs "
+          f"f32 plain U-Net: mask agreement {ref_agree:.6f} (>= "
+          f"{INT8_REF_MASK_AGREE}), logit correlation {corr:.6f} (>= "
+          f"{INT8_REF_CORR})")
+    if agree < INT8_MASK_AGREE:
+        raise AssertionError(f"{tag} masks vs plain versions: {agree}")
+    if ref_agree < INT8_REF_MASK_AGREE or corr < INT8_REF_CORR:
+        raise AssertionError(f"{tag} vs f32: agreement {ref_agree}, "
+                             f"correlation {corr}")
+    return counts, _latency_line(tag, lat, peak)
+
+
 def main() -> None:
     import torch
 
@@ -1075,6 +1298,9 @@ def main() -> None:
         for table, part in zip(tables, _kernel_phase(mod, sites)):
             table.update(part)
     worst, ms, plain_ms, bound, bound_by, library_ms = tables
+    exact = _entry_modes_agree(B_SERVE, generator(99, "cuda"))
+    print(f"[kernels] B={B_SERVE} H5 against conv3entry_requant + H1 pool: "
+          f"{'equal code for code' if exact else 'within one code'}")
 
     # ---- 4. slice: 4 requests of B = 8 ---------------------------------
     torch.cuda.empty_cache()
@@ -1139,13 +1365,8 @@ def main() -> None:
         ci.reset_launches()
 
     masks8, lat8, peak8 = _serve(server8, reqs, reset_all)
-    counts8, bf16_in_int8 = dict(ci.launches), dict(cf.launches)
-    print(f"[int8] launches {counts8}; bf16 kernels {bf16_in_int8}")
-    missing = [k for k, v in counts8.items() if v == 0]
-    if missing:
-        raise AssertionError(f"int8 kernels never launched: {missing}")
-    if any(bf16_in_int8.values()):
-        raise AssertionError("the int8 path launched a bf16 kernel")
+    counts8 = {**cf.launches, **ci.launches}
+    _check_route("serve_int8", counts8, len(reqs))
     logits8 = server8.logits(reqs[0])
     torch.cuda.synchronize()
     _check_masks(masks8, (B_SERVE, oh, ow))
@@ -1173,14 +1394,27 @@ def main() -> None:
     if ref_agree8 < INT8_REF_MASK_AGREE or corr8 < INT8_REF_CORR:
         raise AssertionError(f"int8 vs f32: agreement {ref_agree8}, "
                              f"correlation {corr8}")
-    int8_e2e = _latency_line("int8", lat8, peak8)
-
-    # ---- 5. serving results ----------------------------------------------
-    for tag, (mean, ips, mib) in (("bf16", bf16_e2e), ("int8", int8_e2e)):
-        print(f"[summary] {smi}: {tag} B={B_SERVE} latency {mean:.3f} ms, "
-              f"{ips:.1f} img/s, peak {mib:.1f} MiB")
+    e2e = {"bf16": bf16_e2e, "int8": _latency_line("int8", lat8, peak8)}
+    std8 = _std_conv_phase(server8, reqs[0])
     del server8, plain8
     torch.cuda.empty_cache()
+
+    # ---- 4c. the other int8 configurations ------------------------------
+    by_path = {"serve_bf16": counts, "serve_int8": counts8}
+    for tag, kw in (("serve_int8_4d", {"padflat": False}),
+                    ("serve_int8_fdeconv", {"quant_deconvs": False})):
+        by_path[tag], e2e[tag] = _int8_config_phase(
+            tag, kw, reqs, calib, want, (oh, ow), reset_all)
+        torch.cuda.empty_cache()
+
+    # ---- 5. serving results ----------------------------------------------
+    for tag, (mean, ips, mib) in e2e.items():
+        print(f"[summary] {smi}: {tag} B={B_SERVE} latency {mean:.3f} ms, "
+              f"{ips:.1f} img/s, peak {mib:.1f} MiB")
+    n_std, *std_t, std_by = std8
+    print(f"[summary] {smi}: std-level s8 conv {n_std} calls a request, "
+          f"{std_t[0]:.4f} ms (GEMM alone {std_t[2]:.4f} ms, plain "
+          f"{std_t[1]:.4f} ms), bound {std_t[3]:.4f} ms ({std_by})")
 
     # ---- 6. the training slice -------------------------------------------
     train_counts, (k_ms, k_peak, p_ms, p_peak, busy) = _train_phase(cf, cb)
@@ -1204,13 +1438,13 @@ def main() -> None:
           f"{h2d:.2f} GB/s; H7 {h7_ms:.4f} ms a step (bound "
           f"{h7_bound_ms:.4f} ms, plain {h7_plain_ms:.4f} ms); {disk_txt}")
 
-    # launches: each path's counted run (the 4 bf16 and the 4 int8
-    # requests, the 5 timed B = 128 train steps on device-resident batches
-    # and through the data path) per kernel; ``launches`` is the count of
-    # this slice's path, the data path, where the kernel runs there, else
-    # of the training or serving path it runs on
-    by_path = {"serve_bf16": counts, "serve_int8": counts8,
-               "train": train_counts, "data": data_counts}
+    # launches: each path's counted run (the 4 bf16 requests, the 4
+    # requests of each int8 configuration, the 5 timed B = 128 train steps
+    # on device-resident batches and through the data path) per kernel
+    # mode; ``launches`` is the data path's count where the kernel runs
+    # there, else the training path's, else the sum over the serving
+    # paths (the int8 modes: over the three int8 configurations)
+    by_path.update(train=train_counts, data=data_counts)
     worst["crop_normalize"] = h7_err
     ms["crop_normalize"], plain_ms["crop_normalize"] = h7_ms, h7_plain_ms
     bound["crop_normalize"], bound_by["crop_normalize"] = h7_bound_ms, h7_by

@@ -124,6 +124,46 @@ __device__ __forceinline__ Pix decode(long long m, int ho, int wo) {
   return p;
 }
 
+// The inline quantize of the int8 path (nn/pallas/conv.py _quant_rows):
+// q = clip(round_half_even(f32(x) * inv), -127, 127), inv = f32(1 /
+// act_scale) as the host computed it (a multiply, not a division: the two
+// differ on some inputs). 16 bf16 values (two 16-byte loads) become the 16
+// codes of one s8 column block.
+__device__ __forceinline__ unsigned quant4(const bf16* v, float inv) {
+  unsigned w = 0;
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    int q = __float2int_rn(__fmul_rn(__bfloat162float(v[t]), inv));
+    q = min(max(q, -127), 127);
+    w |= ((unsigned)q & 0xffu) << (8 * t);
+  }
+  return w;
+}
+
+__device__ __forceinline__ uint4 quant16(uint4 lo, uint4 hi, float inv) {
+  const bf16* a = reinterpret_cast<const bf16*>(&lo);
+  const bf16* b = reinterpret_cast<const bf16*>(&hi);
+  return make_uint4(quant4(a, inv), quant4(a + 4, inv), quant4(b, inv),
+                    quant4(b + 4, inv));
+}
+
+// Quantize-on-load: wraps a Loader of a bf16 tensor (8 values per load) so
+// that an s8 GEMM core reads s8 codes (16 per load). Every s8 kernel takes
+// its Loader as a template parameter, so an inline-quantize mode is one
+// more instantiation of the same core.
+template <class L>
+struct QuantLoader {
+  L ld;
+  float inv;
+  using Row = typename L::Row;
+  __device__ __forceinline__ Row row(long long m, bool ok) const {
+    return ld.row(m, ok);
+  }
+  __device__ __forceinline__ uint4 load(const Row& r, int k) const {
+    return quant16(ld.load(r, k), ld.load(r, k + 8), inv);
+  }
+};
+
 template <int BN, class T>
 __device__ __forceinline__ void zero_acc(
     AccFrag<BN, T> (&acc)[TileCfg<BN, T>::FM][TileCfg<BN, T>::FN]) {
@@ -139,6 +179,7 @@ __device__ __forceinline__ void zero_acc(
 // ([kend - kbeg, BN], row-major). Loader:
 //   Row row(long long m, bool ok) const;  // per-pixel context
 //   uint4 load(const Row&, int k) const;   // A[m, k..k+VEC-1], k % VEC == 0
+//                                          // (VEC = 16 / sizeof(T))
 // load() is only called for ok rows and k < kend (k is absolute, so one
 // Loader can serve several K ranges). smem holds the A/B chunk buffers.
 template <int BN, class T, class Loader>

@@ -3,15 +3,17 @@
 // conv). A Loader hands igemm.cuh 16 bytes of one output pixel's row of A.
 #pragma once
 
+#include <type_traits>
+
 #include "igemm.cuh"
 
 namespace segk {
 
 // Output pixel (n, i, j) of the packed grid reads the 4x4 window at
 // unpacked (2i, 2j); k = ((u * 4 + v) * c + ch) for tap (u, v). VEC reads
-// 16 bytes of one tap (c a multiple of 16 bytes); otherwise the 8 bf16
-// values are gathered one by one (c = 3: a pixel's channels are not
-// 16-byte aligned).
+// 16 bytes of one tap (c a multiple of 16 bytes); otherwise the 16 bytes
+// (8 bf16 or 16 s8 values) are gathered one by one (c = 3: a pixel's
+// channels are not 16-byte aligned).
 template <class T, bool VEC>
 struct Strided4x4Loader {
   const T* x;
@@ -38,18 +40,23 @@ struct Strided4x4Loader {
       return *reinterpret_cast<const uint4*>(
           r.p + ((long long)(tap >> 2) * w + (tap & 3)) * c + cc);
     }
-    static_assert(VEC || sizeof(T) == 2, "the gather loader is bf16 only");
-    const unsigned short* xs = reinterpret_cast<const unsigned short*>(r.p);
-    unsigned s[8];
+    // the elements' raw bits (bf16 or s8)
+    using U = typename std::conditional<sizeof(T) == 2, unsigned short,
+                                        unsigned char>::type;
+    constexpr int N = 16 / (int)sizeof(T);
+    const U* xs = reinterpret_cast<const U*>(r.p);
+    union {
+      uint4 u;
+      U e[N];
+    } g;
 #pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      const int kk = k + t;  // K = 16c is a multiple of 8: kk < K
+    for (int t = 0; t < N; ++t) {
+      const int kk = k + t;  // K = 16c is a multiple of N: kk < K
       const int tap = kk / c;
       const int cc = kk - tap * c;
-      s[t] = xs[((long long)(tap >> 2) * w + (tap & 3)) * c + cc];
+      g.e[t] = xs[((long long)(tap >> 2) * w + (tap & 3)) * c + cc];
     }
-    return make_uint4(s[0] | (s[1] << 16), s[2] | (s[3] << 16),
-                      s[4] | (s[5] << 16), s[6] | (s[7] << 16));
+    return g.u;
   }
 };
 

@@ -2,14 +2,17 @@
 // [N, hp, wp, 4C] -> [N, hp-1, wp-1, 4O].
 //   bf16: bf16 x and w, + f32 bias, ReLU, bf16 store;
 //   s8:   s8 x and w (s32 accumulation), the int8 epilogue
-//         relu(acc * mul + add), stored requantized to s8 or as bf16.
+//         relu(acc * mul + add), stored requantized to s8 or as bf16;
+//         x is s8 codes, or bf16 quantized as it loads (act_inv, the
+//         inline-quantize mode: igemm.cuh QuantLoader).
 // Options: the fused 2x2/2 max pool (slot-max, [N, hp-1, wp-1, O], in the
 // output's type) and the fused binary mask head (u8 [N, hp-1, wp-1, 4],
 // on the stored bf16 value) with or without the store.
 //
 // Replaces the TPU kernels segmentation_tpu/nn/pallas/conv_flat.py
-// conv2x2_padflat (:275) and conv2x2_pf2 (:1162), float and int8-resident
-// modes. Their padded-flat and paired-column layouts exist for the TPU's
+// conv2x2_padflat (:275) and conv2x2_pf2 (:1162), and of the 4-D route
+// nn/pallas/conv.py conv2x2_flat (:372) and conv2x2_pool_flat (:467):
+// float, int8-resident and inline-quantize modes. Their padded-flat and paired-column layouts exist for the TPU's
 // (8, 128) tiles; this kernel reads plain NHWC and computes the same
 // function on the real window.
 //
@@ -83,9 +86,10 @@ int run_conv2x2(const Conv2x2Loader<bf16>& ld, const void* w,
 }
 
 // Out = s8: requantizing site; Out = bf16: float site (the mask head's).
-template <int BN, class Out>
+// Loader: Conv2x2Loader<s8>, or QuantLoader over Conv2x2Loader<bf16>.
+template <int BN, class Out, class Loader>
 __global__ void __launch_bounds__(kThreads)
-    packed_conv2x2_s8_kernel(Conv2x2Loader<s8> ld, const s8* __restrict__ w,
+    packed_conv2x2_s8_kernel(Loader ld, int K, const s8* __restrict__ w,
                              const float* __restrict__ mul,
                              const float* __restrict__ add,
                              Out* __restrict__ y, Out* __restrict__ pool,
@@ -94,7 +98,7 @@ __global__ void __launch_bounds__(kThreads)
                              uint8_t* __restrict__ mask, long long M) {
   extern __shared__ __align__(128) unsigned char seg_smem[];
   const long long m0 = (long long)blockIdx.x * TileCfg<BN>::BM;
-  int* Cs = igemm_tile<BN, s8>(ld, w, 4 * ld.c4, m0, M, seg_smem);
+  int* Cs = igemm_tile<BN, s8>(ld, w, K, m0, M, seg_smem);
   const bool keep = pool != nullptr || mask != nullptr;
   const Linear rows{m0, M};
   epilogue_affine<BN, Out>(Cs, mul, add, y, keep, rows);
@@ -106,15 +110,34 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int BN, class Out>
-int run_conv2x2_s8(const Conv2x2Loader<s8>& ld, const void* w,
-                   const void* mul, const void* add, void* y, void* pool,
-                   const void* wd, const void* bd, void* mask, long long M,
+template <int BN, class Out, class Loader>
+int run_conv2x2_s8(const Loader& ld, int K, const void* w, const void* mul,
+                   const void* add, void* y, void* pool, const void* wd,
+                   const void* bd, void* mask, long long M,
                    cudaStream_t stream) {
-  return launch<BN, s8>(packed_conv2x2_s8_kernel<BN, Out>, M, stream, 0, ld,
-                        (const s8*)w, (const float*)mul, (const float*)add,
-                        (Out*)y, (Out*)pool, (const bf16*)wd,
-                        (const float*)bd, (uint8_t*)mask, M);
+  return launch<BN, s8>(packed_conv2x2_s8_kernel<BN, Out, Loader>, M, stream,
+                        0, ld, K, (const s8*)w, (const float*)mul,
+                        (const float*)add, (Out*)y, (Out*)pool,
+                        (const bf16*)wd, (const float*)bd, (uint8_t*)mask,
+                        M);
+}
+
+template <class Loader>
+int conv2x2_s8_modes(const Loader& ld, int K, int o4, int requant,
+                     const void* w, const void* mul, const void* add,
+                     void* y, void* pool, const void* wd, const void* bd,
+                     void* mask, long long M, cudaStream_t s) {
+  if (o4 == 128)
+    return requant ? run_conv2x2_s8<128, s8>(ld, K, w, mul, add, y, pool, wd,
+                                             bd, mask, M, s)
+                   : run_conv2x2_s8<128, bf16>(ld, K, w, mul, add, y, pool,
+                                               wd, bd, mask, M, s);
+  if (o4 == 256)
+    return requant ? run_conv2x2_s8<256, s8>(ld, K, w, mul, add, y, pool, wd,
+                                             bd, mask, M, s)
+                   : run_conv2x2_s8<256, bf16>(ld, K, w, mul, add, y, pool,
+                                               wd, bd, mask, M, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace segk
@@ -138,32 +161,31 @@ extern "C" int seg_packed_conv2x2(const void* x, const void* w,
   return (int)cudaErrorInvalidValue;
 }
 
-// The int8 mode: x [n, hp, wp, c4] s8 (c4 % 16 == 0); w [4*c4, o4] s8;
-// mul, add [o4] f32; y and pool s8 (requant != 0) or bf16, or null; the
-// head as above (needs requant == 0).
+// The int8 mode: x [n, hp, wp, c4] (c4 % 16 == 0), s8 codes when act_inv
+// is 0, else bf16 quantized on load at act_inv = f32(1 / act_scale);
+// w [4*c4, o4] s8; mul, add [o4] f32; y and pool s8 (requant != 0) or
+// bf16, or null; the head as above (needs requant == 0).
 extern "C" int seg_packed_conv2x2_s8(const void* x, const void* w,
                                      const void* mul, const void* add,
                                      void* y, void* pool, const void* wd,
                                      const void* bd, void* mask, int n,
                                      int hp, int wp, int c4, int o4,
-                                     int requant, void* stream) {
+                                     int requant, float act_inv,
+                                     void* stream) {
   using namespace segk;
-  const Conv2x2Loader<s8> ld{(const s8*)x, hp, wp, c4, hp - 1, wp - 1};
   const long long M = (long long)n * (hp - 1) * (wp - 1);
   cudaStream_t s = (cudaStream_t)stream;
   if (c4 % 16 || (requant && mask != nullptr))
     return (int)cudaErrorInvalidValue;
-  if (o4 == 128)
-    return requant ? run_conv2x2_s8<128, s8>(ld, w, mul, add, y, pool, wd,
-                                             bd, mask, M, s)
-                   : run_conv2x2_s8<128, bf16>(ld, w, mul, add, y, pool, wd,
-                                               bd, mask, M, s);
-  if (o4 == 256)
-    return requant ? run_conv2x2_s8<256, s8>(ld, w, mul, add, y, pool, wd,
-                                             bd, mask, M, s)
-                   : run_conv2x2_s8<256, bf16>(ld, w, mul, add, y, pool, wd,
-                                               bd, mask, M, s);
-  return (int)cudaErrorInvalidValue;
+  if (act_inv > 0.0f) {
+    const QuantLoader<Conv2x2Loader<bf16>> ld{
+        {(const bf16*)x, hp, wp, c4, hp - 1, wp - 1}, act_inv};
+    return conv2x2_s8_modes(ld, 4 * c4, o4, requant, w, mul, add, y, pool,
+                            wd, bd, mask, M, s);
+  }
+  const Conv2x2Loader<s8> ld{(const s8*)x, hp, wp, c4, hp - 1, wp - 1};
+  return conv2x2_s8_modes(ld, 4 * c4, o4, requant, w, mul, add, y, pool, wd,
+                          bd, mask, M, s);
 }
 
 extern "C" const char* seg_error_string(int err) {

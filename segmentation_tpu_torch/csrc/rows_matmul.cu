@@ -6,15 +6,19 @@
 //             pixel (2i + a, 2j + b), all four slots (upconv4).
 //   bf16: + f32 bias, ReLU, bf16 store;
 //   s8:   s8 x and wm (s32 accumulation), the int8 epilogue
-//         relu(acc * mul + add) requantized to s8 (igemm.cuh).
+//         relu(acc * mul + add) requantized to s8 (igemm.cuh); x is s8
+//         codes, or bf16 quantized as it loads (act_inv: the inline-
+//         quantize mode).
 // The scatter is done on the read side: output pixel (y, x) gathers input
 // packed pixel (y/2, x/2), slot (y%2, x%2), so every output row is written
 // once, contiguously.
 //
 // Replaces the TPU kernels segmentation_tpu/nn/pallas/conv_flat.py
 // matmul_rows_padflat (:785, identity) and deconv_packed_padflat (:896,
-// slot scatter; pf2_out emits the paired layout, a TPU layout device),
-// float and int8-resident modes.
+// slot scatter; pf2_out emits the paired layout, a TPU layout device), and
+// of the 4-D route nn/pallas/conv.py matmul_rows_flat (:974) and
+// deconv_packed_flat (:1078): float, int8-resident and inline-quantize
+// modes.
 //
 // Bound on the H100: K = C = 64..128 against 4O = 128..256 outputs per
 // pixel, so the output store dominates (4O elements per pixel against C
@@ -64,16 +68,32 @@ __global__ void __launch_bounds__(kThreads)
   epilogue_store<BN>(Cs, bias, y, false, m0, M);
 }
 
-template <int BN>
+// Loader: RowsLoader<s8>, or QuantLoader over RowsLoader<bf16>.
+template <int BN, class Loader>
 __global__ void __launch_bounds__(kThreads)
-    rows_matmul_s8_kernel(RowsLoader<s8> ld, const s8* __restrict__ w,
+    rows_matmul_s8_kernel(Loader ld, int K, const s8* __restrict__ w,
                           const float* __restrict__ mul,
                           const float* __restrict__ add, s8* __restrict__ y,
                           long long M) {
   extern __shared__ __align__(128) unsigned char seg_smem[];
   const long long m0 = (long long)blockIdx.x * TileCfg<BN>::BM;
-  int* Cs = igemm_tile<BN, s8>(ld, w, ld.c, m0, M, seg_smem);
+  int* Cs = igemm_tile<BN, s8>(ld, w, K, m0, M, seg_smem);
   epilogue_affine<BN, s8>(Cs, mul, add, y, false, Linear{m0, M});
+}
+
+template <class Loader>
+int run_rows_s8(const Loader& ld, int K, int o4, const void* w,
+                const void* mul, const void* add, void* y, long long M,
+                cudaStream_t s) {
+  if (o4 == 128)
+    return launch<128, s8>(rows_matmul_s8_kernel<128, Loader>, M, s, 0, ld,
+                           K, (const s8*)w, (const float*)mul,
+                           (const float*)add, (s8*)y, M);
+  if (o4 == 256)
+    return launch<256, s8>(rows_matmul_s8_kernel<256, Loader>, M, s, 0, ld,
+                           K, (const s8*)w, (const float*)mul,
+                           (const float*)add, (s8*)y, M);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace segk
@@ -97,24 +117,22 @@ extern "C" int seg_rows_matmul(const void* x, const void* w,
   return (int)cudaErrorInvalidValue;
 }
 
-// The int8 mode: x as above in s8 (c % 16 == 0); w [c, o4] s8; mul, add
-// [o4] f32; y [n, ho, wo, o4] s8.
+// The int8 mode: x as above (c % 16 == 0), s8 codes when act_inv is 0,
+// else bf16 quantized on load at act_inv = f32(1 / act_scale); w [c, o4]
+// s8; mul, add [o4] f32; y [n, ho, wo, o4] s8.
 extern "C" int seg_rows_matmul_s8(const void* x, const void* w,
                                   const void* mul, const void* add, void* y,
                                   int n, int ho, int wo, int c, int o4,
-                                  int scatter, void* stream) {
+                                  int scatter, float act_inv, void* stream) {
   using namespace segk;
-  const RowsLoader<s8> ld{(const s8*)x, c, scatter, ho, wo};
   const long long M = (long long)n * ho * wo;
   cudaStream_t s = (cudaStream_t)stream;
   if (c % 16) return (int)cudaErrorInvalidValue;
-  if (o4 == 128)
-    return launch<128, s8>(rows_matmul_s8_kernel<128>, M, s, 0, ld,
-                           (const s8*)w, (const float*)mul,
-                           (const float*)add, (s8*)y, M);
-  if (o4 == 256)
-    return launch<256, s8>(rows_matmul_s8_kernel<256>, M, s, 0, ld,
-                           (const s8*)w, (const float*)mul,
-                           (const float*)add, (s8*)y, M);
-  return (int)cudaErrorInvalidValue;
+  if (act_inv > 0.0f) {
+    const QuantLoader<RowsLoader<bf16>> ld{
+        {(const bf16*)x, c, scatter, ho, wo}, act_inv};
+    return run_rows_s8(ld, c, o4, w, mul, add, y, M, s);
+  }
+  const RowsLoader<s8> ld{(const s8*)x, c, scatter, ho, wo};
+  return run_rows_s8(ld, c, o4, w, mul, add, y, M, s);
 }

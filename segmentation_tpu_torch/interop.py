@@ -35,8 +35,15 @@ def prepared_from_jax(prepared: Mapping[str, np.ndarray], model,
     tensors, biases f32, the other params and the packed float weights
     (w4, w2, w2a/w2b, wm) in bf16, the compute dtype; adds the packed
     sites' tiled ``b4`` and, for two classes, the mask head. A calibrated
-    dict is planned for ``model`` (a ``UNetS2DInt8``): the kernels'
-    epilogue vectors are added once, here."""
+    dict is planned for ``model`` (a ``UNetS2DInt8`` of the JAX model's
+    ``quant_deconvs``: a dict prepared without it holds no ``wqm``, and
+    its scale graph has no deconv site): the kernels' epilogue vectors are
+    added once, here."""
+    has_wqm = any(k.endswith("/wqm") for k in prepared)
+    if has_wqm != bool(model._deconv_names()):
+        raise ValueError(
+            f"the JAX dict was prepared with quant_deconvs={has_wqm}, the "
+            f"model has quant_deconvs={model.quant_deconvs}")
     out: Dict[str, torch.Tensor] = {}
     for name, v in prepared.items():
         leaf = name.rsplit("/", 1)[-1]

@@ -192,11 +192,20 @@ def head_diff(output_w: torch.Tensor, output_b: torch.Tensor):
 @dataclasses.dataclass
 class UNetS2DInference:
     """Inference over standard UNet params in the packed layout. Needs an
-    even input H/W (512 qualifies)."""
+    even input H/W (512 qualifies).
+
+    ``padflat`` names the JAX class's two routes
+    (segmentation_tpu/models/unet_fast.py:902): its padded-flat route
+    (True, the default) and its 4-D route (False). In bf16 both compute
+    one function, which the port computes on plain NHWC either way
+    (tests/test_torch_int8_routes.py holds both values against the JAX
+    4-D route). The int8 subclass computes the two routes' different int8
+    functions."""
 
     cfg: ModelConfig
     levels: int = 4
     ops: Ops = KERNEL_OPS
+    padflat: bool = True
 
     @property
     def packed_levels(self) -> int:
@@ -268,7 +277,10 @@ class UNetS2DInference:
 
     # ---- conv-site hooks (models/unet_int8.py overrides them) -----------
     def _encode_packed(self, p, lvl, h):
-        """Packed encoder level ``lvl``: (skip, pooled)."""
+        """Packed encoder level ``lvl``: (skip, pooled). The int8 subclass
+        runs level 1 unfused through these two hooks too: conv1_1 in bf16
+        (its ``_strided``), quantized and convolved in s8 by its
+        ``_conv_pool``."""
         h4 = self._strided(p, f"conv{lvl + 1}_1", h)
         return self._conv_pool(p, f"conv{lvl + 1}_2", h4)
 

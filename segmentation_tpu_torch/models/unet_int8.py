@@ -3,16 +3,19 @@
 Every 3×3 conv site of the space-to-depth U-Net runs int8 with static
 symmetric per-output-channel weight scales and static per-site activation
 scales calibrated on sample batches; the packed-decoder deconvs run int8
-too. Activations stay int8-RESIDENT between sites: each site's epilogue
-requantizes its output at its consumer's calibrated input scale, so no
-bf16 intermediate and no quantize pass exist between them. The std
-deconvs and the 1×1 head stay bf16.
+too (``quant_deconvs``). Activations stay int8-RESIDENT between sites:
+each site's epilogue requantizes its output at its consumer's calibrated
+input scale, so no bf16 intermediate and no quantize pass exist between
+them. The std deconvs and the 1×1 head stay bf16.
 
-The forward is the JAX package's padded-flat int8 route (_apply_padflat
-with the UNetS2DInt8 hooks) on plain NHWC tensors:
+The JAX class has two routes, which compute different int8 functions; the
+port computes each on plain NHWC tensors. ``padflat=True`` (the default)
+is the padded-flat route (_apply_padflat with the UNetS2DInt8 hooks):
 
   level 1         H5 entry_chain: bf16 conv1_1 requantized in shared
-                  memory, s8 conv1_2, slot-max pool — one launch
+                  memory, s8 conv1_2, slot-max pool — one launch; where
+                  the JAX route's fusion gate declines (``_fused_level1``)
+                  the unfused level 1 below
   level 2         H3 s8 conv2_1, H1 s8 conv2_2 + pool
   levels 3–5      int8_conv (s8 3×3 conv, requant epilogue; the encoder
                   pool runs on the codes), conv5_2 emits bf16
@@ -21,12 +24,26 @@ with the UNetS2DInt8 hooks) on plain NHWC tensors:
   packed decoder  H4 s8 upconv3/upconv4, H2 s8 duals, H1 s8 conv8_2 and
                   conv9_2 (bf16 value + mask head, or bf16 logits path)
 
+``padflat=False`` is the 4-D route (UNetS2DInference.apply with the int8
+hooks, segmentation_tpu/models/unet_int8.py:415-616, :913-925):
+
+  level 1         conv1_1 in bf16 (H3, C = 3), its output quantized at
+                  conv1_2's scale by a plain op (JAX: in XLA), H1 s8
+                  conv1_2 + pool
+  packed decoder  the deconvs in bf16 (H4) on their dequantized s8 inputs;
+                  each dual (H2 s8) quantizes its bf16 up side inline
+                  (act_scale_b), the skip crop folded into its loads
+
+and the rest as above. ``quant_deconvs=False`` keeps the padded-flat route
+with bf16 packed-decoder deconvs: conv7_2 and conv8_2 emit bf16, H4 runs
+in bf16 and both duals quantize their up side inline.
+
 Without calibrated scales every hook falls through to the bf16 forward of
 UNetS2DInference, as the JAX class does.
 
-    q = UNetS2DInt8(cfg)
+    q = UNetS2DInt8(cfg)                       # or padflat=False, or
     prepared = q.prepare(params, calib_batches=[x0], device="cuda")
-    masks = q.apply_argmax(prepared, x)
+    masks = q.apply_argmax(prepared, x)        # quant_deconvs=False
 """
 
 from __future__ import annotations
@@ -46,7 +63,7 @@ from segmentation_tpu_torch.nn.kernels import conv_int8
 from segmentation_tpu_torch.nn.kernels.conv_int8 import Int8Ops, conv3x3_s8
 from segmentation_tpu_torch.nn.packing import crop_packed
 
-S8 = torch.int8
+S8, BF16 = torch.int8, torch.bfloat16
 _PLANNED = "conv1_1/qmul"  # written by UNetS2DInt8.plan
 
 
@@ -138,13 +155,24 @@ def _affine(cs: torch.Tensor, b4: torch.Tensor, out_s: Optional[float]):
 class UNetS2DInt8(UNetS2DInference):
     """Quantized UNetS2DInference: the int8 sites run through ``ops8``
     (the hand kernels by default, their plain versions with
-    conv_int8.PLAIN_OPS); calibration runs the bf16 forward of ``ops``."""
+    conv_int8.PLAIN_OPS); calibration runs the bf16 forward of ``ops``.
+    ``padflat`` picks the JAX route whose function it computes (see the
+    module docstring)."""
 
     ops8: Int8Ops = conv_int8.KERNEL_OPS
+    # int8 packed-decoder deconvs (segmentation_tpu/models/unet_int8.py:
+    # 199-215); False keeps them bf16: no deconv site is quantized,
+    # calibrated or in the scale graph
+    quant_deconvs: bool = True
 
     _calibrating = None  # {site: running max|x|} during calibration
 
     # ---- site names ----------------------------------------------------
+    def _deconv_names(self):
+        """The packed-decoder upconvs that run int8 (none without
+        ``quant_deconvs``)."""
+        return self._site_names()[3] if self.quant_deconvs else []
+
     def _std_conv_names(self):
         L, pl_ = self.levels, self.packed_levels
         names = []
@@ -184,7 +212,7 @@ class UNetS2DInt8(UNetS2DInference):
             prepared[f"{name}/{wq_key}"] = torch.as_tensor(wq).to(device)
             prepared[f"{name}/{ws_key}"] = torch.as_tensor(ws).to(device)
 
-        entry, packed, dual, ups = self._site_names()
+        entry, packed, dual, _ = self._site_names()
         std, std_dual = self._std_conv_names(), self._std_dual_names()
         for name in entry:
             put(name, "wq4", "wscale4", quantize_weight(
@@ -208,7 +236,7 @@ class UNetS2DInt8(UNetS2DInference):
                 raise ValueError(f"{name}: concat width {w.shape}")
             put(name, "wq_a", "wscale_a", quantize_weight(w[:, :, :ca]))
             put(name, "wq_b", "wscale_b", quantize_weight(w[:, :, ca:]))
-        for name in ups:
+        for name in self._deconv_names():
             w = w32(f"{name}/w")
             c, o = w.shape[2], w.shape[3]
             put(name, "wqm", "wscale", quantize_matrix(
@@ -224,10 +252,10 @@ class UNetS2DInt8(UNetS2DInference):
         """Run the bf16 forward on each batch, record max|x| at every
         quantized site's input (the a and b sides of the duals, the a side
         on the cropped skip) and store ascale = max(absmax, 1e-6) / 127."""
-        entry, packed, dual, ups = self._site_names()
+        entry, packed, dual, _ = self._site_names()
         std, std_dual = self._std_conv_names(), self._std_dual_names()
         dual_a = set(dual) | set(std_dual)
-        sites = (entry + packed + dual + std + ups
+        sites = (entry + packed + dual + std + self._deconv_names()
                  + [f"{n}@b" for n in dual + std_dual])
         self._calibrating = {}
         try:
@@ -273,11 +301,11 @@ class UNetS2DInt8(UNetS2DInference):
         succ[f"conv{L + 1}_1"] = f"conv{L + 1}_2"
         for i in range(L):
             succ[f"conv{L + 2 + i}_1"] = f"conv{L + 2 + i}_2"
-            if 0 <= L - 2 - i < pl_:  # the next up is a packed-level deconv
+            if self.quant_deconvs and 0 <= L - 2 - i < pl_:
+                # the next up is an int8 packed-level deconv
                 succ[f"conv{L + 2 + i}_2"] = f"upconv{i + 2}"
-        for j, lvl in enumerate(reversed(range(L))):
-            if lvl < pl_:  # the deconv feeds its dual's b side
-                succ[f"upconv{j + 1}"] = f"conv{L + 2 + j}_1@b"
+        for up, dual in zip(self._deconv_names(), self._site_names()[2]):
+            succ[up] = f"{dual}@b"  # the deconv feeds its dual's b side
         return {name: (f"{nxt[:-2]}/ascale_b" if nxt.endswith("@b")
                        else f"{nxt}/ascale") for name, nxt in succ.items()}
 
@@ -301,13 +329,13 @@ class UNetS2DInt8(UNetS2DInference):
         ``p`` and return it: ``qmul``/``qadd`` (and the duals'
         ``qcs_a``/``qcs_b``), computed once from the activation scales.
         The int8 route runs on a planned dict only (``_PLANNED`` in it)."""
-        entry, packed, dual, ups = self._site_names()
+        entry, packed, dual, _ = self._site_names()
         q = {}
         c1 = entry[0]  # H5's conv1_1: requant at conv1_2's scale, no cs
         b4 = p[f"{c1}/b4"]
         q[f"{c1}/qmul"], q[f"{c1}/qadd"] = _affine(
             torch.ones_like(b4), b4, self._out_scale_of(p, c1))
-        for name in entry[1:] + packed + ups:
+        for name in entry[1:] + packed + self._deconv_names():
             ws = p[f"{name}/wscale4" if name in entry else f"{name}/wscale"]
             q[f"{name}/qmul"], q[f"{name}/qadd"] = _affine(
                 ws * self._in_scale_of(p, name), p[f"{name}/b4"],
@@ -327,16 +355,22 @@ class UNetS2DInt8(UNetS2DInference):
         """Run the int8 route: ``p`` was calibrated and planned."""
         return _PLANNED in p
 
-    @staticmethod
-    def _resident(name, x):
-        if x.dtype != S8:
-            raise NotImplementedError(
-                f"{name}: a float input at an int8 packed site needs the "
-                "kernels' inline-quantize mode, which is not ported")
+    def _fused_level1(self, x) -> bool:
+        """The JAX padded-flat route fuses level 1 (entry_chain_pf2, here
+        H5) where its paired-column layout and its pair-major entry take
+        the input: _pf2_ok (segmentation_tpu/models/unet_fast.py:1296)
+        with the int8 tile 32 and _pf_entry_chain's W % 4 == 0, (W // 4) %
+        32 == 0 (segmentation_tpu/models/unet_int8.py:667-681), which
+        hold together iff H % 4 == 0 and W % 128 == 0. Elsewhere, and on
+        the 4-D route, level 1 is unfused: conv1_1 in bf16, quantized,
+        then conv1_2 in s8 — another function (conv1_1 rounds to bf16 and
+        quantizes by a division)."""
+        return (self.padflat and self.packed_levels >= 2
+                and x.shape[1] % 4 == 0 and x.shape[2] % 128 == 0)
 
     # ---- hook overrides --------------------------------------------------
     def _encode_packed(self, p, lvl, h):
-        if lvl == 0 and self._q(p):
+        if lvl == 0 and self._q(p) and self._fused_level1(h):
             c1, c2 = "conv1_1", "conv1_2"
             return self.ops8.entry_chain(
                 h, p[f"{c1}/w4"], p[f"{c1}/qmul"], p[f"{c1}/qadd"],
@@ -346,19 +380,23 @@ class UNetS2DInt8(UNetS2DInference):
     def _strided(self, p, name, h):
         if self._calibrating is not None:
             self._record(name, h)
-        if not self._q(p):
+        if not self._q(p) or h.shape[-1] < 16:
+            # the C = 3 image entry stays bf16, as in JAX (its int8
+            # kernel needs C >= 16)
             return super()._strided(p, name, h)
-        self._resident(name, h)
-        return self.ops8.strided_conv4x4s2(h, p[f"{name}/wq4"],
-                                           p[f"{name}/qmul"],
-                                           p[f"{name}/qadd"])
+        return self.ops8.strided_conv4x4s2(
+            h, p[f"{name}/wq4"], p[f"{name}/qmul"], p[f"{name}/qadd"])
 
     def _conv_pool(self, p, name, h4):
         if self._calibrating is not None:
             self._record(name, h4)
         if not self._q(p):
             return super()._conv_pool(p, name, h4)
-        self._resident(name, h4)
+        if h4.dtype != S8:
+            # the bf16 image entry's output: quantized by a plain op at
+            # this site's scale, as JAX does in XLA (_packed_conv_pool,
+            # _pf_entry)
+            h4 = quant_act(h4, self._in_scale_of(p, name))
         return self.ops8.packed_conv2x2(
             h4, p[f"{name}/wq"], p[f"{name}/qmul"], p[f"{name}/qadd"],
             requant=self._out_keys.get(name) in p, pool=True)
@@ -368,7 +406,6 @@ class UNetS2DInt8(UNetS2DInference):
             self._record(name, h4)
         if not self._q(p):
             return super()._packed_conv(p, name, h4)
-        self._resident(name, h4)
         return self.ops8.packed_conv2x2(
             h4, p[f"{name}/wq"], p[f"{name}/qmul"], p[f"{name}/qadd"],
             requant=self._out_keys.get(name) in p)
@@ -376,21 +413,27 @@ class UNetS2DInt8(UNetS2DInference):
     def _head_conv(self, p, name, h4):
         if not self._q(p):
             return super()._head_conv(p, name, h4)
-        self._resident(name, h4)
         return self.ops8.packed_conv2x2(
             h4, p[f"{name}/wq"], p[f"{name}/qmul"], p[f"{name}/qadd"],
             requant=False, head=(p["head/wd"], p["head/bd"]),
             head_only=True)
 
     def _deconv(self, p, up, h, scatter):
-        if self._calibrating is not None:
+        quantized = up in self._deconv_names()
+        if self._calibrating is not None and quantized:
             self._record(up, h)
         if not self._q(p):
             return super()._deconv(p, up, h, scatter)
-        self._resident(up, h)
-        return self.ops8.rows_matmul(h.contiguous(), p[f"{up}/wqm"],
-                                     p[f"{up}/qmul"], p[f"{up}/qadd"],
-                                     scatter=scatter)
+        if quantized and self.padflat:
+            return self.ops8.rows_matmul(h.contiguous(), p[f"{up}/wqm"],
+                                         p[f"{up}/qmul"], p[f"{up}/qadd"],
+                                         scatter=scatter)
+        if h.dtype == S8:
+            # a resident input to a bf16 deconv, dequantized as JAX does
+            # (h.astype(bf16) * in_s: the scale rounds to bf16 first)
+            scale = torch.tensor(self._in_scale_of(p, up), dtype=BF16)
+            h = h.to(BF16) * float(scale)
+        return super()._deconv(p, up, h, scatter)
 
     def _dual(self, p, name, skip, h4, offset):
         if self._calibrating is not None:
@@ -398,12 +441,13 @@ class UNetS2DInt8(UNetS2DInference):
             self._record(f"{name}@b", h4)
         if not self._q(p):
             return super()._dual(p, name, skip, h4, offset)
-        self._resident(name, skip)
-        self._resident(name, h4)
+        # the skip is resident; a bf16 up side (a bf16 deconv's output) is
+        # quantized as the kernel loads it, at the b side's scale
+        act_b = None if h4.dtype == S8 else self._in_scale_of(p, name, "b")
         return self.ops8.packed_conv2x2_dual(
             skip, h4, p[f"{name}/wq_a"], p[f"{name}/wq_b"],
             p[f"{name}/qcs_a"], p[f"{name}/qcs_b"], p[f"{name}/qmul"],
-            p[f"{name}/qadd"], offset=offset)
+            p[f"{name}/qadd"], offset=offset, act_scale_b=act_b)
 
     def _std_conv(self, p, name, h):
         if self._calibrating is not None:

@@ -1,10 +1,11 @@
 """The int8 path's kernels: int8 modes of H1–H4, the fused level-1 chain H5,
-and the int8 3×3 conv of the standard levels.
+the image entry's two int8 modes, and the int8 3×3 conv of the standard
+levels.
 
 As in conv_flat.py, each op has a wrapper and a plain PyTorch version of
 the same function; the wrapper launches its CUDA kernel for a CUDA tensor,
 or raises, and runs the plain version for a tensor on the CPU. Each launch
-adds one to ``launches[<name>]``.
+adds one to ``launches[<mode>]``, the count of its kernel mode (``NAMES``).
 
   H1 packed_conv2x2_s8      s8 2×2 packed conv (+ slot-max pool, + mask head)
   H2 packed_conv2x2_dual_s8 s8 dual decoder conv, one s32 accumulator a side
@@ -12,12 +13,21 @@ adds one to ``launches[<name>]``.
   H4 rows_matmul_s8         s8 per-pixel [C] → [4O], identity or slot scatter
   H5 entry_chain            level 1 in one launch: bf16 conv1_1 requantized
                             in shared memory, s8 conv1_2, slot-max pool
+  H3 conv3entry_requant     the C = 3 image entry, bf16 product, s8 out
+  H3 conv3entry_s8          the C = 3 image entry on s8 image codes
 
-They replace the int8-resident modes of the Pallas kernels of
-segmentation_tpu/nn/pallas/conv_flat.py and entry_chain_pf2 (:1644). The
-products are exact (s8 × s8 summed in s32, or bf16 × bf16 in f32 for
-conv1_1); every site ends in the epilogue of nn/pallas/conv.py
-_epilogue_parts written as two per-channel f32 vectors,
+Every s8 operand of H1–H4 is s8 codes (int8-resident), or a bf16 tensor
+that the kernel quantizes as it loads it, given its scale (``act_scale``;
+the dual's ``act_scale_a`` / ``act_scale_b``): the inline-quantize modes,
+``quant_inline``, bit-equal to nn/pallas/conv.py _quant_rows. A bf16
+operand without its scale raises.
+
+They replace the int8 modes of the Pallas kernels of
+segmentation_tpu/nn/pallas/conv_flat.py (entry_chain_pf2 :1644,
+conv3entry_pf2 :1738) and nn/pallas/conv.py. The products are exact (s8 ×
+s8 summed in s32, or bf16 × bf16 in f32 for conv1_1); every site ends in
+the epilogue of nn/pallas/conv.py _epilogue_parts written as two
+per-channel f32 vectors,
 
     v = relu(acc · mul + add)          (two roundings: product, then sum)
 
@@ -41,6 +51,7 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from segmentation_tpu_torch.nn.kernels import _build
@@ -57,8 +68,13 @@ from segmentation_tpu_torch.nn.kernels.conv_flat import (
 )
 from segmentation_tpu_torch.nn.packing import crop_packed, unpack2
 
-NAMES = ("entry_chain", "packed_conv2x2_s8", "packed_conv2x2_dual_s8",
-         "strided_conv4x4s2_s8", "rows_matmul_s8")
+# the kernel modes, each with its launch count: resident s8 operands, the
+# pool of H1, the inline-quantize modes, the image entry's modes
+NAMES = ("entry_chain", "packed_conv2x2_s8", "packed_conv2x2_s8_pool",
+         "packed_conv2x2_s8_inline", "packed_conv2x2_dual_s8",
+         "packed_conv2x2_dual_s8_inline", "strided_conv4x4s2_s8",
+         "strided_conv4x4s2_s8_inline", "rows_matmul_s8",
+         "rows_matmul_s8_inline", "conv3entry_requant", "conv3entry_s8")
 launches = dict.fromkeys(NAMES, 0)
 S8, BF16, F32 = torch.int8, torch.bfloat16, torch.float32
 
@@ -68,7 +84,44 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
+def wrapper_of(mode: str) -> str:
+    """The wrapper function that launches kernel mode ``mode``."""
+    return mode.removesuffix("_pool").removesuffix("_inline")
+
+
 # ------------------------------------------------------------ plain versions
+def act_inverse(act_scale) -> float:
+    """f32(1 / act_scale), the divide done on the host in float64 (as
+    nn/pallas/conv.py _smem_scalar(1.0 / act_scale) does): the one value
+    both the kernels and the plain versions multiply by."""
+    return float(np.float32(1.0 / float(act_scale)))
+
+
+def quant_inline(x: torch.Tensor, act_scale) -> torch.Tensor:
+    """The in-kernel quantize (nn/pallas/conv.py _quant_rows): clip(round(
+    f32(x) · f32(1/act_scale)), ±127) s8, round half to even. A multiply
+    by the inverse, not a division: the two differ on some inputs."""
+    q = torch.round(x.float() * act_inverse(act_scale))
+    return torch.clamp(q, -127, 127).to(S8)
+
+
+def _check_operand(x, act_scale, name):
+    """An s8 site's operand is s8 codes, or a float tensor with its
+    act_scale."""
+    if act_scale is None and x.dtype != S8:
+        raise TypeError(f"{name}: a {x.dtype} operand needs its act_scale "
+                        "(the inline-quantize mode)")
+    if act_scale is not None and not x.dtype.is_floating_point:
+        raise TypeError(f"{name}: act_scale given for a {x.dtype} operand")
+
+
+def _codes(x, act_scale, name):
+    """The s8 operand a kernel multiplies: x itself (s8 codes), or x
+    quantized inline at ``act_scale``."""
+    _check_operand(x, act_scale, name)
+    return x if act_scale is None else quant_inline(x, act_scale)
+
+
 def _int_conv(x, w_hwio, stride=1):
     """Exact integer conv of s8 (or bf16) NHWC operands, as float64."""
     return _conv_nhwc(x.double(), w_hwio.double(), stride)
@@ -88,9 +141,10 @@ def _slot_max(y):
 
 
 def packed_conv2x2_s8_plain(x, wq, mul, add, *, requant=True, pool=False,
-                            head=None, head_only=False):
+                            head=None, head_only=False, act_scale=None):
     if head_only and head is None:
         raise ValueError("head_only needs head=(wd, bd)")
+    x = _codes(x, act_scale, "packed_conv2x2_s8")
     y = _finish(_int_conv(x, wq), mul, add, requant)
     outs = [] if head_only else [y]
     if head is not None:
@@ -101,17 +155,32 @@ def packed_conv2x2_s8_plain(x, wq, mul, add, *, requant=True, pool=False,
 
 
 def packed_conv2x2_dual_s8_plain(skip, up, wqa, wqb, cs_a, cs_b, mul, add,
-                                 *, offset):
+                                 *, offset, act_scale_a=None,
+                                 act_scale_b=None):
+    skip = _codes(skip, act_scale_a, "packed_conv2x2_dual_s8 skip")
+    up = _codes(up, act_scale_b, "packed_conv2x2_dual_s8 up")
     acc_a = _int_conv(crop_packed(skip, up.shape, offset), wqa).float()
     acc_b = _int_conv(up, wqb).float()
     return _finish(acc_a * cs_a + acc_b * cs_b, mul, add, True)
 
 
-def strided_conv4x4s2_s8_plain(x, wq4, mul, add):
+def strided_conv4x4s2_s8_plain(x, wq4, mul, add, *, act_scale=None):
+    x = _codes(x, act_scale, "strided_conv4x4s2_s8")
     return _finish(_int_conv(x, wq4, 2), mul, add, True)
 
 
-def rows_matmul_s8_plain(x, wqm, mul, add, *, scatter=False):
+def conv3entry_requant_plain(x, w4, mul, add):
+    if x.dtype != BF16:
+        raise TypeError(f"conv3entry_requant: x is {x.dtype}, not bf16")
+    return _finish(_int_conv(x, w4, 2), mul, add, True)
+
+
+def conv3entry_s8_plain(x, wq4, mul, add):
+    return strided_conv4x4s2_s8_plain(x, wq4, mul, add)
+
+
+def rows_matmul_s8_plain(x, wqm, mul, add, *, scatter=False, act_scale=None):
+    x = _codes(x, act_scale, "rows_matmul_s8")
     if scatter:
         n, i, j, c4 = x.shape
         x = unpack2(x.reshape(n, i, j, 4, c4 // 4))
@@ -134,17 +203,35 @@ def _vec(t, name, o4, dev):
     _require(t, name, F32, (o4,), dev)
 
 
+def _operand(t, name, shape, act_scale, dev):
+    """Check an s8 kernel operand: s8 codes, or bf16 with its scale.
+    Returns the kernel's inverse scale, 0 for codes."""
+    _require(t, name, S8 if act_scale is None else BF16, shape, dev)
+    return 0.0 if act_scale is None else act_inverse(act_scale)
+
+
+def _mode(name, act_scale):
+    """The launch count of a kernel mode: an inline-quantize launch counts
+    under its kernel's ``_inline`` mode (H1's pool included)."""
+    if act_scale is None:
+        return name
+    return f"{name.removesuffix('_pool')}_inline"
+
+
 def packed_conv2x2_s8(x, wq, mul, add, *, requant=True, pool=False,
-                      head=None, head_only=False):
-    """H1 int8: x s8 [N,hp,wp,4C], wq s8 [2,2,4C,4O], mul/add f32 [4O] →
-    y [N,hp-1,wp-1,4O], s8 (``requant``) or bf16; with ``pool`` also the
+                      head=None, head_only=False, act_scale=None):
+    """H1 int8: x [N,hp,wp,4C] s8 codes, or bf16 quantized inline at
+    ``act_scale``; wq s8 [2,2,4C,4O], mul/add f32 [4O] → y
+    [N,hp-1,wp-1,4O], s8 (``requant``) or bf16; with ``pool`` also the
     slot-max [..,O] of y; with ``head=(wd bf16 [4O,4], bd f32 [4])`` (a
     float site) also the u8 mask; ``head_only`` returns the mask alone.
     Outputs in the order (y, mask, pooled)."""
+    _check_operand(x, act_scale, "packed_conv2x2_s8")
     if _on_cpu(x):
         return packed_conv2x2_s8_plain(x, wq, mul, add, requant=requant,
                                        pool=pool, head=head,
-                                       head_only=head_only)
+                                       head_only=head_only,
+                                       act_scale=act_scale)
     if head_only and head is None:
         raise ValueError("head_only needs head=(wd, bd)")
     if requant and head is not None:
@@ -156,7 +243,7 @@ def packed_conv2x2_s8(x, wq, mul, add, *, requant=True, pool=False,
     if c4 % 16 or hp < 2 or wp < 2:
         raise ValueError(f"packed_conv2x2_s8: bad input shape "
                          f"{tuple(x.shape)}")
-    _require(x, "x", S8, x.shape, dev)
+    inv = _operand(x, "x", x.shape, act_scale, dev)
     _require(wq, "wq", S8, (2, 2, c4, o4), dev)
     _vec(mul, "mul", o4, dev)
     _vec(add, "add", o4, dev)
@@ -176,23 +263,29 @@ def packed_conv2x2_s8(x, wq, mul, add, *, requant=True, pool=False,
         err = _build.library().seg_packed_conv2x2_s8(
             _ptr(x), _ptr(wq), _ptr(mul), _ptr(add), _ptr(y), _ptr(pooled),
             _ptr(wd), _ptr(bd), _ptr(mask), n, hp, wp, c4, o4, int(requant),
-            _stream(x),
+            inv, _stream(x),
         )
     _build.check(err, "packed_conv2x2_s8")
-    launches["packed_conv2x2_s8"] += 1
+    launches[_mode("packed_conv2x2_s8_pool" if pool else "packed_conv2x2_s8",
+                   act_scale)] += 1
     outs = [t for t in (y, mask, pooled) if t is not None]
     return outs[0] if len(outs) == 1 else tuple(outs)
 
 
 def packed_conv2x2_dual_s8(skip, up, wqa, wqb, cs_a, cs_b, mul, add, *,
-                           offset):
-    """H2 int8: skip s8 [N,hpa,wpa,4C], up s8 [N,hp,wp,4C] → s8
+                           offset, act_scale_a=None, act_scale_b=None):
+    """H2 int8: skip [N,hpa,wpa,4C], up [N,hp,wp,4C] → s8
     [N,hp-1,wp-1,4O] = requant(relu((conv(crop(skip), wqa)·cs_a +
     conv(up, wqb)·cs_b)·mul + add)), the skip cropped at the UNPACKED
-    ``offset`` (even: a packed slice; odd: a slot phase)."""
+    ``offset`` (even: a packed slice; odd: a slot phase). Each side is s8
+    codes, or bf16 quantized inline at ``act_scale_a`` / ``act_scale_b``
+    (after the crop's gather, with which it commutes)."""
+    _check_operand(skip, act_scale_a, "packed_conv2x2_dual_s8 skip")
+    _check_operand(up, act_scale_b, "packed_conv2x2_dual_s8 up")
     if _on_cpu(up):
-        return packed_conv2x2_dual_s8_plain(skip, up, wqa, wqb, cs_a, cs_b,
-                                            mul, add, offset=offset)
+        return packed_conv2x2_dual_s8_plain(
+            skip, up, wqa, wqb, cs_a, cs_b, mul, add, offset=offset,
+            act_scale_a=act_scale_a, act_scale_b=act_scale_b)
     n, hp, wp, c4 = up.shape
     _, hpa, wpa, _ = skip.shape
     o4 = wqa.shape[-1]
@@ -206,8 +299,8 @@ def packed_conv2x2_dual_s8(skip, up, wqa, wqb, cs_a, cs_b, mul, add, *,
         raise ValueError(f"packed_conv2x2_dual_s8: crop {offset} of "
                          f"{tuple(skip.shape)} does not cover "
                          f"{tuple(up.shape)}")
-    _require(up, "up", S8, up.shape, dev)
-    _require(skip, "skip", S8, (n, hpa, wpa, c4), dev)
+    inv_b = _operand(up, "up", up.shape, act_scale_b, dev)
+    inv_a = _operand(skip, "skip", (n, hpa, wpa, c4), act_scale_a, dev)
     _require(wqa, "wqa", S8, (2, 2, c4, o4), dev)
     _require(wqb, "wqb", S8, (2, 2, c4, o4), dev)
     for t, name in ((cs_a, "cs_a"), (cs_b, "cs_b"), (mul, "mul"),
@@ -218,26 +311,24 @@ def packed_conv2x2_dual_s8(skip, up, wqa, wqb, cs_a, cs_b, mul, add, *,
         err = _build.library().seg_packed_conv2x2_dual_s8(
             _ptr(skip), _ptr(up), _ptr(wqa), _ptr(wqb), _ptr(cs_a),
             _ptr(cs_b), _ptr(mul), _ptr(add), _ptr(y), n, hpa, wpa, hp, wp,
-            c4, o4, oh, ow, _stream(up),
+            c4, o4, oh, ow, inv_a, inv_b, _stream(up),
         )
     _build.check(err, "packed_conv2x2_dual_s8")
-    launches["packed_conv2x2_dual_s8"] += 1
+    inline = act_scale_a is not None or act_scale_b is not None
+    launches["packed_conv2x2_dual_s8_inline" if inline
+             else "packed_conv2x2_dual_s8"] += 1
     return y
 
 
-def strided_conv4x4s2_s8(x, wq4, mul, add):
-    """H3 int8: x s8 [N,H,W,C] (C % 16 == 0), wq4 s8 [4,4,C,4O] → s8
-    packed [N,(H-2)//2,(W-2)//2,4O]."""
-    if _on_cpu(x):
-        return strided_conv4x4s2_s8_plain(x, wq4, mul, add)
+def _strided_s8(x, wq4, mul, add, act_scale, mode):
+    """Launch H3's s8 mode (codes, or bf16 quantized inline)."""
     n, h, w, c = x.shape
     o4 = wq4.shape[-1]
     dev = x.device
-    _o4_ok(o4, "strided_conv4x4s2_s8")
-    if h < 4 or w < 4 or c % 16:
-        raise ValueError(f"strided_conv4x4s2_s8: bad input shape "
-                         f"{tuple(x.shape)}")
-    _require(x, "x", S8, x.shape, dev)
+    _o4_ok(o4, mode)
+    if h < 4 or w < 4:
+        raise ValueError(f"{mode}: input {tuple(x.shape)} < 4x4")
+    inv = _operand(x, "x", x.shape, act_scale, dev)
     _require(wq4, "wq4", S8, (4, 4, c, o4), dev)
     _vec(mul, "mul", o4, dev)
     _vec(add, "add", o4, dev)
@@ -246,18 +337,78 @@ def strided_conv4x4s2_s8(x, wq4, mul, add):
     with torch.cuda.device(dev):
         err = _build.library().seg_strided_conv4x4s2_s8(
             _ptr(x), _ptr(wq4), _ptr(mul), _ptr(add), _ptr(y), n, h, w, c,
-            o4, _stream(x),
+            o4, inv, _stream(x),
         )
-    _build.check(err, "strided_conv4x4s2_s8")
-    launches["strided_conv4x4s2_s8"] += 1
+    _build.check(err, mode)
+    launches[mode] += 1
     return y
 
 
-def rows_matmul_s8(x, wqm, mul, add, *, scatter=False):
-    """H4 int8: per-pixel x @ wqm [C, 4O], s8 in and out. Identity: x
-    [N,H,W,C] → [N,H,W,4O]. Scatter: x packed [N,i,j,4C] → [N,2i,2j,4O]."""
+def strided_conv4x4s2_s8(x, wq4, mul, add, *, act_scale=None):
+    """H3 int8: x [N,H,W,C] (C % 16 == 0) s8 codes, or bf16 quantized
+    inline at ``act_scale``; wq4 s8 [4,4,C,4O] → s8 packed
+    [N,(H-2)//2,(W-2)//2,4O]."""
+    _check_operand(x, act_scale, "strided_conv4x4s2_s8")
     if _on_cpu(x):
-        return rows_matmul_s8_plain(x, wqm, mul, add, scatter=scatter)
+        return strided_conv4x4s2_s8_plain(x, wq4, mul, add,
+                                          act_scale=act_scale)
+    if x.shape[-1] % 16:
+        raise ValueError(f"strided_conv4x4s2_s8: C = {x.shape[-1]}, not a "
+                         "multiple of 16")
+    return _strided_s8(x, wq4, mul, add, act_scale,
+                       _mode("strided_conv4x4s2_s8", act_scale))
+
+
+def conv3entry_s8(x, wq4, mul, add):
+    """H3's s8-input entry (conv3entry_pf2's int8-in mode, u8-native image
+    serving): x s8 image codes [N,H,W,3], wq4 s8 [4,4,3,4O] (the
+    s2d-folded taps), mul = chan_scale/out_scale, add = bias/out_scale →
+    s8 packed [N,(H-2)//2,(W-2)//2,4O]; the 3-byte pixels are gathered."""
+    if _on_cpu(x):
+        return conv3entry_s8_plain(x, wq4, mul, add)
+    if x.shape[-1] != 3:
+        raise ValueError(f"conv3entry_s8: C = {x.shape[-1]}, not 3")
+    return _strided_s8(x, wq4, mul, add, None, "conv3entry_s8")
+
+
+def conv3entry_requant(x, w4, mul, add):
+    """H3's requant-only entry (conv3entry_pf2's bf16 → s8 mode): x bf16
+    [N,H,W,3], w4 bf16 [4,4,3,4O], f32 accumulation, then the int8
+    epilogue relu(acc·mul + add) → s8 [N,(H-2)//2,(W-2)//2,4O]: with mul =
+    1/out_scale, add = bias/out_scale, the codes of H5's conv1_1."""
+    if _on_cpu(x):
+        return conv3entry_requant_plain(x, w4, mul, add)
+    n, h, w, c = x.shape
+    o4 = w4.shape[-1]
+    dev = x.device
+    _o4_ok(o4, "conv3entry_requant")
+    if c != 3 or h < 4 or w < 4:
+        raise ValueError(f"conv3entry_requant: bad input shape "
+                         f"{tuple(x.shape)}")
+    _require(x, "x", BF16, x.shape, dev)
+    _require(w4, "w4", BF16, (4, 4, c, o4), dev)
+    _vec(mul, "mul", o4, dev)
+    _vec(add, "add", o4, dev)
+    y = torch.empty((n, (h - 2) // 2, (w - 2) // 2, o4), dtype=S8,
+                    device=dev)
+    with torch.cuda.device(dev):
+        err = _build.library().seg_strided_conv4x4s2_requant(
+            _ptr(x), _ptr(w4), _ptr(mul), _ptr(add), _ptr(y), n, h, w, c,
+            o4, _stream(x),
+        )
+    _build.check(err, "conv3entry_requant")
+    launches["conv3entry_requant"] += 1
+    return y
+
+
+def rows_matmul_s8(x, wqm, mul, add, *, scatter=False, act_scale=None):
+    """H4 int8: per-pixel x @ wqm [C, 4O], s8 out; x s8 codes, or bf16
+    quantized inline at ``act_scale``. Identity: x [N,H,W,C] →
+    [N,H,W,4O]. Scatter: x packed [N,i,j,4C] → [N,2i,2j,4O]."""
+    _check_operand(x, act_scale, "rows_matmul_s8")
+    if _on_cpu(x):
+        return rows_matmul_s8_plain(x, wqm, mul, add, scatter=scatter,
+                                    act_scale=act_scale)
     n, hi, wi, cx = x.shape
     c, o4 = wqm.shape
     dev = x.device
@@ -266,7 +417,7 @@ def rows_matmul_s8(x, wqm, mul, add, *, scatter=False):
     if cx != (4 * c if scatter else c) or c % 16:
         raise ValueError(f"rows_matmul_s8: x {tuple(x.shape)} vs wqm "
                          f"{tuple(wqm.shape)} (scatter={scatter})")
-    _require(x, "x", S8, x.shape, dev)
+    inv = _operand(x, "x", x.shape, act_scale, dev)
     _require(wqm, "wqm", S8, (c, o4), dev)
     _vec(mul, "mul", o4, dev)
     _vec(add, "add", o4, dev)
@@ -274,10 +425,10 @@ def rows_matmul_s8(x, wqm, mul, add, *, scatter=False):
     with torch.cuda.device(dev):
         err = _build.library().seg_rows_matmul_s8(
             _ptr(x), _ptr(wqm), _ptr(mul), _ptr(add), _ptr(y), n, ho, wo, c,
-            o4, int(scatter), _stream(x),
+            o4, int(scatter), inv, _stream(x),
         )
     _build.check(err, "rows_matmul_s8")
-    launches["rows_matmul_s8"] += 1
+    launches[_mode("rows_matmul_s8", act_scale)] += 1
     return y
 
 

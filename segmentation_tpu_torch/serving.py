@@ -5,6 +5,8 @@
     logits = server.logits(x0)      # [8, 324, 324, 2]
 
     server8, _ = entry("cuda", batch=8, int8=True, calib=[x_calib])
+    server8_4d, _ = entry("cuda", batch=8, int8=True, calib=[x_calib],
+                          padflat=False)   # or quant_deconvs=False
 
 The flagship configuration (n_kernels = 32, n_classes = 2, 4 levels),
 params from a seeded generator or a JAX ``.npz`` checkpoint, prepared once
@@ -12,7 +14,9 @@ for the packed forward: f32 params, bf16 activations; the packed sites run
 the hand-written kernels. ``int8=True`` serves the calibrated int8 model
 (models/unet_int8.py), the counterpart of the JAX CLI's ``infer --int8``:
 the weights are quantized and the activation scales calibrated on
-``calib`` (batches of images) once, at entry.
+``calib`` (batches of images) once, at entry; ``padflat=False`` and
+``quant_deconvs=False`` pick the JAX class's other int8 configurations
+(models/unet_int8.py).
 """
 
 from __future__ import annotations
@@ -52,12 +56,14 @@ class Server:
 
 def entry(device="cuda", batch: int = 8, *, seed: int = 0,
           checkpoint: Optional[str] = None, int8: bool = False,
-          calib: Optional[Sequence[torch.Tensor]] = None):
+          calib: Optional[Sequence[torch.Tensor]] = None,
+          padflat: bool = True, quant_deconvs: bool = True):
     """(server, (x0,)): the prepared flagship server on ``device`` and a
     zero input batch of its shape in the compute dtype. With ``int8`` the
-    server runs the calibrated int8 forward, calibrated on ``calib``
-    (default: one batch of ``batch`` uniform [0, 1) images drawn from
-    ``seed``)."""
+    server runs the calibrated int8 forward of UNetS2DInt8(cfg, padflat,
+    quant_deconvs), calibrated on ``calib`` (default: one batch of
+    ``batch`` uniform [0, 1) images drawn from ``seed``); the bf16
+    forward is one function for either ``padflat``."""
     cfg = flagship_config()
     if checkpoint is not None:
         params = params_from_jax(load_params(checkpoint))
@@ -70,7 +76,8 @@ def entry(device="cuda", batch: int = 8, *, seed: int = 0,
         if calib is None:
             calib = [torch.rand(shape, generator=generator(seed + 1, device),
                                 device=device)]
-        model = UNetS2DInt8(cfg)
+        model = UNetS2DInt8(cfg, padflat=padflat,
+                            quant_deconvs=quant_deconvs)
         prepared = model.prepare(params, calib_batches=calib,
                                  dtype=DEFAULT.compute_dtype, device=device)
     else:

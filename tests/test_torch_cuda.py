@@ -225,6 +225,101 @@ def test_entry_chain_kernel(gen):
     _check_s8(ci.entry_chain(*args), ci.entry_chain_plain(*args))
 
 
+# the inline-quantize modes: bf16 operands whose codes at ACT_S reach past
+# 127 (inverse 16: ties at k + 1/2)
+ACT_S = 1 / 16.0
+
+
+def _acts8(gen, *shape):
+    return (torch.rand(shape, generator=gen, device="cuda")
+            * (150 * ACT_S)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("o4", [128, 256])
+@pytest.mark.parametrize("mode", ["requant", "pool", "float", "head_only"])
+def test_packed_conv2x2_s8_inline_kernel(gen, o4, mode):
+    c4 = 256
+    mul, add = _requant_vecs(gen, o4, 4 * c4)
+    if mode in ("float", "head_only"):
+        mul = mul / 20
+    args = (_acts8(gen, 2, 13, 21, c4), _s8(gen, 2, 2, c4, o4), mul, add)
+    kw = {"pool": mode == "pool", "requant": mode in ("requant", "pool"),
+          "act_scale": ACT_S}
+    if mode == "head_only":
+        kw["head"] = (_wgt(gen, o4, 4),
+                      torch.randn((4,), generator=gen, device="cuda"))
+        kw["head_only"] = True
+    ci.reset_launches()
+    _check_s8(ci.packed_conv2x2_s8(*args, **kw),
+              ci.packed_conv2x2_s8_plain(*args, **kw))
+    assert ci.launches["packed_conv2x2_s8_inline"] == 1
+
+
+@pytest.mark.parametrize("inline", ["a", "b", "ab"])
+@pytest.mark.parametrize("offset", [(0, 0), (6, 4), (5, 7)])
+def test_packed_conv2x2_dual_s8_inline_kernel(gen, offset, inline):
+    c4, o4 = 256, 256
+    skip = (_acts8(gen, 2, 15, 17, c4) if "a" in inline
+            else _s8(gen, 2, 15, 17, c4))
+    up = (_acts8(gen, 2, 9, 11, c4) if "b" in inline
+          else _s8(gen, 2, 9, 11, c4))
+    cs_a, _ = _requant_vecs(gen, o4, 8 * c4)
+    cs_b, add = _requant_vecs(gen, o4, 8 * c4)
+    args = (skip, up, _s8(gen, 2, 2, c4, o4), _s8(gen, 2, 2, c4, o4), cs_a,
+            cs_b, torch.ones((o4,), device="cuda"), add)
+    kw = {"offset": offset,
+          "act_scale_a": ACT_S if "a" in inline else None,
+          "act_scale_b": ACT_S if "b" in inline else None}
+    _check_s8(ci.packed_conv2x2_dual_s8(*args, **kw),
+              ci.packed_conv2x2_dual_s8_plain(*args, **kw))
+
+
+def test_strided_conv4x4s2_s8_inline_kernel(gen):
+    args = (_acts8(gen, 2, 22, 19, 32), _s8(gen, 4, 4, 32, 256),
+            *_requant_vecs(gen, 256, 512))
+    _check_s8(ci.strided_conv4x4s2_s8(*args, act_scale=ACT_S),
+              ci.strided_conv4x4s2_s8_plain(*args, act_scale=ACT_S))
+
+
+@pytest.mark.parametrize("scatter", [False, True])
+def test_rows_matmul_s8_inline_kernel(gen, scatter):
+    c, o4 = (64, 128) if scatter else (128, 256)
+    x = _acts8(gen, 2, 7, 9, 4 * c if scatter else c)
+    args = (x, _s8(gen, c, o4), *_requant_vecs(gen, o4, c))
+    kw = {"scatter": scatter, "act_scale": ACT_S}
+    _check_s8(ci.rows_matmul_s8(*args, **kw),
+              ci.rows_matmul_s8_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("o4", [128, 256])
+def test_conv3entry_kernels(gen, o4):
+    """The image entry's requant-only mode (bf16) and s8-input mode (the
+    3-byte pixels gathered), odd and even widths."""
+    mul = torch.full((o4,), 100.0, device="cuda")
+    add = _bias(gen, o4) * 100
+    x = _act(gen, 2, 38, 71, 3)
+    args = (x, _wgt(gen, 4, 4, 3, o4), mul, add)
+    _check_s8(ci.conv3entry_requant(*args),
+              ci.conv3entry_requant_plain(*args))
+    args8 = (_s8(gen, 2, 38, 70, 3), _s8(gen, 4, 4, 3, o4),
+             *_requant_vecs(gen, o4, 27))
+    _check_s8(ci.conv3entry_s8(*args8), ci.conv3entry_s8_plain(*args8))
+
+
+def test_entry_chain_is_requant_entry_plus_pool(gen):
+    """H5 against its two-kernel form on the card: the same requant
+    point, so the same codes."""
+    x = _act(gen, 2, 38, 70, 3)
+    w4 = _wgt(gen, 4, 4, 3, 128)
+    mul1 = torch.full((128,), 1.0 / 0.02, device="cuda")
+    add1 = _bias(gen, 128) / 0.02
+    wq2 = _s8(gen, 2, 2, 128, 128)
+    mul2, add2 = _requant_vecs(gen, 128, 512)
+    codes = ci.conv3entry_requant(x, w4, mul1, add1)
+    two = ci.packed_conv2x2_s8(codes, wq2, mul2, add2, pool=True)
+    _check_s8(two, ci.entry_chain(x, w4, mul1, add1, wq2, mul2, add2))
+
+
 def test_conv3x3_s8_int_mm(gen):
     x, wq = _s8(gen, 2, 9, 11, 64), _s8(gen, 3, 3, 64, 128)
     got = ci.conv3x3_s8(x, wq)
@@ -232,9 +327,26 @@ def test_conv3x3_s8_int_mm(gen):
     assert torch.equal(got, ci.conv3x3_s8_plain(x, wq))
 
 
-def test_int8_forward_kernels_vs_plain(gen):
-    """The calibrated int8 forward on the kernels against the same forward
-    on the plain versions (same prepared weights and scales)."""
+# each int8 configuration's kernel modes (chip_smoke.py ROUTE_LAUNCHES):
+# at 256², where the JAX route fuses level 1
+_ROUTE_MODES = {
+    (): {"entry_chain", "strided_conv4x4s2_s8", "packed_conv2x2_s8_pool",
+         "rows_matmul_s8", "packed_conv2x2_dual_s8", "packed_conv2x2_s8"},
+    (("padflat", False),): {
+        "strided_conv4x4s2", "rows_matmul", "packed_conv2x2_s8_pool",
+        "strided_conv4x4s2_s8", "packed_conv2x2_dual_s8_inline",
+        "packed_conv2x2_s8"},
+    (("quant_deconvs", False),): {
+        "entry_chain", "rows_matmul", "packed_conv2x2_s8_pool",
+        "strided_conv4x4s2_s8", "packed_conv2x2_dual_s8_inline",
+        "packed_conv2x2_s8"},
+}
+
+
+def _int8_forward_kernels_vs_plain(gen, **kw):
+    """The calibrated int8 forward of one configuration on the kernels
+    against the same forward on the plain versions (same prepared weights
+    and scales); exactly the configuration's kernel modes launch."""
     from segmentation_tpu_torch.core.config import ModelConfig
     from segmentation_tpu_torch.models.unet import init_params
     from segmentation_tpu_torch.models.unet_int8 import UNetS2DInt8
@@ -243,14 +355,27 @@ def test_int8_forward_kernels_vs_plain(gen):
     params = {k: v.cuda() for k, v in init_params(cfg, generator(1)).items()}
     x = torch.rand((2, 256, 256, 3), generator=gen,
                    device="cuda").to(torch.bfloat16)
-    fast = UNetS2DInt8(cfg)
+    fast = UNetS2DInt8(cfg, **kw)
     prepared = fast.prepare(params, calib_batches=[x], device="cuda")
+    cf.reset_launches()
     ci.reset_launches()
     got = fast.apply_argmax(prepared, x)
-    assert all(v > 0 for v in ci.launches.values()), ci.launches
-    plain = UNetS2DInt8(cfg, ops=cf.PLAIN_OPS, ops8=ci.PLAIN_OPS)
+    launched = {k for k, v in {**cf.launches, **ci.launches}.items() if v}
+    assert launched == _ROUTE_MODES[tuple(kw.items())], launched
+    plain = UNetS2DInt8(cfg, ops=cf.PLAIN_OPS, ops8=ci.PLAIN_OPS, **kw)
     want = plain.apply_argmax(prepared, x)
     assert (got == want).float().mean().item() >= 0.99
+
+
+def test_int8_forward_kernels_vs_plain(gen):
+    _int8_forward_kernels_vs_plain(gen)
+
+
+@pytest.mark.parametrize("kw", [{"padflat": False},
+                                {"quant_deconvs": False}],
+                         ids=["padflat_false", "quant_deconvs_false"])
+def test_int8_configurations_kernels_vs_plain(gen, kw):
+    _int8_forward_kernels_vs_plain(gen, **kw)
 
 
 # ------------------------------------------------------------- training

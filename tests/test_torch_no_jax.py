@@ -56,6 +56,15 @@ _PROBE = textwrap.dedent("""
     assert set(prepared) == keys  # planned at prepare, not in the forward
     assert tuple(mask.shape) == (1, 4, 4), mask.shape
     assert all(v == 0 for v in ci.launches.values()), ci.launches
+    # the other two int8 configurations (the inline-quantize modes)
+    cfg32 = ModelConfig(n_classes=2, input_dims=(188, 188), n_kernels=32)
+    for kw in ({"padflat": False}, {"quant_deconvs": False}):
+        q = UNetS2DInt8(cfg32, **kw)
+        prepared = q.prepare(init_params(cfg32, generator(0)),
+                             calib_batches=[x])
+        mask = q.apply_argmax(prepared, x.to(torch.bfloat16))
+        assert tuple(mask.shape) == (1, 4, 4), (kw, mask.shape)
+    assert all(v == 0 for v in ci.launches.values()), ci.launches
 
     # one bf16 train step of the trainable model (every packed site on its
     # Function, on the plain versions)
