@@ -24,7 +24,10 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                requant-only and s8-input modes (whose requant-only codes
                through H1's pool must equal H5's outputs);
   3c.        — the same for H6 (the packed-conv input grad), single and
-               dual, at its six training sites;
+               dual, at its six training sites, each line with the tile
+               (th × tw) the wrapper's plan picked, the share of the bound
+               and the share of the packed form's tensor peak (its GEMM's
+               operations over 989 TFLOP/s), then each mode's sums;
   4. slice   — 4 requests of B = 8 through serving.entry (apply_argmax),
                whose launches alone are counted, then one apply (logits);
                every kernel must have launched in the requests, the masks
@@ -599,13 +602,35 @@ def _library_call(name, args, kw):
     return lambda: F.conv_transpose2d(gu, w)
 
 
+def _packed_gemm_ops(args):
+    """H6's packed GEMM at a site: 2 · dx pixels · K (4 taps × 4O) · its
+    columns (4C, or 8C for the dual), 16/9 of the function's operations."""
+    g, *ws = args
+    n, hg, wg, o4 = g.shape
+    return 2 * n * (hg + 1) * (wg + 1) * 4 * o4 * ws[0].shape[2] * len(ws)
+
+
+def _dgrad_note(args, ms, bound):
+    """H6's extra words on a site's time line: the tile the wrapper's plan
+    picked, the share of the bound, the share of the packed tensor peak."""
+    from segmentation_tpu_torch.nn.kernels import conv_bwd as cb
+
+    g, *ws = args
+    n, hg, wg, _ = g.shape
+    plan = cb.tile_plan(n, hg + 1, wg + 1,
+                        cb.tile_rows(ws[0].shape[2], len(ws) == 2))
+    peak = _packed_gemm_ops(args) / PEAK_OPS_S["bf16"] * 1e3
+    return (f"; tile {plan.th}x{plan.tw}, {bound / ms:.3f} of the bound, "
+            f"{peak / ms:.3f} of the packed tensor peak")
+
+
 def _kernel_phase(mod, sites):
     """Each kernel of ``mod`` against its plain version at every site of
     the path, N = 2 and B = 8; each site's time at B = 8 beside the plain
     version's, the library call's and its bound. Returns per kernel the
     max abs error and the times summed over the sites (ms): kernel, plain,
     bound, the resource that binds most of the bound, library (None
-    without one)."""
+    without one), and H6's packed GEMM operations (0 for the others)."""
     import torch
 
     from segmentation_tpu_torch.core.rng import generator
@@ -620,6 +645,7 @@ def _kernel_phase(mod, sites):
     bound = dict.fromkeys(mod.NAMES, 0.0)
     bound_parts = {k: {"bytes": 0.0, "operations": 0.0} for k in mod.NAMES}
     library_ms = dict.fromkeys(mod.NAMES)
+    packed = dict.fromkeys(mod.NAMES, 0)
     for n in (B_PARITY, B_SERVE):
         for name, label, args, kw in sites(n, generator(7 + n, "cuda")):
             got = _outs(wrappers[name](*args, **kw))
@@ -653,12 +679,16 @@ def _kernel_phase(mod, sites):
             if lib is not None:
                 library_ms[name] = (library_ms[name] or 0.0) + t["library"]
                 lib_txt = f"{t['library']:.4f} ms"
+            note = ""
+            if name.startswith("packed_conv2x2_dgrad"):
+                packed[name] += _packed_gemm_ops(args)
+                note = _dgrad_note(args, t["kernel"], b)
             print(f"[kernels] time B={n} {name} {label}: "
                   f"{t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, "
-                  f"library {lib_txt}, bound {b:.4f} ms ({by})")
+                  f"library {lib_txt}, bound {b:.4f} ms ({by}){note}")
             del fns, lib
     bound_by = {k: max(v, key=v.get) for k, v in bound_parts.items()}
-    return worst, ms, plain_ms, bound, bound_by, library_ms
+    return worst, ms, plain_ms, bound, bound_by, library_ms, packed
 
 
 def _serve(server, reqs, reset):
@@ -1297,7 +1327,14 @@ def main() -> None:
     for mod, sites in ((ci, _sites8), (cb, _dgrad_sites)):
         for table, part in zip(tables, _kernel_phase(mod, sites)):
             table.update(part)
-    worst, ms, plain_ms, bound, bound_by, library_ms = tables
+    worst, ms, plain_ms, bound, bound_by, library_ms, packed = tables
+    for k in cb.NAMES:
+        print(f"[kernels] {k} B={B_SERVE} over its sites: {ms[k]:.4f} ms, "
+              f"plain {plain_ms[k]:.4f} ms, library {library_ms[k]:.4f} ms, "
+              f"bound {bound[k]:.4f} ms ({bound[k] / ms[k]:.3f} of it "
+              f"reached), packed GEMM {packed[k] / 1e9:.1f} GFLOP "
+              f"({packed[k] / PEAK_OPS_S['bf16'] * 1e3 / ms[k]:.3f} of the "
+              f"tensor peak)")
     exact = _entry_modes_agree(B_SERVE, generator(99, "cuda"))
     print(f"[kernels] B={B_SERVE} H5 against conv3entry_requant + H1 pool: "
           f"{'equal code for code' if exact else 'within one code'}")

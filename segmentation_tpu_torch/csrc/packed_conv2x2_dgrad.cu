@@ -1,114 +1,193 @@
 // H6 packed_conv2x2_dgrad: the input gradient of H1's 2x2 VALID conv over a
-// packed tensor, and of both halves of H2's dual conv in one launch (g is
-// read once per 256-column tile: once at conv9_1, twice at conv8_1).
+// packed tensor, and of both halves of H2's dual conv in one launch.
 //
 //   dx[n, i, j, c] = sum over u, v in {0, 1} and o of
 //                    g[n, i-u, j-v, o] * w[u, v, c, o]
 //
 // g [N, hg, wg, 4O] bf16 is the (ReLU-masked) output cotangent, zero outside
-// its extent, and dx [N, hg+1, wg+1, 4C] bf16, accumulated in f32. As an
-// implicit GEMM: M = N (hg+1)(wg+1) pixels, K = 4 taps x 4O, columns 4C. The
-// weight matrix Wt[(tap, o), col] = w[u, v, col, o] is built by torch (a
-// transpose of the 0.5 MB packed weight); the dual mode lays [wa^T | wb^T]
-// side by side (8C columns) and stores the first 4C columns of a pixel to
-// dxa and the rest to dxb. A block computes BM pixels x BN columns; with
-// 8C = 512 (conv8_1) blockIdx.y picks one of two column tiles, whose
-// weights the wrapper stores tile-major ([tiles][K][BN]).
+// its extent; dx [N, hg+1, wg+1, 4C] bf16, accumulated in f32. The dual mode
+// computes dxa from wa and dxb from wb out of the same g.
 //
 // Replaces the TPU kernels segmentation_tpu/nn/pallas/conv_flat_bwd.py
 // conv2x2_dgrad_padflat (:119) and conv2x2_dgrad_dual_padflat (:217).
-// Their zero-junk cotangent contract, row rolls and first-row patch exist
-// for the padded-flat layout; this kernel reads plain NHWC and checks each
-// tap's source pixel against g's extent instead (the first and last rows
-// and columns of dx see fewer taps).
 //
-// Bound on the H100: the same MACs per byte as H1 (K = 512..1024 against
-// 128..256 columns), so compute-bound once tiles are reused; this first
-// version runs on the WMMA core of igemm.cuh with a store-only epilogue.
-#include "igemm.cuh"
+// Bound on the H100: the tensor operations of the packed form, an implicit
+// GEMM of K = 4 taps x 4O against 4C columns (8C for the dual). 7 of its 16
+// slot blocks per tap are zero, so it does 16/9 of the function's
+// operations; at 4O, 4C >= 128 that is far above the card's ~295
+// operations per byte of HBM.
+//
+// Design (sm90_igemm.cuh runs it): output tiles are th x tw pixel
+// rectangles of one image, laid out as GEMM rows m = a W + b with the row
+// stride W = tw + 1 (one junk column per image row; th W <= BM; the
+// wrapper's conv_bwd.tile_plan picks th and tw), walked by one persistent
+// block per SM.
+//  - A is a halo box. For K block k0 (64 channels) one 4-D TMA load reads
+//    the box [1, th + 1, W, 64] of g at (n, i0 - 1, j0 - 1, k0) into a
+//    128-byte-swizzled K-major A slot. Pixel (a, b) of tap (u, v) reads g
+//    at slot row (a + 1 - u) W + (b + 1 - v) = m + (1 - u) W + (1 - v), so
+//    each tap's A operand is the slot shifted by a constant number of rows:
+//    g is read from L2 once per K block, not once per tap. TMA fills every
+//    element outside g with zero, negative coordinates and channels past
+//    4O included: that is the dgrad's boundary rule, with no per-element
+//    index arithmetic or check in the kernel.
+//  - B is w itself: for tap t, w viewed as [4 * 4C, 4O] has the K-major
+//    rows t 4C + c, one 2-D TMA box [4C, 64] per K block and tap (the
+//    dual: wa's and wb's boxes side by side, NB = 8C); no transposed copy.
+//  - Tiles (BM GEMM rows x NB columns): 4C = 128: BM = 256 (each consumer
+//    128 rows, two m64n128); 4C = 256: BM = 128 (each consumer 64 rows,
+//    m64n256); dual 4C = 128: BM = 128 over NB = 256 columns [wa | wb];
+//    dual 4C = 256: BM = 64, one consumer per half (m64n256 each) from the
+//    same A slots, so g is read once for both.
+//  - The epilogue rounds to bf16 (__float2bfloat16, nearest even), moves
+//    each warp's fragment through stmatrix and stores 16 bytes per lane,
+//    skipping junk rows and rows outside dx. No atomics: two launches give
+//    the same bits.
+//  - Where the time goes (B = 8, the six sites, on the H100): the wgmma
+//    loop alone runs at ~74 % of the tensor peak; the loads cost ~10 % on
+//    top and the epilogue's stores ~50 %: both consumers store at once and
+//    the tensor cores wait (PERF.md).
+#include "sm90_igemm.cuh"
 
 namespace segk {
 
-struct DgradLoader {
-  const bf16* g;
-  int hg, wg, o4, ho, wo;
-  struct Row {
-    long long n;
-    int i, j;
-    bool ok;
-  };
-  __device__ __forceinline__ Row row(long long m, bool ok) const {
-    Row r{0, 0, 0, ok};
-    if (ok) {
-      const Pix q = decode(m, ho, wo);
-      r.n = q.n;
-      r.i = q.i;
-      r.j = q.j;
-    }
-    return r;
+using sm90::bf16;
+
+template <int C4, bool DUAL>
+struct DgradTiles {
+  static constexpr int NB = DUAL ? 2 * C4 : C4;
+  static constexpr bool SPLIT_N = NB == 512;
+  static constexpr int NI = SPLIT_N ? 256 : NB;
+  static constexpr int MI = NI == 128 ? 2 : 1;
+  static constexpr int BM = SPLIT_N ? 64 : 128 * MI;
+  // an A slot holds the largest tap shift (W + 1 <= BM + 1, W <= 256) and
+  // BM rows after it
+  static constexpr int A_ROWS = (BM + (BM < 256 ? BM : 256) + 1 + 7) / 8 * 8;
+  static constexpr int A_STAGES = 2;
+  static constexpr int B_STAGES = sm90::stages_that_fit(
+      1024 + 8 * sm90::kScratch + 128 + A_STAGES * A_ROWS * 128, NB * 128, 4);
+
+  CUtensorMap gmap, wamap, wbmap;
+  bf16* dxa;
+  bf16* dxb;
+  int hx, wx, th, tw, tiles_w, tiles_hw, n_tiles, kb;
+
+  __device__ int tiles() const { return n_tiles; }
+  __device__ int k_blocks() const { return kb; }
+  __device__ uint32_t a_tx() const {
+    return (uint32_t)((th + 1) * (tw + 1)) * 128u;
   }
-  __device__ __forceinline__ uint4 load(const Row& r, int k) const {
-    const int tap = k / o4;  // (u, v) = (tap >> 1, tap & 1)
-    const int o = k - tap * o4;
-    const int si = r.i - (tap >> 1);
-    const int sj = r.j - (tap & 1);
-    if (si < 0 || si >= hg || sj < 0 || sj >= wg) return zero4();
-    return *reinterpret_cast<const uint4*>(
-        g + ((r.n * hg + si) * (long long)wg + sj) * o4 + o);
+  __device__ int a_row(int tap) const {  // (u, v) = (tap >> 1, tap & 1)
+    return (1 - (tap >> 1)) * (tw + 1) + 1 - (tap & 1);
+  }
+  __device__ void prefetch() const {
+    sm90::prefetch_map(&gmap);
+    sm90::prefetch_map(&wamap);
+    if (DUAL) sm90::prefetch_map(&wbmap);
+  }
+  // tile t -> image n and its first pixel (i0, j0): conv_bwd.tile_plan's
+  // map, row-major over [N, tiles_h, tiles_w]
+  __device__ void origin(int t, int& n, int& i0, int& j0) const {
+    n = t / tiles_hw;
+    const int r = t - n * tiles_hw;
+    const int ti = r / tiles_w;
+    i0 = ti * th;
+    j0 = (r - ti * tiles_w) * tw;
+  }
+  __device__ void load_a(int t, int k, uint8_t* a, uint64_t* bar) const {
+    int n, i0, j0;
+    origin(t, n, i0, j0);
+    sm90::tma_load_4d(a, &gmap, bar, 64 * k, j0 - 1, i0 - 1, n);
+  }
+  // the B rows [wa | wb] of (K block, tap), one box per weight
+  __device__ void load_b(int k, int tap, uint8_t* b, uint64_t* bar) const {
+    sm90::tma_load_2d(b, &wamap, bar, 64 * k, tap * C4);
+    if (DUAL) sm90::tma_load_2d(b + C4 * 128, &wbmap, bar, 64 * k, tap * C4);
+  }
+  __device__ void store(int t, int cg, float (&acc)[MI][NI / 2],
+                        uint8_t* scratch) const {
+    int n, i0, j0;
+    origin(t, n, i0, j0);
+    const int lane = threadIdx.x & 31;
+    const int row0 = (SPLIT_N ? 0 : cg * 64 * MI) +
+                     16 * ((threadIdx.x >> 5) & 3) + (lane & 15);
+    long long pix[MI];  // the lane's output pixel per m64 group, or -1
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) {
+      const int m = row0 + 64 * mi;
+      const int a = m / (tw + 1), b = m - a * (tw + 1);
+      const int i = i0 + a, j = j0 + b;
+      pix[mi] = (a < th && b < tw && i < hx && j < wx)
+                    ? ((long long)n * hx + i) * wx + j
+                    : -1;
+    }
+    bf16* const out = SPLIT_N && cg ? dxb : dxa;
+    sm90::store_acc<NI, MI>(acc, scratch, [&](int mi, int col) -> bf16* {
+      if (pix[mi] < 0) return nullptr;
+      if (DUAL && !SPLIT_N && col >= C4)
+        return dxb + pix[mi] * C4 + col - C4;
+      return out + pix[mi] * C4 + col;
+    });
   }
 };
 
-template <int BN>
-__global__ void __launch_bounds__(kThreads)
-    packed_conv2x2_dgrad_kernel(DgradLoader ld, const bf16* __restrict__ w,
-                                bf16* __restrict__ dxa,
-                                bf16* __restrict__ dxb, int c4,
-                                long long M) {
-  using C = TileCfg<BN>;
-  extern __shared__ __align__(128) unsigned char seg_smem[];
-  const long long m0 = (long long)blockIdx.x * C::BM;
-  const int K = 4 * ld.o4;
-  const int col0 = blockIdx.y * BN;
-  const float* Cs = igemm_tile<BN, bf16>(ld, w + (long long)blockIdx.y * K * BN,
-                                         K, m0, M, seg_smem);
-  for (int idx = threadIdx.x; idx < C::BM * (BN / 8); idx += kThreads) {
-    const int r = idx / (BN / 8);
-    const int c = (idx % (BN / 8)) * 8;
-    const long long m = m0 + r;
-    if (m >= M) continue;
-    const int gc = col0 + c;  // 8 columns never straddle the two sides
-    bf16* out = gc < c4 ? dxa + m * c4 + gc : dxb + m * c4 + (gc - c4);
-    store8(out, Cs + r * C::LDC + c);
-  }
+template <int C4, bool DUAL>
+__global__ void __launch_bounds__(sm90::kThreads, 1)
+    packed_conv2x2_dgrad_kernel(const __grid_constant__ DgradTiles<C4, DUAL> p) {
+  sm90::run(p);
+}
+
+template <int C4, bool DUAL>
+int dgrad(const void* g, const void* wa, const void* wb, void* dxa,
+          void* dxb, int n, int hg, int wg, int o4, int th, int tw,
+          cudaStream_t stream) {
+  using P = DgradTiles<C4, DUAL>;
+  if (th * (tw + 1) > P::BM) return (int)cudaErrorInvalidValue;
+  P p{};
+  const cuuint64_t gdims[4] = {(cuuint64_t)o4, (cuuint64_t)wg,
+                               (cuuint64_t)hg, (cuuint64_t)n};
+  const cuuint32_t gbox[4] = {64, (cuuint32_t)tw + 1, (cuuint32_t)th + 1, 1};
+  const cuuint64_t wdims[2] = {(cuuint64_t)o4, (cuuint64_t)(4 * C4)};
+  const cuuint32_t wbox[2] = {64, (cuuint32_t)C4};
+  int e = sm90::make_map(&p.gmap, g, 4, gdims, gbox);
+  if (e == 0) e = sm90::make_map(&p.wamap, wa, 2, wdims, wbox);
+  if (e == 0 && DUAL) e = sm90::make_map(&p.wbmap, wb, 2, wdims, wbox);
+  if (e != 0) return e;
+  p.dxa = (bf16*)dxa;
+  p.dxb = (bf16*)dxb;
+  p.hx = hg + 1;
+  p.wx = wg + 1;
+  p.th = th;
+  p.tw = tw;
+  p.tiles_w = (p.wx + tw - 1) / tw;
+  p.tiles_hw = p.tiles_w * ((p.hx + th - 1) / th);
+  p.n_tiles = n * p.tiles_hw;
+  p.kb = (o4 + 63) / 64;
+  return sm90::launch(packed_conv2x2_dgrad_kernel<C4, DUAL>, p, stream);
 }
 
 }  // namespace segk
 
-// g [n, hg, wg, o4] bf16; w [ncols / bn][4*o4][bn] bf16 with ncols = c4
-// (dxb null) or 2*c4 (dual), bn = min(ncols, 256); dxa (and dxb) [n, hg+1,
-// wg+1, c4] bf16.
-extern "C" int seg_packed_conv2x2_dgrad(const void* g, const void* w,
-                                        void* dxa, void* dxb, int n, int hg,
-                                        int wg, int o4, int c4,
-                                        void* stream) {
+// g [n, hg, wg, o4] bf16; wa (and wb for the dual, else null) [2, 2, c4, o4]
+// bf16; dxa (and dxb) [n, hg+1, wg+1, c4] bf16; (th, tw) the output tile
+// from conv_bwd.tile_plan (th (tw + 1) GEMM rows). Every pointer 16-byte
+// aligned.
+extern "C" int seg_packed_conv2x2_dgrad(const void* g, const void* wa,
+                                        const void* wb, void* dxa, void* dxb,
+                                        int n, int hg, int wg, int o4, int c4,
+                                        int th, int tw, void* stream) {
   using namespace segk;
-  const int ncols = dxb != nullptr ? 2 * c4 : c4;
-  const int bn = ncols < 256 ? ncols : 256;
-  if (o4 % 8 || (c4 != 128 && c4 != 256) || hg < 1 || wg < 1)
+  const bool dual = wb != nullptr;
+  if (o4 < 8 || o4 % 8 || (c4 != 128 && c4 != 256) || n < 1 || hg < 1 ||
+      wg < 1 || th < 1 || tw < 1 || th > 255 || tw > 255 ||
+      dual != (dxb != nullptr))
     return (int)cudaErrorInvalidValue;
-  const DgradLoader ld{(const bf16*)g, hg, wg, o4, hg + 1, wg + 1};
-  const long long M = (long long)n * (hg + 1) * (wg + 1);
   cudaStream_t s = (cudaStream_t)stream;
-  if (bn == 128) {
-    const dim3 grid((unsigned)((M + TileCfg<128>::BM - 1) / TileCfg<128>::BM),
-                    ncols / 128);
-    return launch_grid(packed_conv2x2_dgrad_kernel<128>, grid,
-                       TileCfg<128>::SMEM, s, ld, (const bf16*)w, (bf16*)dxa,
-                       (bf16*)dxb, c4, M);
-  }
-  const dim3 grid((unsigned)((M + TileCfg<256>::BM - 1) / TileCfg<256>::BM),
-                  ncols / 256);
-  return launch_grid(packed_conv2x2_dgrad_kernel<256>, grid,
-                     TileCfg<256>::SMEM, s, ld, (const bf16*)w, (bf16*)dxa,
-                     (bf16*)dxb, c4, M);
+  if (c4 == 128)
+    return dual ? dgrad<128, true>(g, wa, wb, dxa, dxb, n, hg, wg, o4, th, tw, s)
+                : dgrad<128, false>(g, wa, wb, dxa, dxb, n, hg, wg, o4, th, tw,
+                                    s);
+  return dual ? dgrad<256, true>(g, wa, wb, dxa, dxb, n, hg, wg, o4, th, tw, s)
+              : dgrad<256, false>(g, wa, wb, dxa, dxb, n, hg, wg, o4, th, tw,
+                                  s);
 }

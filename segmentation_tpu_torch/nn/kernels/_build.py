@@ -6,8 +6,11 @@ objects into one shared library with a plain C interface, which is
 loaded with ``ctypes`` (no PyTorch headers: a build takes seconds, not
 minutes). The library lands in ``csrc/build/`` under a name keyed by a
 hash of the sources and flags, so an edited source never loads a stale
-build. Nothing is built or loaded at import time. The helpers at the end
-are the wrappers' shared checks and ctypes arguments.
+build. Nothing is built or loaded at import time. The link needs no
+``-lcuda``: the one driver-API call, ``cuTensorMapEncodeTiled`` (H6's TMA
+tensor maps, ``csrc/sm90_igemm.cuh``), is reached at run time through the
+runtime's ``cudaGetDriverEntryPoint``. The helpers at the end are the
+wrappers' shared checks and ctypes arguments.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ _SIGNATURES = {
     "seg_strided_conv4x4s2_s8": [_P] * 5 + [_I] * 5 + [_F, _P],
     "seg_rows_matmul_s8": [_P] * 5 + [_I] * 6 + [_F, _P],
     "seg_entry_chain": [_P] * 9 + [_I] * 3 + [_P],
-    "seg_packed_conv2x2_dgrad": [_P] * 4 + [_I] * 5 + [_P],
+    "seg_packed_conv2x2_dgrad": [_P] * 5 + [_I] * 7 + [_P],
     "seg_crop_normalize": [_P] * 5 + [_I] * 6 + [_P],
 }
 

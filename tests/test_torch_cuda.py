@@ -386,18 +386,37 @@ def _cot(gen, *shape):
     return (g * keep).to(torch.bfloat16)
 
 
-# g's shape and 4C at the 512² sites (N = 1), and ragged pixel counts
-# M = N (hg+1)(wg+1) for both tile heights
+# g's shape and 4C at the 512² sites (N = 1), ragged pixel counts, and the
+# edges of the kernel's tile plan (conv_bwd.tile_plan): a last tile ragged
+# in both directions for each tile size the plan can take (rows 256, 128,
+# dual 128 and dual 64; tests/test_torch_dgrad_tiles.py checks that they
+# are ragged), g of one row, one column or one pixel, N = 3 (a linear pixel
+# index would cross images) and 4O = 72 (a partial 64-channel K block)
 DGRAD = {"conv1_2": ((1, 254, 254, 128), 128),
          "conv2_2": ((1, 125, 125, 256), 256),
          "conv8_2": ((1, 82, 82, 256), 256),
          "conv9_2": ((1, 162, 162, 128), 128),
          "ragged 4C=128": ((2, 6, 10, 128), 128),
-         "ragged 4C=256": ((1, 4, 6, 256), 256)}
+         "ragged 4C=256": ((1, 4, 6, 256), 256),
+         "ragged tiles 4C=128": ((1, 50, 70, 128), 128),
+         "ragged tiles 4C=256": ((1, 50, 70, 256), 256),
+         "hg=wg=1": ((2, 1, 1, 128), 256),
+         "hg=1": ((1, 1, 9, 256), 128),
+         "wg=1": ((1, 7, 1, 128), 256),
+         "N=3": ((3, 20, 45, 256), 128),
+         "4O=72 4C=128": ((2, 9, 13, 72), 128),
+         "4O=72 4C=256": ((1, 9, 13, 72), 256)}
 DGRAD_DUAL = {"conv8_1": ((1, 83, 83, 256), 256),
               "conv9_1": ((1, 163, 163, 128), 128),
               "ragged 4C=128": ((2, 5, 9, 256), 128),
-              "ragged 4C=256": ((1, 3, 4, 128), 256)}
+              "ragged 4C=256": ((1, 3, 4, 128), 256),
+              "ragged tiles 8C=256": ((1, 50, 70, 128), 128),
+              "ragged tiles 8C=512": ((1, 50, 70, 256), 256),
+              "hg=wg=1": ((1, 1, 1, 256), 256),
+              "N=3 8C=256": ((3, 9, 13, 128), 128),
+              "N=3 8C=512": ((3, 20, 45, 256), 256),
+              "4O=72 8C=256": ((1, 9, 13, 72), 128),
+              "4O=72 8C=512": ((2, 9, 13, 72), 256)}
 
 
 @pytest.mark.parametrize("site", list(DGRAD))
@@ -418,6 +437,38 @@ def test_packed_conv2x2_dgrad_dual_kernel(gen, site):
     wa, wb = (_wgt(gen, 2, 2, c4, shape[-1]) for _ in range(2))
     _check(cb.packed_conv2x2_dgrad_dual(g, wa, wb),
            cb.packed_conv2x2_dgrad_dual_plain(g, wa, wb))
+
+
+@pytest.mark.parametrize("dual", [False, True])
+@pytest.mark.parametrize("c4", [128, 256])
+def test_packed_conv2x2_dgrad_is_deterministic(gen, c4, dual):
+    """Two launches on the same inputs give the same bits (no atomics)."""
+    from segmentation_tpu_torch.nn.kernels import conv_bwd as cb
+
+    g = _cot(gen, 2, 41, 57, 256)
+    ws = [_wgt(gen, 2, 2, c4, 256) for _ in range(1 + dual)]
+    fn = cb.packed_conv2x2_dgrad_dual if dual else cb.packed_conv2x2_dgrad
+    first, second = _outs(fn(g, *ws)), _outs(fn(g, *ws))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second, strict=True))
+
+
+def test_packed_conv2x2_dgrad_refuses_bad_operands(gen):
+    from segmentation_tpu_torch.nn.kernels import conv_bwd as cb
+
+    g, w = _cot(gen, 1, 6, 7, 128), _wgt(gen, 2, 2, 128, 128)
+    with pytest.raises(ValueError, match="128 or 256"):
+        cb.packed_conv2x2_dgrad(g, _wgt(gen, 2, 2, 64, 128))
+    with pytest.raises(ValueError, match="contiguous"):
+        cb.packed_conv2x2_dgrad(g.transpose(1, 2), w)
+    with pytest.raises(TypeError):
+        cb.packed_conv2x2_dgrad(g.float(), w)
+    with pytest.raises(TypeError):
+        cb.packed_conv2x2_dgrad_dual(g.float(), w, w)
+
+
+def _outs(v):
+    return v if isinstance(v, tuple) else (v,)
 
 
 def _fn_operands(gen, site):
