@@ -40,13 +40,14 @@
 //    dual 4C = 256: BM = 64, one consumer per half (m64n256 each) from the
 //    same A slots, so g is read once for both.
 //  - The epilogue rounds to bf16 (__float2bfloat16, nearest even), moves
-//    each warp's fragment through stmatrix and stores 16 bytes per lane,
-//    skipping junk rows and rows outside dx. No atomics: two launches give
+//    each warp's fragment through stmatrix and stores 4 rows x 128
+//    contiguous bytes per instruction, skipping junk rows and rows outside
+//    dx. No atomics: two launches give
 //    the same bits.
 //  - Where the time goes (B = 8, the six sites, on the H100): the wgmma
-//    loop alone runs at ~74 % of the tensor peak; the loads cost ~10 % on
-//    top and the epilogue's stores ~50 %: both consumers store at once and
-//    the tensor cores wait (PERF.md).
+//    loop alone runs at ~74 % of the tensor peak; the loads add ~10 % and
+//    the epilogue ~30 % (~50 % with 16-row x 32-byte stores): both
+//    consumers store at once and the tensor cores wait (PERF.md).
 #include "sm90_igemm.cuh"
 
 namespace segk {
@@ -108,25 +109,19 @@ struct DgradTiles {
                         uint8_t* scratch) const {
     int n, i0, j0;
     origin(t, n, i0, j0);
-    const int lane = threadIdx.x & 31;
-    const int row0 = (SPLIT_N ? 0 : cg * 64 * MI) +
-                     16 * ((threadIdx.x >> 5) & 3) + (lane & 15);
-    long long pix[MI];  // the lane's output pixel per m64 group, or -1
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi) {
-      const int m = row0 + 64 * mi;
-      const int a = m / (tw + 1), b = m - a * (tw + 1);
-      const int i = i0 + a, j = j0 + b;
-      pix[mi] = (a < th && b < tw && i < hx && j < wx)
-                    ? ((long long)n * hx + i) * wx + j
-                    : -1;
-    }
+    const int w = tw + 1;
+    const int m0 = (SPLIT_N ? 0 : cg * 64 * MI) + 16 * ((threadIdx.x >> 5) & 3);
     bf16* const out = SPLIT_N && cg ? dxb : dxa;
-    sm90::store_acc<NI, MI>(acc, scratch, [&](int mi, int col) -> bf16* {
-      if (pix[mi] < 0) return nullptr;
-      if (DUAL && !SPLIT_N && col >= C4)
-        return dxb + pix[mi] * C4 + col - C4;
-      return out + pix[mi] * C4 + col;
+    // row `row` of the warp's 16 in m64 group mi is GEMM row m = a w + b
+    sm90::store_acc<NI, MI>(acc, scratch,
+                            [&](int mi, int row, int col) -> bf16* {
+      const int m = m0 + 64 * mi + row;
+      const int a = m / w, b = m - a * w;
+      const int i = i0 + a, j = j0 + b;
+      if (a >= th || b >= tw || i >= hx || j >= wx) return nullptr;
+      const long long pix = ((long long)n * hx + i) * wx + j;
+      if (DUAL && !SPLIT_N && col >= C4) return dxb + pix * C4 + col - C4;
+      return out + pix * C4 + col;
     });
   }
 };

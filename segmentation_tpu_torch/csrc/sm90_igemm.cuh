@@ -53,7 +53,7 @@ namespace sm90 {
 using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 384;       // producer warpgroup + two consumers
-constexpr int kScratch = 512;       // a consumer warp's epilogue scratch
+constexpr int kScratch = 2048;      // a consumer warp's epilogue scratch
 constexpr int kProducerRegs = 40;   // setmaxnreg: 128 x 40 + 256 x 232
 constexpr int kConsumerRegs = 232;  //             <= 65,536 registers
 constexpr int kSmemMax = 232448;    // dynamic shared memory of one block
@@ -297,40 +297,50 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // ------------------------------------------------------------- epilogue
 // Store one consumer warpgroup's accumulators as bf16 (round to nearest
-// even). Per warp and 16-column block, stmatrix moves the 16 x 16 block of
-// the wgmma fragment into the warp's 512-byte scratch; each lane then
-// reads one row's 8 columns back and stores them as 16 bytes at dst(mi,
-// col): the address of column col of the lane's row (row 16 warp +
-// lane % 16 of m64 group mi), or null for a row outside the output.
+// even), 64 columns at a time: stmatrix moves the warp's 16 x 64 block of
+// the wgmma fragment into its 2 KiB scratch (rows of 128 bytes, their
+// 16-byte chunks XOR-swizzled by row so neither side conflicts on banks),
+// then each store writes 4 rows x 128 contiguous bytes: lane l stores
+// chunk l % 8 of row 4 i + l / 8 (of the warp's 16 rows of m64 group mi)
+// at dst(mi, row, col), the address of column col of that row, or nothing
+// where dst is null.
 template <int NI, int MI, class Dst>
 __device__ __forceinline__ void store_acc(float (&acc)[MI][NI / 2],
                                           uint8_t* scratch, Dst dst) {
   const int lane = threadIdx.x & 31;
+  const uint32_t base = smem_u32(scratch);
   // stmatrix.x4: lanes 8q..8q+7 give the rows of matrix q, which holds
-  // rows 8 (q & 1).. and columns 8 (q >> 1).. of the 16 x 16 block
-  const uint32_t st = smem_u32(scratch) +
-                      ((lane & 7) + ((lane >> 3) & 1) * 8) * 32 +
-                      (lane >> 4) * 16;
-  const uint32_t ld = smem_u32(scratch) + (lane & 15) * 32 + (lane >> 4) * 16;
+  // rows 8 (q & 1).. and columns 8 (q >> 1).. of a 16 x 16 block
+  const int st_row = (lane & 7) + 8 * ((lane >> 3) & 1);
+  const int ld_row = lane >> 3, ld_chunk = lane & 7;
 #pragma unroll
   for (int mi = 0; mi < MI; ++mi) {
 #pragma unroll
-    for (int jp = 0; jp < NI / 16; ++jp) {
-      const float* d = &acc[mi][8 * jp];
-      asm volatile(
-          "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};"
-          ::"r"(st), "r"(pack_bf16(d[0], d[1])), "r"(pack_bf16(d[2], d[3])),
-          "r"(pack_bf16(d[4], d[5])), "r"(pack_bf16(d[6], d[7]))
-          : "memory");
+    for (int pass = 0; pass < NI / 64; ++pass) {
+#pragma unroll
+      for (int jq = 0; jq < 4; ++jq) {
+        const float* d = &acc[mi][8 * (4 * pass + jq)];
+        const int chunk = 2 * jq + (lane >> 4);
+        asm volatile(
+            "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};"
+            ::"r"(base + st_row * 128 + ((chunk ^ (st_row & 7)) << 4)),
+            "r"(pack_bf16(d[0], d[1])), "r"(pack_bf16(d[2], d[3])),
+            "r"(pack_bf16(d[4], d[5])), "r"(pack_bf16(d[6], d[7]))
+            : "memory");
+      }
       __syncwarp();
-      uint4 v;
-      asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
-                   : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-                   : "r"(ld)
-                   : "memory");
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = 4 * i + ld_row;
+        uint4 v;
+        asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
+                     : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+                     : "r"(base + row * 128 + ((ld_chunk ^ (row & 7)) << 4))
+                     : "memory");
+        bf16* out = dst(mi, row, 64 * pass + 8 * ld_chunk);
+        if (out != nullptr) *reinterpret_cast<uint4*>(out) = v;
+      }
       __syncwarp();
-      bf16* out = dst(mi, 16 * jp + 8 * (lane >> 4));
-      if (out != nullptr) *reinterpret_cast<uint4*>(out) = v;
     }
   }
 }
