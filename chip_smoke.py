@@ -13,10 +13,16 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                path, then each site's time at B = 8 against the plain
                version's and against the one PyTorch call that computes
                the site's function on the unpacked tensors (F.conv2d,
-               F.conv_transpose2d; CUDA events, in turns), beside its
+               F.conv_transpose2d; CUDA events, in turns, each after one
+               untimed call: cuDNN's first call of a shape costs more
+               than a tenth of a millisecond), beside its
                bound (the larger of its bytes over the HBM rate and its
                operations of the site's function, not of its packed form,
-               over the tensor cores' peak);
+               over the tensor cores' peak); the lines of H1 and H2 (on
+               the Hopper mainloop) add the tile (th × tw) the wrapper's
+               plan picked, the share of the bound and the share of the
+               packed form's tensor peak (its GEMM's operations over 989
+               TFLOP/s), and each mode's sums follow;
   3b.        — the same for the int8 path: H5 and the int8 modes of H1–H4
                at every int8 site of the three int8 configurations (s8
                codes, the inline-quantize modes on bf16 operands, H1's
@@ -602,24 +608,48 @@ def _library_call(name, args, kw):
     return lambda: F.conv_transpose2d(gu, w)
 
 
-def _packed_gemm_ops(args):
-    """H6's packed GEMM at a site: 2 · dx pixels · K (4 taps × 4O) · its
-    columns (4C, or 8C for the dual), 16/9 of the function's operations."""
-    g, *ws = args
-    n, hg, wg, o4 = g.shape
-    return 2 * n * (hg + 1) * (wg + 1) * 4 * o4 * ws[0].shape[2] * len(ws)
+def _packed_gemm_ops(name, args):
+    """The packed GEMM of a kernel on the Hopper mainloop at a site: 2 ·
+    output pixels · K · columns, 16/9 of the function's operations. H1: K
+    = 4 taps × 4C, 4O columns; H2: the same for each side; H6: K = 4 taps
+    × 4O, 4C columns (8C for the dual) per dx pixel."""
+    if name.startswith("packed_conv2x2_dgrad"):
+        g, *ws = args
+        n, hg, wg, o4 = g.shape
+        return 2 * n * (hg + 1) * (wg + 1) * 4 * o4 * ws[0].shape[2] * len(ws)
+    dual = name == "packed_conv2x2_dual"
+    x, w = args[1 if dual else 0], args[3 if dual else 1]
+    n, hp, wp, c4 = x.shape
+    return 2 * n * (hp - 1) * (wp - 1) * 4 * c4 * w.shape[-1] * (1 + dual)
 
 
-def _dgrad_note(args, ms, bound):
-    """H6's extra words on a site's time line: the tile the wrapper's plan
-    picked, the share of the bound, the share of the packed tensor peak."""
+def _tile_plan_of(name, args):
+    """The tile plan the wrapper of a Hopper-mainloop kernel picks."""
     from segmentation_tpu_torch.nn.kernels import conv_bwd as cb
+    from segmentation_tpu_torch.nn.kernels import conv_flat as cf
+    from segmentation_tpu_torch.nn.kernels.tiles import tile_plan
 
-    g, *ws = args
-    n, hg, wg, _ = g.shape
-    plan = cb.tile_plan(n, hg + 1, wg + 1,
-                        cb.tile_rows(ws[0].shape[2], len(ws) == 2))
-    peak = _packed_gemm_ops(args) / PEAK_OPS_S["bf16"] * 1e3
+    if name.startswith("packed_conv2x2_dgrad"):
+        g, *ws = args
+        n, hg, wg, _ = g.shape
+        return tile_plan(n, hg + 1, wg + 1,
+                         cb.tile_rows(ws[0].shape[2], len(ws) == 2))
+    x = args[1] if name == "packed_conv2x2_dual" else args[0]
+    n, hp, wp, _ = x.shape
+    return tile_plan(n, hp - 1, wp - 1, cf.FWD_TILE_ROWS)
+
+
+# the bf16 kernels on csrc/sm90_igemm.cuh (TMA halo boxes, wgmma)
+SM90 = ("packed_conv2x2", "packed_conv2x2_dual", "packed_conv2x2_dgrad",
+        "packed_conv2x2_dgrad_dual")
+
+
+def _tile_note(name, args, ms, bound):
+    """A Hopper-mainloop kernel's extra words on a site's time line: the
+    tile the wrapper's plan picked, the share of the bound, the share of
+    the packed tensor peak."""
+    plan = _tile_plan_of(name, args)
+    peak = _packed_gemm_ops(name, args) / PEAK_OPS_S["bf16"] * 1e3
     return (f"; tile {plan.th}x{plan.tw}, {bound / ms:.3f} of the bound, "
             f"{peak / ms:.3f} of the packed tensor peak")
 
@@ -630,7 +660,8 @@ def _kernel_phase(mod, sites):
     version's, the library call's and its bound. Returns per kernel the
     max abs error and the times summed over the sites (ms): kernel, plain,
     bound, the resource that binds most of the bound, library (None
-    without one), and H6's packed GEMM operations (0 for the others)."""
+    without one), and the packed GEMM operations of the kernels on the
+    Hopper mainloop (SM90; 0 for the others)."""
     import torch
 
     from segmentation_tpu_torch.core.rng import generator
@@ -667,6 +698,8 @@ def _kernel_phase(mod, sites):
             lib = _library_call(name, args, kw)
             if lib is not None:
                 fns["library"] = lib
+            for f in fns.values():  # warm: cuDNN's first call of a shape
+                f()
             t = dict.fromkeys(fns, 0.0)
             for k in list(fns) + list(fns)[::-1]:  # in turns
                 t[k] += _time_ms(fns[k]) / 2
@@ -680,9 +713,9 @@ def _kernel_phase(mod, sites):
                 library_ms[name] = (library_ms[name] or 0.0) + t["library"]
                 lib_txt = f"{t['library']:.4f} ms"
             note = ""
-            if name.startswith("packed_conv2x2_dgrad"):
-                packed[name] += _packed_gemm_ops(args)
-                note = _dgrad_note(args, t["kernel"], b)
+            if name in SM90:
+                packed[name] += _packed_gemm_ops(name, args)
+                note = _tile_note(name, args, t["kernel"], b)
             print(f"[kernels] time B={n} {name} {label}: "
                   f"{t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, "
                   f"library {lib_txt}, bound {b:.4f} ms ({by}){note}")
@@ -1328,7 +1361,7 @@ def main() -> None:
         for table, part in zip(tables, _kernel_phase(mod, sites)):
             table.update(part)
     worst, ms, plain_ms, bound, bound_by, library_ms, packed = tables
-    for k in cb.NAMES:
+    for k in SM90:
         print(f"[kernels] {k} B={B_SERVE} over its sites: {ms[k]:.4f} ms, "
               f"plain {plain_ms[k]:.4f} ms, library {library_ms[k]:.4f} ms, "
               f"bound {bound[k]:.4f} ms ({bound[k] / ms[k]:.3f} of it "

@@ -20,7 +20,7 @@
 // Design (sm90_igemm.cuh runs it): output tiles are th x tw pixel
 // rectangles of one image, laid out as GEMM rows m = a W + b with the row
 // stride W = tw + 1 (one junk column per image row; th W <= BM; the
-// wrapper's conv_bwd.tile_plan picks th and tw), walked by one persistent
+// wrapper's tiles.tile_plan picks th and tw), walked by one persistent
 // block per SM.
 //  - A is a halo box. For K block k0 (64 channels) one 4-D TMA load reads
 //    the box [1, th + 1, W, 64] of g at (n, i0 - 1, j0 - 1, k0) into a
@@ -67,6 +67,8 @@ struct DgradTiles {
   static constexpr int A_STAGES = 2;
   static constexpr int B_STAGES = sm90::stages_that_fit(
       1024 + 8 * sm90::kScratch + 128 + A_STAGES * A_ROWS * 128, NB * 128, 4);
+  static constexpr bool B_MN = false, GATHER = false, PINGPONG = false;
+  static constexpr int STAGE_BYTES = 0;
 
   CUtensorMap gmap, wamap, wbmap;
   bf16* dxa;
@@ -75,7 +77,7 @@ struct DgradTiles {
 
   __device__ int tiles() const { return n_tiles; }
   __device__ int k_blocks() const { return kb; }
-  __device__ uint32_t a_tx() const {
+  __device__ uint32_t a_tx(int) const {
     return (uint32_t)((th + 1) * (tw + 1)) * 128u;
   }
   __device__ int a_row(int tap) const {  // (u, v) = (tap >> 1, tap & 1)
@@ -86,7 +88,7 @@ struct DgradTiles {
     sm90::prefetch_map(&wamap);
     if (DUAL) sm90::prefetch_map(&wbmap);
   }
-  // tile t -> image n and its first pixel (i0, j0): conv_bwd.tile_plan's
+  // tile t -> image n and its first pixel (i0, j0): tiles.tile_plan's
   // map, row-major over [N, tiles_h, tiles_w]
   __device__ void origin(int t, int& n, int& i0, int& j0) const {
     n = t / tiles_hw;
@@ -106,7 +108,7 @@ struct DgradTiles {
     if (DUAL) sm90::tma_load_2d(b + C4 * 128, &wbmap, bar, 64 * k, tap * C4);
   }
   __device__ void store(int t, int cg, float (&acc)[MI][NI / 2],
-                        uint8_t* scratch) const {
+                        uint8_t* scratch, uint8_t*) const {
     int n, i0, j0;
     origin(t, n, i0, j0);
     const int w = tw + 1;
@@ -165,7 +167,7 @@ int dgrad(const void* g, const void* wa, const void* wb, void* dxa,
 
 // g [n, hg, wg, o4] bf16; wa (and wb for the dual, else null) [2, 2, c4, o4]
 // bf16; dxa (and dxb) [n, hg+1, wg+1, c4] bf16; (th, tw) the output tile
-// from conv_bwd.tile_plan (th (tw + 1) GEMM rows). Every pointer 16-byte
+// from tiles.tile_plan (th (tw + 1) GEMM rows). Every pointer 16-byte
 // aligned.
 extern "C" int seg_packed_conv2x2_dgrad(const void* g, const void* wa,
                                         const void* wb, void* dxa, void* dxb,

@@ -1,12 +1,16 @@
 // H2 packed_conv2x2_dual: the concat-free first decoder conv of a packed
 // level, conv2x2(crop(skip), wa) + conv2x2(up, wb).
-//   bf16: one f32 accumulator over both sides, + f32 bias, ReLU, bf16;
+//   bf16: one f32 accumulator over both sides, + f32 bias, ReLU, bf16, on
+//         the Hopper mainloop (packed_conv2x2_fwd.cuh: K = [skip taps | up
+//         taps], TMA halo boxes of either side, the skip's crop folded into
+//         each box's origin and channel, wgmma, warp-specialised,
+//         persistent);
 //   s8:   one s32 accumulator per side (the sides are quantized at
 //         different scales), mixed in f32 as acc_a * cs_a + acc_b * cs_b,
 //         then the int8 epilogue relu(mix * mul + add) requantized to s8.
 //         Each side is s8 codes or bf16 quantized as it loads (inv_a,
 //         inv_b: the inline-quantize modes; the b side is the bf16 deconv
-//         output when the deconvs run in bf16).
+//         output when the deconvs run in bf16). On the WMMA core.
 // skip [N, hpa, wpa, 4C] is read through a center crop at UNPACKED offset
 // (oh, ow): output slot (d, e) of packed pixel (i, j) reads the skip at
 // unpacked (oh + 2i + d, ow + 2j + e), i.e. packed pixel
@@ -23,13 +27,13 @@
 // the crop folded in as an even offset or a slot phase): float,
 // int8-resident and inline-quantize (act_scale_a, act_scale_b) modes.
 //
-// Bound on the H100: K = 2 * 4 * 4C = 2048 at the level-2 decoder, so the
-// product dominates and is tensor-core bound; the crop gather costs a few
-// integer ops per 16-byte load (C a multiple of 16 bytes keeps a vector in
-// one slot). The s8 mode stages the skip side's scaled partial in a second
-// shared-memory tile instead of a second register accumulator. An inline
-// side reads 2 bytes an element where a resident side reads 1.
+// Bound on the H100: bytes, as H1's (K = 2 * 4 * 4C against 4O columns,
+// the output the size of one input). The s8 mode stages the skip side's
+// scaled partial in a second shared-memory tile instead of a second
+// register accumulator. An inline side reads 2 bytes an element where a
+// resident side reads 1.
 #include "igemm.cuh"
+#include "packed_conv2x2_fwd.cuh"
 
 namespace segk {
 
@@ -102,26 +106,6 @@ struct DualLoader {
     return k < ka ? a.load(r, k) : b.load(r, k - ka);
   }
 };
-
-using DualBf16 = DualLoader<SkipSide<bf16>, UpSide<bf16>>;
-
-template <int BN>
-__global__ void __launch_bounds__(kThreads)
-    packed_conv2x2_dual_kernel(DualBf16 ld, const bf16* __restrict__ wa,
-                               const bf16* __restrict__ wb,
-                               const float* __restrict__ bias,
-                               bf16* __restrict__ y, long long M) {
-  using C = TileCfg<BN>;
-  extern __shared__ __align__(128) unsigned char seg_smem[];
-  const long long m0 = (long long)blockIdx.x * C::BM;
-  const int ka = ld.ka;
-  AccFrag<BN, bf16> acc[C::FM][C::FN];
-  zero_acc<BN, bf16>(acc);
-  igemm_accumulate<BN, bf16>(ld, wa, 0, ka, m0, M, seg_smem, acc);
-  igemm_accumulate<BN, bf16>(ld, wb, ka, 2 * ka, m0, M, seg_smem, acc);
-  float* Cs = stage_acc<BN, bf16>(acc, seg_smem);
-  epilogue_store<BN>(Cs, bias, y, false, m0, M);
-}
 
 // Shared memory: the core's buffers, then the f32 skip-side partial P.
 template <int BN, class Loader>
@@ -206,30 +190,54 @@ int dual_s8_sides(const void* skip, const void* up, float inv_a,
 
 }  // namespace segk
 
-// skip [n, hpa, wpa, c4], up [n, hp, wp, c4] bf16; wa, wb [4*c4, o4] bf16;
-// bias [o4] f32; y [n, hp-1, wp-1, o4] bf16; (oh, ow) unpacked crop offset.
+// skip [n, hpa, wpa, c4], up [n, hp, wp, c4] bf16 (c4 % 32 == 0); wa, wb
+// [4*c4, o4] bf16; bias [o4] f32; y [n, hp-1, wp-1, o4] bf16; (oh, ow) the
+// unpacked crop offset, which the skip covers; (th, tw) the output tile
+// from tiles.tile_plan. Every pointer 16-byte aligned.
 extern "C" int seg_packed_conv2x2_dual(const void* skip, const void* up,
                                        const void* wa, const void* wb,
                                        const void* bias, void* y, int n,
                                        int hpa, int wpa, int hp, int wp,
                                        int c4, int o4, int oh, int ow,
-                                       void* stream) {
+                                       int th, int tw, void* stream) {
   using namespace segk;
-  const DualBf16 ld{{(const bf16*)skip, hpa, wpa, c4, c4 / 4, oh, ow},
-                    {(const bf16*)up, hp, wp, c4},
-                    4 * c4,
-                    hp - 1,
-                    wp - 1};
-  const long long M = (long long)n * (hp - 1) * (wp - 1);
+  if (c4 < 32 || c4 % 32 || n < 1 || hp < 2 || wp < 2 || oh < 0 || ow < 0 ||
+      oh + 2 * hp > 2 * hpa || ow + 2 * wp > 2 * wpa || th < 1 || tw < 1 ||
+      th > 255 || tw > 255)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (o4 == 128)
-    return launch<128>(packed_conv2x2_dual_kernel<128>, M, s, 0, ld,
-                       (const bf16*)wa, (const bf16*)wb, (const float*)bias,
-                       (bf16*)y, M);
-  if (o4 == 256)
-    return launch<256>(packed_conv2x2_dual_kernel<256>, M, s, 0, ld,
-                       (const bf16*)wa, (const bf16*)wb, (const float*)bias,
-                       (bf16*)y, M);
+  const bool slot = (c4 / 4) % 64 == 0, odd = (oh | ow) & 1;
+  auto run = [&](auto& p) {
+    int e = fwd_maps(&p.xmap, &p.wmap, up, wb, n, hp, wp, c4, o4, th, tw);
+    if (e == 0)
+      e = fwd_maps(&p.smap, &p.wsmap, skip, wa, n, hpa, wpa, c4, o4, th, tw);
+    if (e != 0) return e;
+    p.bias = (const float*)bias;
+    p.y = (bf16*)y;
+    p.skip = (const bf16*)skip;
+    p.hpa = hpa;
+    p.wpa = wpa;
+    p.oh = oh;
+    p.ow = ow;
+    p.slot = slot;
+    return fwd_launch(p, n, hp - 1, wp - 1, c4, th, tw, s);
+  };
+  if (o4 == 128) {
+    if (odd && !slot) {
+      FwdTiles<128, 2> p{};
+      return run(p);
+    }
+    FwdTiles<128, 1> p{};
+    return run(p);
+  }
+  if (o4 == 256) {
+    if (odd && !slot) {
+      FwdTiles<256, 2> p{};
+      return run(p);
+    }
+    FwdTiles<256, 1> p{};
+    return run(p);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

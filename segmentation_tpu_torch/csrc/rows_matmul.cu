@@ -65,7 +65,7 @@ __global__ void __launch_bounds__(kThreads)
   extern __shared__ __align__(128) unsigned char seg_smem[];
   const long long m0 = (long long)blockIdx.x * TileCfg<BN>::BM;
   float* Cs = igemm_tile<BN, bf16>(ld, w, ld.c, m0, M, seg_smem);
-  epilogue_store<BN>(Cs, bias, y, false, m0, M);
+  epilogue_store<BN>(Cs, bias, y, m0, M);
 }
 
 // Loader: RowsLoader<s8>, or QuantLoader over RowsLoader<bf16>.

@@ -23,20 +23,30 @@
 //                   their accumulators (the problem's epilogue) while the
 //                   producer already loads the next tile.
 //
-// Both operands are K-major, 64 bf16 (128 bytes) a row, in the 128-byte
-// swizzle that TMA writes and wgmma reads (CU_TENSOR_MAP_SWIZZLE_128B,
-// descriptor layout 1, 8-row groups 1024 bytes apart). A tap's A view may
-// start on any row of its slot (see sw128_desc). A problem P supplies
+// Both operands are 64 bf16 (128 bytes) a row in the 128-byte swizzle
+// that TMA writes and wgmma reads (CU_TENSOR_MAP_SWIZZLE_128B, descriptor
+// layout 1, 8-row groups 1024 bytes apart). A is K-major; a tap's A view
+// may start on any row of its slot (see sw128_desc). B is K-major (rows of
+// 64 K values, one per column) or MN-major (rows of 64 columns, one per K
+// value: sw128_mn_desc), as the weight lies in memory for the product. A
+// problem P supplies
 //   constexpr NB (columns), NI (wgmma N: 128 or 256), MI (m64 groups a
 //             consumer runs), BM (GEMM rows of a tile), SPLIT_N (true:
 //             both consumers take all BM = 64 rows and NI columns each;
 //             false: each takes 64 MI rows of all NI = NB columns),
-//             A_ROWS (rows of an A slot), A_STAGES, B_STAGES;
+//             A_ROWS (rows of an A slot), A_STAGES, B_STAGES, B_MN (B is
+//             MN-major), GATHER (some A slots are gathered: see gather),
+//             PINGPONG (the consumers take alternate tiles of BM = 64 MI
+//             rows, so that one's epilogue overlaps the other's wgmma);
 //   n_tiles, tiles(), k_blocks()        the walk;
-//   a_tx(), load_a(tile, kb, a, bar)    a tile's A slot and its bytes;
+//   a_tx(kb), load_a(tile, kb, a, bar)  an A slot's TMA bytes and loads;
+//   gather_a(tile, kb, a, thread, nthreads)  (GATHER) its plain loads;
 //   load_b(kb, tap, b, bar)             a B stage;
 //   a_row(tap)                          the first row of tap's A view;
-//   store(tile, consumer, acc, scratch) the consumers' epilogue.
+//   STAGE_BYTES                         staging for TMA stores (or 0);
+//   store(tile, consumer, acc, scratch, stage)  the consumers' epilogue:
+//             scratch the warp's 2 KiB, stage the consumer's half of the
+//             staging.
 //
 // Tensor maps are encoded on the host by cuTensorMapEncodeTiled, reached
 // through cudaGetDriverEntryPoint: the library links with nvcc -shared
@@ -91,10 +101,12 @@ inline EncodeTiled encode_tiled() {
 }
 
 // A tensor map of a dense row-major bf16 tensor: dims innermost first,
-// boxes of `box` (box[0] = 64: one 128-byte swizzled row), zero fill
-// outside the tensor, negative coordinates included. Returns a cudaError_t.
+// boxes of `box` (box[0] = 64: one 128-byte swizzled row; or unswizzled),
+// zero fill outside the tensor, negative coordinates included (a store
+// writes only the box's part inside). Returns a cudaError_t.
 inline int make_map(CUtensorMap* map, const void* base, int rank,
-                    const cuuint64_t* dims, const cuuint32_t* box) {
+                    const cuuint64_t* dims, const cuuint32_t* box,
+                    bool swizzle = true) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   cuuint64_t strides[4];
@@ -104,7 +116,8 @@ inline int make_map(CUtensorMap* map, const void* base, int rank,
   const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                          (cuuint32_t)rank, const_cast<void*>(base), dims,
                          strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         swizzle ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : CU_TENSOR_MAP_SWIZZLE_NONE,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
@@ -171,6 +184,28 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// A TMA store of a box from shared memory, in the thread's bulk group.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];" ::"l"((uint64_t)map),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+// Wait until the thread's bulk stores have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+// Barrier `id` (1..15) of the `count` threads that name it.
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
 __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];" ::"l"((uint64_t)map) : "memory");
 }
@@ -186,6 +221,20 @@ __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
 __device__ __forceinline__ uint64_t sw128_desc(const void* p) {
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// wgmma descriptor of an MN-major B tile with 128-byte swizzle, as TMA
+// writes boxes of [64 K rows, 64 columns] side by side: each box holds 64
+// columns of every K row (K row k at byte 128 k of its box), 8-row groups
+// of K 1024 bytes apart (SBO) and the next 64 columns 8192 bytes on (LBO),
+// layout 1. A k16 step moves down 16 K rows: 2048 bytes (128 in the
+// address field).
+constexpr int kMnBox = 64 * 128;  // bytes of one [64 K, 64 N] box
+
+__device__ __forceinline__ uint64_t sw128_mn_desc(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)(kMnBox >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -207,8 +256,10 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// D[64 x N] (+)= A[64 x 16] B[16 x N], both operands K-major in shared
-// memory; scale_d = 0 overwrites D.
+// D[64 x N] (+)= A[64 x 16] B[16 x N] from shared memory, A K-major, B
+// K-major (TB = 0) or MN-major (TB = 1, wgmma's tnsp-b); scale_d = 0
+// overwrites D.
+template <int TB>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
                                                  uint64_t db, int scale_d) {
   asm volatile(
@@ -219,7 +270,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
       "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
       "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
       "%58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -233,9 +284,10 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
 }
 
+template <int TB>
 __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
                                                  uint64_t db, int scale_d) {
   asm volatile(
@@ -251,7 +303,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
       "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
       "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, "
       "%122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -278,16 +330,16 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
         "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
         "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
 }
 
-template <int N>
+template <int N, int TB>
 __device__ __forceinline__ void wgmma_k16(float (&d)[N / 2], uint64_t da,
                                           uint64_t db, int scale_d) {
   if constexpr (N == 256)
-    wgmma_m64n256k16(d, da, db, scale_d);
+    wgmma_m64n256k16<TB>(d, da, db, scale_d);
   else
-    wgmma_m64n128k16(d, da, db, scale_d);
+    wgmma_m64n128k16<TB>(d, da, db, scale_d);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -363,7 +415,7 @@ template <class P>
 struct Ring {
   static constexpr int A_BYTES = P::A_ROWS * 128;
   static constexpr int B_BYTES = P::NB * 128;
-  static constexpr int NBAR = 2 * (P::A_STAGES + P::B_STAGES);
+  static constexpr int NBAR = 2 * (P::A_STAGES + P::B_STAGES) + 2;
   uint8_t* base;
   __device__ explicit Ring(uint8_t* raw)
       : base(raw + ((1024 - (smem_u32(raw) & 1023)) & 1023)) {}
@@ -371,8 +423,10 @@ struct Ring {
   __device__ uint8_t* b(int s) const {
     return base + P::A_STAGES * A_BYTES + s * B_BYTES;
   }
+  // P::STAGE_BYTES of staging for the consumers' stores (TMA stores)
+  __device__ uint8_t* stage() const { return b(P::B_STAGES); }
   __device__ uint8_t* scratch(int warp) const {
-    return b(P::B_STAGES) + warp * kScratch;
+    return stage() + P::STAGE_BYTES + warp * kScratch;
   }
   __device__ uint64_t* bar(int i) const {
     return reinterpret_cast<uint64_t*>(scratch(8)) + i;
@@ -383,12 +437,15 @@ struct Ring {
   __device__ uint64_t* b_empty(int s) const {
     return bar(2 * P::A_STAGES + P::B_STAGES + s);
   }
+  // ping-pong: consumer c has waited for every stage of its tile
+  __device__ uint64_t* done(int c) const { return bar(NBAR - 2 + c); }
 };
 
 template <class P>
 constexpr int smem_bytes() {
   return 1024 + P::A_STAGES * Ring<P>::A_BYTES +
-         P::B_STAGES * Ring<P>::B_BYTES + 8 * kScratch + 8 * Ring<P>::NBAR;
+         P::B_STAGES * Ring<P>::B_BYTES + P::STAGE_BYTES + 8 * kScratch +
+         8 * Ring<P>::NBAR;
 }
 
 template <class P>
@@ -398,7 +455,7 @@ __device__ __forceinline__ void produce(const P& p, const Ring<P>& r) {
   for (int t = blockIdx.x; t < p.tiles(); t += gridDim.x) {
     for (int kb = 0; kb < p.k_blocks(); ++kb) {
       mbar_wait(r.a_empty(a.stage), a.phase ^ 1);
-      mbar_expect_tx(r.a_full(a.stage), p.a_tx());
+      mbar_expect_tx(r.a_full(a.stage), p.a_tx(kb));
       p.load_a(t, kb, r.a(a.stage), r.a_full(a.stage));
       a.next();
       for (int tap = 0; tap < 4; ++tap) {
@@ -411,11 +468,32 @@ __device__ __forceinline__ void produce(const P& p, const Ring<P>& r) {
   }
 }
 
+// Warps 1-3 of the producer warpgroup, where the problem gathers some A
+// slots with plain loads (P::GATHER): they walk the same ring positions as
+// the producer thread, fill the slots that p.gather_a takes (the others it
+// leaves to TMA), make their stores visible to wgmma (the async proxy) and
+// arrive, one arrival per warp, on the slot's full barrier.
+template <class P>
+__device__ __forceinline__ void gather(const P& p, const Ring<P>& r) {
+  Pos<P::A_STAGES> a;
+  const int tid = threadIdx.x - 32;
+  for (int t = blockIdx.x; t < p.tiles(); t += gridDim.x) {
+    for (int kb = 0; kb < p.k_blocks(); ++kb) {
+      mbar_wait(r.a_empty(a.stage), a.phase ^ 1);
+      p.gather_a(t, kb, r.a(a.stage), tid, 96);
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      __syncwarp();
+      if ((threadIdx.x & 31) == 0) mbar_arrive(r.a_full(a.stage));
+      a.next();
+    }
+  }
+}
+
 template <class P>
 __device__ __forceinline__ void consume(const P& p, const Ring<P>& r,
                                         int cg) {
   const bool leader = (threadIdx.x & 31) == 0;
-  const int a_row0 = P::SPLIT_N ? 0 : cg * 64 * P::MI;
+  const int a_row0 = P::SPLIT_N || P::PINGPONG ? 0 : cg * 64 * P::MI;
   const int b_off = (P::SPLIT_N ? cg * P::NI : 0) * 128;
   uint8_t* scratch = r.scratch(cg * 4 + ((threadIdx.x >> 5) & 3));
   float acc[P::MI][P::NI / 2];
@@ -430,14 +508,28 @@ __device__ __forceinline__ void consume(const P& p, const Ring<P>& r,
       if (prev_a >= 0) mbar_arrive(r.a_empty(prev_a));
     }
   };
-  for (int t = blockIdx.x; t < p.tiles(); t += gridDim.x) {
+  int i = 0;  // the block's tile count: ping-pong gives tile i to i % 2
+  for (int t = blockIdx.x; t < p.tiles(); t += gridDim.x, ++i) {
+    if (P::PINGPONG && (i & 1) != cg) {  // the other consumer's tile
+      for (int kb = 0; kb < p.k_blocks(); ++kb) {
+        a.next();
+        for (int tap = 0; tap < 4; ++tap) b.next();
+      }
+      continue;
+    }
+    // ping-pong: wait until the other consumer has waited for every stage
+    // of tile i - 1, so that no wait below runs two phases ahead of its
+    // barrier (a parity wait would take that phase for completed)
+    if (P::PINGPONG && i > 0) mbar_wait(r.done(cg ^ 1), ((i - 1) >> 1) & 1);
     for (int kb = 0; kb < p.k_blocks(); ++kb) {
       mbar_wait(r.a_full(a.stage), a.phase);
       for (int tap = 0; tap < 4; ++tap) {
         mbar_wait(r.b_full(b.stage), b.phase);
         const uint64_t da =
             sw128_desc(r.a(a.stage) + (p.a_row(tap) + a_row0) * 128);
-        const uint64_t db = sw128_desc(r.b(b.stage) + b_off);
+        const uint64_t db = P::B_MN ? sw128_mn_desc(r.b(b.stage) + b_off)
+                                    : sw128_desc(r.b(b.stage) + b_off);
+        constexpr int b_step = P::B_MN ? 2048 >> 4 : 2;  // one k16 step
 #pragma unroll
         for (int mi = 0; mi < P::MI; ++mi) fence_acc(acc[mi]);
         wgmma_fence();
@@ -445,8 +537,9 @@ __device__ __forceinline__ void consume(const P& p, const Ring<P>& r,
         for (int ks = 0; ks < 4; ++ks)
 #pragma unroll
           for (int mi = 0; mi < P::MI; ++mi)
-            wgmma_k16<P::NI>(acc[mi], da + 512 * mi + 2 * ks, db + 2 * ks,
-                             (kb > 0 || tap > 0 || ks > 0) ? 1 : 0);
+            wgmma_k16<P::NI, P::B_MN>(acc[mi], da + 512 * mi + 2 * ks,
+                                      db + b_step * ks,
+                                      (kb > 0 || tap > 0 || ks > 0) ? 1 : 0);
         wgmma_commit();
         wgmma_wait<1>();
         release();
@@ -456,13 +549,18 @@ __device__ __forceinline__ void consume(const P& p, const Ring<P>& r,
       }
       a.next();
     }
+    if (P::PINGPONG && leader) mbar_arrive(r.done(cg));
     wgmma_wait<0>();
 #pragma unroll
     for (int mi = 0; mi < P::MI; ++mi) fence_acc(acc[mi]);
     release();
     prev_b = -1;
-    p.store(t, cg, acc, scratch);
+    p.store(t, cg, acc, scratch,
+            r.stage() + cg * (P::STAGE_BYTES / 2));
   }
+  // a consumer's TMA stores must have read its staging before it exits
+  if constexpr (P::STAGE_BYTES > 0)
+    if ((threadIdx.x & 127) == 0) bulk_wait_read();
 }
 
 // The kernel body: barriers, then the two roles in one if/else that never
@@ -473,15 +571,21 @@ template <class P>
 __device__ __forceinline__ void run(const P& p) {
   const Ring<P> r(dyn_smem);
   if (threadIdx.x == 0) {
-    // empty barriers count lane 0 of each consumer warp
+    // empty barriers count lane 0 of each consumer warp that reads the
+    // stage (both consumers', or one's in ping-pong); an A slot's full
+    // barrier the producer thread and, where the problem gathers, the
+    // three gather warps
+    constexpr int consumer_warps = P::PINGPONG ? 4 : 8;
     for (int s = 0; s < P::A_STAGES; ++s) {
-      mbar_init(r.a_full(s), 1);
-      mbar_init(r.a_empty(s), 8);
+      mbar_init(r.a_full(s), P::GATHER ? 4 : 1);
+      mbar_init(r.a_empty(s), consumer_warps);
     }
     for (int s = 0; s < P::B_STAGES; ++s) {
       mbar_init(r.b_full(s), 1);
-      mbar_init(r.b_empty(s), 8);
+      mbar_init(r.b_empty(s), consumer_warps);
     }
+    mbar_init(r.done(0), 4);
+    mbar_init(r.done(1), 4);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
@@ -490,6 +594,8 @@ __device__ __forceinline__ void run(const P& p) {
     if (threadIdx.x == 0) {
       p.prefetch();
       produce(p, r);
+    } else if constexpr (P::GATHER) {
+      if (threadIdx.x >= 32) gather(p, r);
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));

@@ -40,7 +40,7 @@ __global__ void __launch_bounds__(kThreads)
   const long long m0 = (long long)blockIdx.x * TileCfg<BN>::BM;
   const int K = 16 * ld.c;
   float* Cs = igemm_tile<BN, bf16>(ld, w, K, m0, M, seg_smem);
-  epilogue_store<BN>(Cs, bias, y, false, m0, M);
+  epilogue_store<BN>(Cs, bias, y, m0, M);
 }
 
 template <int BN, bool VEC>

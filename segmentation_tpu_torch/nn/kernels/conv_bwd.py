@@ -13,13 +13,10 @@ The dgrad wrapper launches ``csrc/packed_conv2x2_dgrad.cu`` for a CUDA
 tensor, or raises; for a tensor on the CPU it runs the plain version. Each
 launch adds one to ``launches[<name>]``. Kernel operands: bf16, contiguous,
 16-byte aligned; g is the ReLU-masked cotangent. The kernel's output tiles
-are pixel rectangles of one image, chosen here by ``tile_plan``.
+are pixel rectangles of one image, chosen by ``tiles.tile_plan``.
 """
 
 from __future__ import annotations
-
-import functools
-from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -31,6 +28,7 @@ from segmentation_tpu_torch.nn.kernels._build import (
     _require,
     _stream,
 )
+from segmentation_tpu_torch.nn.kernels.tiles import aligned, tile_plan
 
 NAMES = ("packed_conv2x2_dgrad", "packed_conv2x2_dgrad_dual")
 launches = dict.fromkeys(NAMES, 0)
@@ -82,59 +80,6 @@ def tile_rows(c4: int, dual: bool) -> int:
     return {128: 256, 256: 128, 512: 64}[ncols]
 
 
-@dataclass(frozen=True)
-class TilePlan:
-    """Output tiles of th × tw pixels of one image, row-major over [N,
-    tiles_h, tiles_w]; tile t starts at ``origin(t)``. The kernel lays a
-    tile out as th · (tw + 1) GEMM rows (one junk column per image row,
-    so that every tap reads the same halo box shifted by whole rows) and
-    walks the same map (``DgradTiles::origin``)."""
-
-    n: int
-    hx: int
-    wx: int
-    th: int
-    tw: int
-
-    @property
-    def tiles_h(self) -> int:
-        return -(-self.hx // self.th)
-
-    @property
-    def tiles_w(self) -> int:
-        return -(-self.wx // self.tw)
-
-    @property
-    def count(self) -> int:
-        return self.n * self.tiles_h * self.tiles_w
-
-    def origin(self, t: int):
-        """(n, i0, j0) of tile t."""
-        n, r = divmod(t, self.tiles_h * self.tiles_w)
-        ti, tj = divmod(r, self.tiles_w)
-        return n, ti * self.th, tj * self.tw
-
-
-@functools.lru_cache(maxsize=64)
-def tile_plan(n: int, hx: int, wx: int, rows: int) -> TilePlan:
-    """The tiles of an [n, hx, wx] output for a kernel tile of ``rows``
-    GEMM rows: th · (tw + 1) <= rows, and the halo box of th + 1 rows and
-    tw + 1 columns at most 256 a side (TMA's limit). The fewest tiles
-    (each costs ``rows`` wgmma rows however many it fills), ties to the
-    wider tile; then th and tw shrink to the least that keeps the count,
-    so the tiles split the image evenly."""
-    best = None
-    for tw in range(1, min(wx, 255) + 1):
-        th = min(rows // (tw + 1), hx, 255)
-        if th == 0:
-            break
-        nh, nw = -(-hx // th), -(-wx // tw)
-        if best is None or nh * nw <= best[0] * best[1]:
-            best = (nh, nw)
-    nh, nw = best
-    return TilePlan(n, hx, wx, -(-hx // nh), -(-wx // nw))
-
-
 # ------------------------------------------------------------ kernel wrapper
 def _dgrad(name, g, ws):
     n, hg, wg, o4 = g.shape
@@ -146,8 +91,7 @@ def _dgrad(name, g, ws):
     _require(g, "g", torch.bfloat16, g.shape, dev)
     for w in ws:
         _require(w, "w2", torch.bfloat16, (2, 2, c4, o4), dev)
-    if any(t.data_ptr() % 16 for t in (g, *ws)):
-        raise ValueError(f"{name}: operands must be 16-byte aligned (TMA)")
+    aligned(name, g, *ws)
     dual = len(ws) == 2
     plan = tile_plan(n, hg + 1, wg + 1, tile_rows(c4, dual))
     outs = [torch.empty((n, hg + 1, wg + 1, c4), dtype=torch.bfloat16,

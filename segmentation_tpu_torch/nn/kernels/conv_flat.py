@@ -17,7 +17,10 @@ They replace the Pallas kernels of segmentation_tpu/nn/pallas/conv_flat.py
 (padded-flat and paired-column layouts, which exist for the TPU's tiles);
 every kernel here reads and writes plain NHWC. Every op ends in bias +
 ReLU (every packed site of the forward does). Kernel operands: bf16
-activations and weights, f32 bias; every tensor contiguous.
+activations and weights, f32 bias; every tensor contiguous. H1 and H2 run
+on the Hopper mainloop (csrc/packed_conv2x2_fwd.cuh): their operands are
+TMA sources, 16-byte aligned, and their output tiles are planned here by
+``tiles.tile_plan``.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from segmentation_tpu_torch.nn.kernels.conv_bwd import (
     packed_conv2x2_dgrad_dual_plain,
     packed_conv2x2_dgrad_plain,
 )
+from segmentation_tpu_torch.nn.kernels.tiles import aligned, tile_plan
 from segmentation_tpu_torch.nn.packing import crop_packed, unpack2
 
 NAMES = ("packed_conv2x2", "packed_conv2x2_dual", "strided_conv4x4s2",
@@ -109,6 +113,12 @@ def _o4_ok(o4, name):
         raise ValueError(f"{name}: 4O = {o4}; the kernel takes 128 or 256")
 
 
+# H1's and H2's output tile, its wgmma rows (FwdTiles::BM): at 4O = 128 a
+# consumer warpgroup takes a whole tile (two m64n128; the two take turns),
+# at 4O = 256 each takes 64 of its rows (m64n256)
+FWD_TILE_ROWS = 128
+
+
 def packed_conv2x2(x, w2, b4, *, pool=False, head=None, head_only=False):
     """H1: x [N,hp,wp,4C], w2 [2,2,4C,4O], b4 [4O] f32 → y [N,hp-1,wp-1,4O];
     with ``pool`` also the slot-max [..,O]; with ``head=(wd [4O,4] bf16,
@@ -135,6 +145,9 @@ def packed_conv2x2(x, w2, b4, *, pool=False, head=None, head_only=False):
         _require(wd, "wd", torch.bfloat16, (o4, 4), dev)
         _require(bd, "bd", torch.float32, (4,), dev)
         mask = torch.empty(shp + (4,), dtype=torch.uint8, device=dev)
+        aligned("packed_conv2x2", wd)
+    aligned("packed_conv2x2", x, w2, b4)
+    plan = tile_plan(n, hp - 1, wp - 1, FWD_TILE_ROWS)
     if not head_only:
         y = torch.empty(shp + (o4,), dtype=torch.bfloat16, device=dev)
     if pool:
@@ -143,7 +156,8 @@ def packed_conv2x2(x, w2, b4, *, pool=False, head=None, head_only=False):
     with torch.cuda.device(dev):
         err = _build.library().seg_packed_conv2x2(
             _ptr(x), _ptr(w2), _ptr(b4), _ptr(y), _ptr(pooled), _ptr(wd),
-            _ptr(bd), _ptr(mask), n, hp, wp, c4, o4, _stream(x),
+            _ptr(bd), _ptr(mask), n, hp, wp, c4, o4, plan.th, plan.tw,
+            _stream(x),
         )
     _build.check(err, "packed_conv2x2")
     launches["packed_conv2x2"] += 1
@@ -176,11 +190,14 @@ def packed_conv2x2_dual(skip, up, w2a, w2b, b4, *, offset: Tuple[int, int]):
     _require(w2a, "w2a", torch.bfloat16, (2, 2, c4, o4), dev)
     _require(w2b, "w2b", torch.bfloat16, (2, 2, c4, o4), dev)
     _require(b4, "b4", torch.float32, (o4,), dev)
+    aligned("packed_conv2x2_dual", skip, up, w2a, w2b, b4)
+    plan = tile_plan(n, hp - 1, wp - 1, FWD_TILE_ROWS)
     y = torch.empty((n, hp - 1, wp - 1, o4), dtype=torch.bfloat16, device=dev)
     with torch.cuda.device(dev):
         err = _build.library().seg_packed_conv2x2_dual(
             _ptr(skip), _ptr(up), _ptr(w2a), _ptr(w2b), _ptr(b4), _ptr(y),
-            n, hpa, wpa, hp, wp, c4, o4, oh, ow, _stream(up),
+            n, hpa, wpa, hp, wp, c4, o4, oh, ow, plan.th, plan.tw,
+            _stream(up),
         )
     _build.check(err, "packed_conv2x2_dual")
     launches["packed_conv2x2_dual"] += 1

@@ -12,6 +12,10 @@ reads the trace's device activities (kernels, copies, sets) only:
   overlapping streams count once;
 - busy share: that union over the CUDA-event time of the untraced
   requests (the device's idle share is one minus it);
+- by the host clock, each request ending in a sync: the latency a client
+  of one request at a time sees, and the host's time to return from the
+  call (its dispatch of the request's launches), medians over
+  ``--requests`` x 3 requests;
 - the summed activity time per group: the hand kernels (H1–H7, by kernel
   name), library GEMMs, library convs, copies and the other (elementwise)
   kernels.
@@ -112,6 +116,27 @@ def profile(server, reqs):
     return (wall, *breakdown(prof.events(), len(reqs)))
 
 
+def host_clock(server, reqs, rounds: int = 3):
+    """(median ms from the call to the end of a sync after it, median ms
+    until the call returns) over ``rounds`` passes over ``reqs``."""
+    import statistics
+    import time
+
+    import torch
+
+    torch.cuda.synchronize()
+    lat, dispatch = [], []
+    for _ in range(rounds):
+        for x in reqs:
+            t0 = time.perf_counter()
+            server(x)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+            dispatch.append((t1 - t0) * 1e3)
+    return statistics.median(lat), statistics.median(dispatch)
+
+
 def main(argv=None) -> None:
     import subprocess
 
@@ -143,9 +168,12 @@ def main(argv=None) -> None:
                                              "calib": [calib]})):
         server, _ = entry("cuda", batch=args.batch, seed=0, **kw)
         wall, dev_ms, groups, rows = profile(server, reqs)
+        lat, dispatch = host_clock(server, reqs)
         lines.append(f"[profile] {tag} B={args.batch}: CUDA-event ms per "
                      f"request {wall:.3f}; device ms per request "
-                     f"{dev_ms:.3f}; busy share {dev_ms / wall:.3f}")
+                     f"{dev_ms:.3f}; busy share {dev_ms / wall:.3f}; one "
+                     f"request at a time by the host clock {lat:.3f} ms "
+                     f"(the call returns after {dispatch:.3f} ms)")
         for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
             lines.append(f"[profile] {tag}   {g}: {ms:.3f} ms "
                          f"({ms / dev_ms:.3f} of device time)")

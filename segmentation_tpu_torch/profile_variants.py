@@ -1,0 +1,296 @@
+"""Time source variants of the kernels on the Hopper mainloop (H1 and H2
+bf16, H6) in turns on one GPU.
+
+    python -m segmentation_tpu_torch.profile_variants \
+        [--variants base,no_store,...] [--rounds 2] [--out FILE]
+
+Each variant is a copy of this package with named source patches
+(``VARIANTS``), made under ``csrc/build/variants/<name>/`` and built
+there by its own process (all at once). The copies then time the six
+2×2 sites of the 512² forward (B = 8, chip_smoke.py's phase-3 shapes)
+and H6's six training sites, each the least of 3 runs of 20 launches by
+CUDA events, in turns: the variants in order, then in reverse, --rounds
+times. Before timing, each variant but the cut-outs (``CUTS``, which
+compute garbage) is held against the plain versions at the sites.
+
+The variants: ``base`` (the sources as they are); the cut-outs
+``no_store`` (H1/H2's epilogue stores nothing) and ``no_store_no_load``
+(nor does the producer load: wgmma on whatever the stages hold); the
+epilogue designs of H1/H2 that were measured against the one kept:
+``no_tma_store`` (4O = 128 stores y and the pool from registers,
+sm90::store_acc), ``no_pingpong`` (4O = 128 tiles of 256 rows split
+between the consumers, stores from registers), ``pingpong_all``
+(4O = 256 ping-pong too, tiles of 64 rows); and the ring's depth:
+``a_stages_3`` (three A slots, which leaves 4O = 256 three B stages) and
+``b_stages_8`` (up to eight B stages, but shared memory leaves four at
+both widths, so it builds base's kernels again: the spread between two
+builds of the same code).
+"""
+
+from __future__ import annotations
+
+import argparse
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+from typing import Dict, List, Tuple
+
+PKG = Path(__file__).resolve().parent
+FWD = "csrc/packed_conv2x2_fwd.cuh"
+SM90 = "csrc/sm90_igemm.cuh"
+FLAT = "nn/kernels/conv_flat.py"
+
+# (file in the package, text, replacement, occurrences)
+Patch = Tuple[str, str, str, int]
+_PP = "  static constexpr bool PINGPONG = O4 == 128;"
+_BM = "  static constexpr int BM = 128;  // FWD_TILE_ROWS of conv_flat.py"
+_ROWS = "tile_plan(n, hp - 1, wp - 1, FWD_TILE_ROWS)"
+_NO_STORE: List[Patch] = [
+    (FWD, "    if constexpr (TMA_STORE) {\n      // the staging is free",
+     "    if (bias != nullptr) return;\n"
+     "    if constexpr (TMA_STORE) {\n      // the staging is free", 1)]
+_NO_LOAD: List[Patch] = [
+    (SM90, "      mbar_expect_tx(r.a_full(a.stage), p.a_tx(kb));\n"
+           "      p.load_a(t, kb, r.a(a.stage), r.a_full(a.stage));",
+     "      mbar_expect_tx(r.a_full(a.stage), 0u);", 1),
+    (SM90, "        mbar_expect_tx(r.b_full(b.stage), Ring<P>::B_BYTES);\n"
+           "        p.load_b(kb, tap, r.b(b.stage), r.b_full(b.stage));",
+     "        mbar_expect_tx(r.b_full(b.stage), 0u);", 1)]
+CUTS = ("no_store", "no_store_no_load")
+VARIANTS: Dict[str, List[Patch]] = {
+    "base": [],
+    "no_store": _NO_STORE,
+    "no_store_no_load": _NO_STORE + _NO_LOAD,
+    "no_tma_store": [
+        (FWD, "  static constexpr bool TMA_STORE = PINGPONG;",
+         "  static constexpr bool TMA_STORE = false;", 1)],
+    "no_pingpong": [
+        (FWD, _PP, _PP.replace("O4 == 128", "false"), 1),
+        (FWD, _BM, "  static constexpr int BM = 128 * MI;", 1),
+        (FLAT, _ROWS, _ROWS.replace("FWD_TILE_ROWS",
+                                    "{128: 256, 256: 128}[o4]"), 2)],
+    "pingpong_all": [
+        (FWD, _PP, _PP.replace("O4 == 128", "true"), 1),
+        (FWD, _BM, "  static constexpr int BM = 64 * MI;", 1),
+        (FLAT, _ROWS, _ROWS.replace("FWD_TILE_ROWS",
+                                    "{128: 128, 256: 64}[o4]"), 2)],
+    "b_stages_8": [
+        (FWD, "      NB * 128, 4);", "      NB * 128, 8);", 1)],
+    "a_stages_3": [
+        (FWD, "  static constexpr int A_STAGES = 2;",
+         "  static constexpr int A_STAGES = 3;", 1)],
+}
+
+
+def patched(name: str) -> Dict[str, str]:
+    """The patched text of each file a variant changes; raises if a patch
+    does not find its text exactly as often as it expects."""
+    out: Dict[str, str] = {}
+    for rel, old, new, count in VARIANTS[name]:
+        text = out.get(rel, (PKG / rel).read_text())
+        if text.count(old) != count:
+            raise ValueError(f"variant {name}: {rel} holds {old!r} "
+                             f"{text.count(old)} times, not {count}")
+        out[rel] = text.replace(old, new)
+    return out
+
+
+def make(name: str, work: Path) -> Path:
+    """Copy the package to work/<name>/ with the variant's patches; return
+    the directory to put first on sys.path."""
+    root = work / name
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(PKG, root / PKG.name,
+                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+    for rel, text in patched(name).items():
+        (root / PKG.name / rel).write_text(text)
+    return root
+
+
+def _sites(gen):
+    """(op, label, args, kwargs) at the 512² sites, B = 8: H1 and H2 as
+    chip_smoke.py's phase 3, H6 as its phase 3c."""
+    import torch
+
+    dev = gen.device
+
+    def act(*s):
+        return torch.rand(s, generator=gen, device=dev).to(torch.bfloat16)
+
+    def wgt(*s):
+        k = 1
+        for v in s[:-1]:
+            k *= v
+        return (torch.randn(s, generator=gen, device=dev) / k**0.5).to(
+            torch.bfloat16)
+
+    def bias(o4):
+        return torch.randn((o4,), generator=gen, device=dev) * 0.1
+
+    def cot(*s):
+        g = torch.randn(s, generator=gen, device=dev)
+        return (g * (torch.rand(s, generator=gen, device=dev) > 0.5)).to(
+            torch.bfloat16)
+
+    head = (wgt(128, 4), torch.randn((4,), generator=gen, device=dev))
+    n = 8
+    return [
+        ("packed_conv2x2", "conv1_2 +pool",
+         (act(n, 255, 255, 128), wgt(2, 2, 128, 128), bias(128)),
+         {"pool": True}),
+        ("packed_conv2x2", "conv2_2 +pool",
+         (act(n, 126, 126, 256), wgt(2, 2, 256, 256), bias(256)),
+         {"pool": True}),
+        ("packed_conv2x2_dual", "conv8_1 odd phase (41,41)",
+         (act(n, 125, 125, 256), act(n, 84, 84, 256), wgt(2, 2, 256, 256),
+          wgt(2, 2, 256, 256), bias(256)), {"offset": (41, 41)}),
+        ("packed_conv2x2", "conv8_2",
+         (act(n, 83, 83, 256), wgt(2, 2, 256, 256), bias(256)), {}),
+        ("packed_conv2x2_dual", "conv9_1 even (90,90)",
+         (act(n, 254, 254, 128), act(n, 164, 164, 128),
+          wgt(2, 2, 128, 128), wgt(2, 2, 128, 128), bias(128)),
+         {"offset": (90, 90)}),
+        ("packed_conv2x2", "conv9_2 head_only",
+         (act(n, 163, 163, 128), wgt(2, 2, 128, 128), bias(128)),
+         {"head": head, "head_only": True}),
+        ("packed_conv2x2_dgrad", "conv1_2",
+         (cot(n, 254, 254, 128), wgt(2, 2, 128, 128)), {}),
+        ("packed_conv2x2_dgrad", "conv2_2",
+         (cot(n, 125, 125, 256), wgt(2, 2, 256, 256)), {}),
+        ("packed_conv2x2_dgrad_dual", "conv8_1",
+         (cot(n, 83, 83, 256), wgt(2, 2, 256, 256), wgt(2, 2, 256, 256)),
+         {}),
+        ("packed_conv2x2_dgrad", "conv8_2",
+         (cot(n, 82, 82, 256), wgt(2, 2, 256, 256)), {}),
+        ("packed_conv2x2_dgrad_dual", "conv9_1",
+         (cot(n, 163, 163, 128), wgt(2, 2, 128, 128), wgt(2, 2, 128, 128)),
+         {}),
+        ("packed_conv2x2_dgrad", "conv9_2",
+         (cot(n, 162, 162, 128), wgt(2, 2, 128, 128)), {}),
+    ]
+
+
+def run_variant(name: str, mode: str) -> None:
+    """In a variant's own process (its copy first on sys.path): "build",
+    "check" (the sites against the plain versions) or "time"."""
+    import torch
+
+    from segmentation_tpu_torch.core.rng import generator
+    from segmentation_tpu_torch.nn.kernels import _build
+    from segmentation_tpu_torch.nn.kernels import conv_bwd as cb
+    from segmentation_tpu_torch.nn.kernels import conv_flat as cf
+
+    if f"variants/{name}/" not in Path(_build.__file__).as_posix():
+        raise RuntimeError(f"{name}: imported {_build.__file__}")
+    _build.library()
+    if mode == "build":
+        print(f"[{name}] built in {_build.build_seconds:.1f} s")
+        return
+    sums: Dict[str, float] = {}
+    for op, label, args, kw in _sites(generator(15, "cuda")):
+        mod = cb if "dgrad" in op else cf
+        fn = getattr(mod, op)
+        got = fn(*args, **kw)
+        if mode == "check":
+            want = getattr(mod, op + "_plain")(*args, **kw)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            for g, w in zip(got, want, strict=True):
+                if g.dtype == torch.uint8:
+                    bad = (g != w).float().mean().item()
+                    ok = bad < 0.01
+                else:
+                    bad = (g.float() - w.float()).abs().max().item()
+                    ok = bad <= 2e-2 * w.float().abs().max().item()
+                if not ok:
+                    raise AssertionError(f"{name} {op} {label}: {bad}")
+            continue
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        best = float("inf")
+        for _ in range(3):
+            start.record()
+            for _ in range(20):
+                fn(*args, **kw)
+            stop.record()
+            stop.synchronize()
+            best = min(best, start.elapsed_time(stop) / 20)
+        sums[op] = sums.get(op, 0.0) + best
+        print(f"[{name}] {op} {label}: {best:.4f} ms")
+    if mode == "check":
+        print(f"[{name}] agrees with the plain versions")
+    else:
+        print(f"[{name}] sums: " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in sums.items()))
+
+
+def _spawn(root: Path, name: str, mode: str, timeout: float):
+    cmd = [sys.executable, "-c",
+           "import sys; sys.path.insert(0, sys.argv[1]); "
+           "from segmentation_tpu_torch.profile_variants import run_variant; "
+           "run_variant(sys.argv[2], sys.argv[3])", str(root), name, mode]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), timeout
+
+
+def _finish(proc, timeout: float) -> Tuple[int, str]:
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+        return -1, out + "\n[timed out]"
+    return proc.returncode, out
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--variants", default=",".join(VARIANTS))
+    ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_variants: needs an NVIDIA GPU")
+    names = args.variants.split(",")
+    work = PKG / "csrc" / "build" / "variants"
+    roots = {n: make(n, work) for n in names}
+    lines: List[str] = [subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip()]
+
+    def say(text):
+        print(text, flush=True)
+        lines.append(text)
+
+    say(lines[0])
+    builds = {n: _spawn(roots[n], n, "build", 900) for n in names}
+    ok = []
+    for n, (proc, timeout) in builds.items():
+        rc, out = _finish(proc, timeout)
+        say(out.strip().splitlines()[-1] if out.strip() else f"[{n}] rc {rc}")
+        if rc == 0:
+            ok.append(n)
+    good = []
+    for n in ok:  # a variant that hangs or disagrees is not timed
+        if n in CUTS:
+            good.append(n)
+            continue
+        rc, out = _finish(*_spawn(roots[n], n, "check", 120))
+        say(out.strip().splitlines()[-1] if out.strip() else f"[{n}] rc {rc}")
+        if rc == 0:
+            good.append(n)
+    for _ in range(args.rounds):
+        for n in good + good[::-1]:
+            rc, out = _finish(*_spawn(roots[n], n, "time", 180))
+            for line in out.strip().splitlines():
+                say(line)
+    if args.out:
+        Path(args.out).write_text("\n".join(lines) + "\n")
+
+
+if __name__ == "__main__":
+    main()

@@ -65,27 +65,93 @@ def _check(got, want):
             assert err <= REL_TOL * w.float().abs().max().item(), err
 
 
+# x's shape at H1's cases: the 512² conv2_2 site (N = 1), ragged pixel
+# counts, a last tile ragged in both directions (tests/test_torch_fwd_
+# tiles.py checks that it is), one output row, column or pixel, N = 3 (a
+# linear pixel index would cross images), 4C = 72 (a partial 64-channel K
+# block) and 4C = 8 (one K block of 8 channels and 56 zeros); each at 4O =
+# 128 (ping-pong tiles) and 256 (tiles split between the consumers)
+FWD = {"conv2_2": (1, 126, 126, 256),
+       "ragged": (2, 13, 21, 128),
+       "ragged tiles": (1, 44, 65, 128),
+       "one row": (1, 2, 40, 128),
+       "one column": (1, 40, 2, 256),
+       "one pixel": (2, 2, 2, 128),
+       "N=3": (3, 20, 45, 256),
+       "4C=72": (2, 9, 13, 72),
+       "4C=8": (1, 9, 13, 8)}
+
+
+def _head(gen, o4):
+    return (_wgt(gen, o4, 4), torch.randn((4,), generator=gen, device="cuda"))
+
+
 @pytest.mark.parametrize("o4", [128, 256])
 @pytest.mark.parametrize("mode", ["plain", "pool", "head_only", "head"])
-def test_packed_conv2x2_kernel(gen, o4, mode):
-    x = _act(gen, 2, 13, 21, 128)
-    args = (x, _wgt(gen, 2, 2, 128, o4), _bias(gen, o4))
+@pytest.mark.parametrize("shape", list(FWD))
+def test_packed_conv2x2_kernel(gen, shape, o4, mode):
+    x = _act(gen, *FWD[shape])
+    c4 = x.shape[-1]
+    args = (x, _wgt(gen, 2, 2, c4, o4), _bias(gen, o4))
     kw = {"pool": mode == "pool"}
     if mode.startswith("head"):
-        kw["head"] = (_wgt(gen, o4, 4),
-                      torch.randn((4,), generator=gen, device="cuda"))
+        kw["head"] = _head(gen, o4)
         kw["head_only"] = mode == "head_only"
     _check(cf.packed_conv2x2(*args, **kw),
            cf.packed_conv2x2_plain(*args, **kw))
 
 
-@pytest.mark.parametrize("offset", [(0, 0), (6, 4), (5, 7), (2, 3)])
-def test_packed_conv2x2_dual_kernel(gen, offset):
-    skip, up = _act(gen, 2, 15, 17, 256), _act(gen, 2, 9, 11, 256)
-    args = (skip, up, _wgt(gen, 2, 2, 256, 256), _wgt(gen, 2, 2, 256, 256),
-            _bias(gen, 256))
+# H2's cases: (skip, up, 4O) shapes and crop offsets (unpacked). 4C = 256
+# (C = 64): every K block is one slot, one TMA box at the slot's origin;
+# 4C = 128 (C = 32) and 96 (C = 24): odd offsets gather the skip's blocks
+# (two slots of different origins in one block), even ones are one box;
+# (8, 8) reaches the skip's far edge in both axes where the skip is 4
+# packed pixels larger than up.
+DUAL = {"4C=256": ((2, 15, 17, 256), (2, 9, 11, 256), 256),
+        "4C=128": ((2, 15, 17, 128), (2, 9, 11, 128), 128),
+        "4C=128 4O=256": ((1, 15, 17, 128), (1, 9, 11, 128), 256),
+        "4C=256 4O=128": ((1, 15, 17, 256), (1, 9, 11, 256), 128),
+        "ragged tiles": ((1, 48, 69, 128), (1, 44, 65, 128), 128),
+        "ragged tiles 4O=256": ((1, 48, 69, 256), (1, 44, 65, 256), 256),
+        "one row": ((1, 6, 44, 128), (1, 2, 40, 128), 128),
+        "one column": ((1, 44, 6, 256), (1, 40, 2, 256), 256),
+        "one pixel": ((2, 6, 6, 128), (2, 2, 2, 128), 128),
+        "N=3": ((3, 24, 49, 256), (3, 20, 45, 256), 256),
+        "4C=96": ((2, 15, 17, 96), (2, 9, 11, 96), 128)}
+OFFSETS = [(0, 0), (6, 4), (5, 7), (2, 3), (3, 0), (8, 8), (7, 7)]
+
+
+@pytest.mark.parametrize("offset", OFFSETS)
+@pytest.mark.parametrize("case", list(DUAL))
+def test_packed_conv2x2_dual_kernel(gen, case, offset):
+    sshape, ushape, o4 = DUAL[case]
+    skip, up = _act(gen, *sshape), _act(gen, *ushape)
+    c4 = up.shape[-1]
+    args = (skip, up, _wgt(gen, 2, 2, c4, o4), _wgt(gen, 2, 2, c4, o4),
+            _bias(gen, o4))
     _check(cf.packed_conv2x2_dual(*args, offset=offset),
            cf.packed_conv2x2_dual_plain(*args, offset=offset))
+
+
+@pytest.mark.parametrize("op", ["single", "dual even", "dual slot",
+                                "dual gather"])
+def test_packed_conv2x2_fwd_is_deterministic(gen, op):
+    """Two launches on the same inputs give the same bits (no atomics)."""
+    if op == "single":
+        x = _act(gen, 2, 41, 57, 128)
+        args = (x, _wgt(gen, 2, 2, 128, 128), _bias(gen, 128))
+        kw = {"pool": True, "head": _head(gen, 128)}
+        fn = cf.packed_conv2x2
+    else:
+        c4 = 256 if op == "dual slot" else 128
+        args = (_act(gen, 2, 45, 61, c4), _act(gen, 2, 41, 57, c4),
+                _wgt(gen, 2, 2, c4, 256), _wgt(gen, 2, 2, c4, 256),
+                _bias(gen, 256))
+        kw = {"offset": (4, 2) if op == "dual even" else (3, 5)}
+        fn = cf.packed_conv2x2_dual
+    first, second = _outs(fn(*args, **kw)), _outs(fn(*args, **kw))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second, strict=True))
 
 
 @pytest.mark.parametrize("c,o4", [(3, 128), (32, 256), (5, 256)])
@@ -103,6 +169,14 @@ def test_rows_matmul_kernel(gen, scatter):
            cf.rows_matmul_plain(*args, scatter=scatter))
 
 
+def _misaligned(t):
+    """A contiguous copy of t that starts 2 bytes past a 16-byte line."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def test_wrapper_refuses_bad_operands(gen):
     x = _act(gen, 1, 5, 5, 128)
     w, b = _wgt(gen, 2, 2, 128, 128), _bias(gen, 128)
@@ -112,6 +186,32 @@ def test_wrapper_refuses_bad_operands(gen):
         cf.packed_conv2x2(x.transpose(1, 2), w, b)
     with pytest.raises(ValueError, match="128 or 256"):
         cf.packed_conv2x2(x, _wgt(gen, 2, 2, 128, 64), _bias(gen, 64))
+    with pytest.raises(ValueError, match="bad input shape"):
+        cf.packed_conv2x2(_act(gen, 1, 5, 5, 12), _wgt(gen, 2, 2, 12, 128), b)
+    with pytest.raises(ValueError, match="bad input shape"):
+        cf.packed_conv2x2(_act(gen, 1, 1, 5, 128), w, b)
+    with pytest.raises(ValueError, match="16-byte"):
+        cf.packed_conv2x2(_misaligned(x), w, b)
+
+
+def test_dual_wrapper_refuses_bad_operands(gen):
+    skip, up = _act(gen, 1, 9, 9, 128), _act(gen, 1, 5, 5, 128)
+    w, b = _wgt(gen, 2, 2, 128, 128), _bias(gen, 128)
+    with pytest.raises(ValueError, match="does not cover"):
+        cf.packed_conv2x2_dual(skip, up, w, w, b, offset=(9, 0))
+    with pytest.raises(ValueError, match="does not cover"):
+        cf.packed_conv2x2_dual(skip, up, w, w, b, offset=(0, -1))
+    with pytest.raises(ValueError, match="bad input shape"):
+        cf.packed_conv2x2_dual(_act(gen, 1, 9, 9, 48), _act(gen, 1, 5, 5, 48),
+                               _wgt(gen, 2, 2, 48, 128),
+                               _wgt(gen, 2, 2, 48, 128), b, offset=(0, 0))
+    with pytest.raises(TypeError):
+        cf.packed_conv2x2_dual(skip.float(), up, w, w, b, offset=(0, 0))
+    with pytest.raises(ValueError, match="contiguous"):
+        cf.packed_conv2x2_dual(skip, up.transpose(1, 2), w, w, b,
+                               offset=(0, 0))
+    with pytest.raises(ValueError, match="16-byte"):
+        cf.packed_conv2x2_dual(skip, up, w, _misaligned(w), b, offset=(0, 0))
 
 
 def test_s2d_forward_kernels_vs_plain(gen):
@@ -387,7 +487,7 @@ def _cot(gen, *shape):
 
 
 # g's shape and 4C at the 512² sites (N = 1), ragged pixel counts, and the
-# edges of the kernel's tile plan (conv_bwd.tile_plan): a last tile ragged
+# edges of the kernel's tile plan (tiles.tile_plan): a last tile ragged
 # in both directions for each tile size the plan can take (rows 256, 128,
 # dual 128 and dual 64; tests/test_torch_dgrad_tiles.py checks that they
 # are ragged), g of one row, one column or one pixel, N = 3 (a linear pixel

@@ -1,7 +1,7 @@
 """H6's tile plan and box rule on the CPU.
 
 The card kernel (csrc/packed_conv2x2_dgrad.cu) walks output tiles of th ×
-tw pixels of one image, chosen by ``conv_bwd.tile_plan``, as th · (tw + 1)
+tw pixels of one image, chosen by ``tiles.tile_plan``, as th · (tw + 1)
 GEMM rows, and reads its A operand as one halo box of g per 64-channel K
 block, zero outside g (TMA's fill), whose rows shifted by (1 − u)(tw + 1)
 + 1 − v are tap (u, v)'s operand. Here the plan must cover every dx pixel

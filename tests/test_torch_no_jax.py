@@ -17,6 +17,8 @@ _PROBE = textwrap.dedent("""
     import segmentation_tpu_torch
     import segmentation_tpu_torch.serving
     import segmentation_tpu_torch.profile_serving
+    import segmentation_tpu_torch.profile_variants
+    import segmentation_tpu_torch.nn.kernels.tiles
     import tempfile
     from segmentation_tpu_torch.core.config import TrainConfig
     from segmentation_tpu_torch.data.synthetic import SyntheticSegmentation

@@ -14,6 +14,12 @@ from segmentation_tpu_torch import profile_serving as ps
      "H2 packed_conv2x2_dual"),
     ("void packed_conv2x2_s8_kernel<true>(Conv2x2Loader<s8>, ...)",
      "H1 packed_conv2x2"),
+    ("void segk::packed_conv2x2_dual_fwd_kernel<256, 1, 0>("
+     "segk::FwdTiles<256, 1, 0>)", "H2 packed_conv2x2_dual"),
+    ("void segk::packed_conv2x2_fwd_kernel<128, 0, 1>("
+     "segk::FwdTiles<128, 0, 1>)", "H1 packed_conv2x2"),
+    ("void segk::packed_conv2x2_dgrad_kernel<128, true>("
+     "segk::DgradTiles<128, true>)", "H6 packed_conv2x2_dgrad"),
     ("void strided_conv4x4s2_kernel<true>(...)", "H3 strided_conv4x4s2"),
     ("void rows_matmul_s8_kernel(RowsLoader<s8>, ...)", "H4 rows_matmul"),
     ("void segk::(anonymous namespace)::crop_normalize_kernel<"
