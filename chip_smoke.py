@@ -611,19 +611,28 @@ def _library_call(name, args, kw):
 def _packed_gemm_ops(name, args):
     """The packed GEMM of a kernel on the Hopper mainloop at a site: 2 ·
     output pixels · K · columns, 16/9 of the function's operations. H1: K
-    = 4 taps × 4C, 4O columns; H2: the same for each side; H6: K = 4 taps
+    = 4 taps × 4C, 4O columns; H2: the same for each side; H3: K = 16C
+    (four taps × two row parities × 2C, or one im2col row), 4O columns;
+    H4: K = C, 4O columns per output pixel (no zero taps); H6: K = 4 taps
     × 4O, 4C columns (8C for the dual) per dx pixel."""
     if name.startswith("packed_conv2x2_dgrad"):
         g, *ws = args
         n, hg, wg, o4 = g.shape
         return 2 * n * (hg + 1) * (wg + 1) * 4 * o4 * ws[0].shape[2] * len(ws)
+    if name == "strided_conv4x4s2":
+        x, w4 = args[:2]
+        n, h, w, c = x.shape
+        return 2 * n * ((h - 2) // 2) * ((w - 2) // 2) * 16 * c * w4.shape[-1]
+    if name == "rows_matmul":
+        x, wm = args[:2]
+        return 2 * (x.numel() // wm.shape[0]) * wm.shape[0] * wm.shape[1]
     dual = name == "packed_conv2x2_dual"
     x, w = args[1 if dual else 0], args[3 if dual else 1]
     n, hp, wp, c4 = x.shape
     return 2 * n * (hp - 1) * (wp - 1) * 4 * c4 * w.shape[-1] * (1 + dual)
 
 
-def _tile_plan_of(name, args):
+def _tile_plan_of(name, args, kw):
     """The tile plan the wrapper of a Hopper-mainloop kernel picks."""
     from segmentation_tpu_torch.nn.kernels import conv_bwd as cb
     from segmentation_tpu_torch.nn.kernels import conv_flat as cf
@@ -634,21 +643,25 @@ def _tile_plan_of(name, args):
         n, hg, wg, _ = g.shape
         return tile_plan(n, hg + 1, wg + 1,
                          cb.tile_rows(ws[0].shape[2], len(ws) == 2))
+    if name == "strided_conv4x4s2":
+        return cf.strided_plan(args[0], args[1].shape[-1])
+    if name == "rows_matmul":
+        return cf.rows_plan(args[0], args[1].shape[-1], kw.get("scatter"))
     x = args[1] if name == "packed_conv2x2_dual" else args[0]
     n, hp, wp, _ = x.shape
     return tile_plan(n, hp - 1, wp - 1, cf.FWD_TILE_ROWS)
 
 
-# the bf16 kernels on csrc/sm90_igemm.cuh (TMA halo boxes, wgmma)
-SM90 = ("packed_conv2x2", "packed_conv2x2_dual", "packed_conv2x2_dgrad",
-        "packed_conv2x2_dgrad_dual")
+# the bf16 kernels on csrc/sm90_igemm.cuh (TMA or gathered A, wgmma)
+SM90 = ("packed_conv2x2", "packed_conv2x2_dual", "strided_conv4x4s2",
+        "rows_matmul", "packed_conv2x2_dgrad", "packed_conv2x2_dgrad_dual")
 
 
-def _tile_note(name, args, ms, bound):
+def _tile_note(name, args, kw, ms, bound):
     """A Hopper-mainloop kernel's extra words on a site's time line: the
     tile the wrapper's plan picked, the share of the bound, the share of
     the packed tensor peak."""
-    plan = _tile_plan_of(name, args)
+    plan = _tile_plan_of(name, args, kw)
     peak = _packed_gemm_ops(name, args) / PEAK_OPS_S["bf16"] * 1e3
     return (f"; tile {plan.th}x{plan.tw}, {bound / ms:.3f} of the bound, "
             f"{peak / ms:.3f} of the packed tensor peak")
@@ -715,7 +728,7 @@ def _kernel_phase(mod, sites):
             note = ""
             if name in SM90:
                 packed[name] += _packed_gemm_ops(name, args)
-                note = _tile_note(name, args, t["kernel"], b)
+                note = _tile_note(name, args, kw, t["kernel"], b)
             print(f"[kernels] time B={n} {name} {label}: "
                   f"{t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, "
                   f"library {lib_txt}, bound {b:.4f} ms ({by}){note}")

@@ -7,9 +7,9 @@
 // address in the input activation (the conv taps, the skip crop, the slot
 // scatter). The kernels differ only in their Loader and epilogue.
 //
-// Two element types share the core: bf16 x bf16 -> f32 (the bf16 modes of
-// H3 and H4) and s8 x s8 -> s32 (the int8 modes of H1-H5). The bf16 modes
-// of H1 and H2 run on the Hopper mainloop (sm90_igemm.cuh). K advances in
+// Two element types share the core: bf16 x bf16 -> f32 (H3's requant-only
+// entry mode) and s8 x s8 -> s32 (the int8 modes of H1-H5). The bf16 modes
+// of H1-H4 run on the Hopper mainloop (sm90_igemm.cuh). K advances in
 // 64-byte chunks (32 bf16 or 64 s8 values); a Loader returns 16 bytes of
 // one pixel's row of A (8 bf16 or 16 s8), so the loaders' address rules do
 // not depend on the element width.
@@ -305,31 +305,6 @@ struct Linear {
     return m < M ? m : -1;
   }
 };
-
-// y = bf16(relu(C + bias)), whole pixels to out [M, BN] (the bf16 modes of
-// H3 and H4).
-template <int BN>
-__device__ __forceinline__ void epilogue_store(
-    const float* Cs, const float* __restrict__ bias, bf16* __restrict__ out,
-    long long m0, long long M) {
-  using C = TileCfg<BN>;
-  for (int idx = threadIdx.x; idx < C::BM * (BN / 8); idx += kThreads) {
-    const int r = idx / (BN / 8);
-    const int c = (idx % (BN / 8)) * 8;
-    const long long m = m0 + r;
-    if (m >= M) continue;
-    const float* crow = Cs + r * C::LDC + c;
-    float v[8];
-#pragma unroll
-    for (int t = 0; t < 8; ++t) v[t] = fmaxf(crow[t] + bias[c + t], 0.0f);
-    uint4 u;
-    u.x = pack2bf(v[0], v[1]);
-    u.y = pack2bf(v[2], v[3]);
-    u.z = pack2bf(v[4], v[5]);
-    u.w = pack2bf(v[6], v[7]);
-    *reinterpret_cast<uint4*>(out + m * BN + c) = u;
-  }
-}
 
 // Eight finished values (already rounded to the element type) to memory.
 __device__ __forceinline__ void store8(bf16* p, const float v[8]) {

@@ -1,5 +1,8 @@
 // The bf16 forward of the packed 2x2 convs (H1 packed_conv2x2, H2
-// packed_conv2x2_dual) as a problem of the Hopper mainloop sm90_igemm.cuh.
+// packed_conv2x2_dual) as a problem of the Hopper mainloop sm90_igemm.cuh,
+// and the output side (FwdOut: the tile walk and the epilogue) that it
+// shares with the bf16 problems of H3 (strided_conv4x4s2.cu) and H4
+// (rows_matmul.cu).
 //
 //   y[n, i, j, :] = relu(bias + sum over taps (u, v) and sides of
 //                        x_side[n, i + u, j + v, :] w_side[u, v])
@@ -11,8 +14,10 @@
 // Design:
 //  - Output tiles are th x tw pixel rectangles of one image (the wrapper's
 //    tiles.tile_plan over the output grid), laid out as GEMM rows m = a W
-//    + b with the row stride W = tw + 1: one junk column per image row, so
-//    that every tap's A operand is one halo box shifted by whole rows.
+//    + b with the row stride W = tw + HALO. HALO = 1 (the four taps): one
+//    junk column per image row, so that every tap's A operand is one halo
+//    box shifted by whole rows; HALO = 0 where one tap reads the tile
+//    itself (H4, H3's gathered entry).
 //  - A, per 64-channel K block: the 4-D TMA box [1, th + 1, W, 64] of the
 //    side's tensor at (n, i0, j0, k0). Pixel (a, b) of tap (u, v) reads box
 //    row (a + u) W + (b + v) = m + u W + v. TMA fills zeros outside the
@@ -67,17 +72,19 @@ using bf16 = __nv_bfloat16;
 // beside 128 accumulators would spill).
 constexpr int kPool = 1, kHead = 2;
 
-template <int O4, int SKIP, int EPI = 0>
-struct FwdTiles {
+// The output side of a bf16 forward problem: 4O = O4 columns, tiles of th
+// x tw output pixels as GEMM rows m = a (tw + HALO) + b, the walk over
+// them, the epilogue (EPI: kPool, kHead) and the ring's shape around it. A
+// problem derives from it and adds TAPS, A_ROWS, B_STAGES, B_MN, GATHER,
+// its maps and the loads.
+template <int O4, int EPI, int HALO>
+struct FwdOut {
   static constexpr int NB = O4;
   static constexpr bool SPLIT_N = false;
   static constexpr int NI = NB;
   static constexpr int MI = NI == 128 ? 2 : 1;
   static constexpr bool PINGPONG = O4 == 128;
   static constexpr int BM = 128;  // FWD_TILE_ROWS of conv_flat.py
-  // an A slot holds the largest tap shift (W + 1 <= BM + 1) and BM rows
-  // after it
-  static constexpr int A_ROWS = (2 * BM + 1 + 7) / 8 * 8;
   // ping-pong tiles store y (and the pool) by TMA from a staging tile of
   // BM x NB bf16 per consumer (the pool's stages in its scratch)
   static constexpr bool TMA_STORE = PINGPONG;
@@ -85,13 +92,15 @@ struct FwdTiles {
   static_assert(!TMA_STORE || BM * NB / 4 * 2 <= 4 * sm90::kScratch,
                 "the pool's staging is a consumer's scratch");
   static constexpr int A_STAGES = 2;
-  static constexpr int B_STAGES = sm90::stages_that_fit(
-      1024 + 8 * sm90::kScratch + 128 + A_STAGES * A_ROWS * 128 + STAGE_BYTES,
-      NB * 128, 4);
-  static constexpr bool B_MN = true, GATHER = SKIP == 2;
+  static constexpr int PRODUCER_REGS = sm90::kProducerRegs;
+  // the B stages that fit beside A_STAGES slots of a_rows rows
+  static constexpr int b_stages(int a_rows) {
+    return sm90::stages_that_fit(
+        1024 + 8 * sm90::kScratch + 128 + A_STAGES * a_rows * 128 +
+            STAGE_BYTES,
+        NB * 128, 4);
+  }
 
-  CUtensorMap xmap, wmap;  // H1's x and w; H2's up side: up and wb
-  CUtensorMap smap, wsmap;  // H2's skip side: skip and wa
   CUtensorMap ymap, pmap;   // TMA_STORE: y and the pool
   const float* bias;
   bf16* y;
@@ -99,32 +108,10 @@ struct FwdTiles {
   const bf16* wd;
   const float* bd;
   uint8_t* mask;
-  const bf16* skip;    // the gathered skip
   int ho, wo;          // output grid
   int th, tw, tiles_w, tiles_hw, n_tiles;
-  int kps;             // K blocks a side: ceil(4C / 64)
-  int c4, cs;          // 4C and C
-  int hpa, wpa;        // the skip's grid
-  int oh, ow;          // the crop offset, unpacked
-  int slot;            // the skip's K blocks are per-slot boxes (C % 64 == 0)
 
   __device__ int tiles() const { return n_tiles; }
-  __device__ int k_blocks() const { return SKIP ? 2 * kps : kps; }
-  __device__ bool gathered(int kb) const { return GATHER && kb < kps; }
-  __device__ uint32_t a_tx(int kb) const {
-    return gathered(kb) ? 0u : (uint32_t)((th + 1) * (tw + 1)) * 128u;
-  }
-  __device__ int a_row(int tap) const {  // (u, v) = (tap >> 1, tap & 1)
-    return (tap >> 1) * (tw + 1) + (tap & 1);
-  }
-  __device__ void prefetch() const {
-    sm90::prefetch_map(&xmap);
-    sm90::prefetch_map(&wmap);
-    if (SKIP) {
-      if (!GATHER) sm90::prefetch_map(&smap);
-      sm90::prefetch_map(&wsmap);
-    }
-  }
   // tile t -> image n and its first output pixel (i0, j0): tiles.tile_plan's
   // map, row-major over [N, tiles_h, tiles_w]
   __device__ void origin(int t, int& n, int& i0, int& j0) const {
@@ -134,71 +121,11 @@ struct FwdTiles {
     i0 = ti * th;
     j0 = (r - ti * tiles_w) * tw;
   }
-  __device__ void load_a(int t, int kb, uint8_t* a, uint64_t* bar) const {
-    int n, i0, j0;
-    origin(t, n, i0, j0);
-    if (SKIP && kb < kps) {
-      if (GATHER) return;
-      const int k0 = 64 * kb;
-      if (slot) {  // the block's output slot (d, e) = (s >> 1, s & 1)
-        const int s = k0 / cs;
-        const int yy = oh + (s >> 1), xx = ow + (s & 1);
-        sm90::tma_load_4d(a, &smap, bar,
-                          (2 * (yy & 1) + (xx & 1)) * cs + k0 - s * cs,
-                          (xx >> 1) + j0, (yy >> 1) + i0, n);
-      } else {
-        sm90::tma_load_4d(a, &smap, bar, k0, ow / 2 + j0, oh / 2 + i0, n);
-      }
-      return;
-    }
-    sm90::tma_load_4d(a, &xmap, bar, 64 * (SKIP ? kb - kps : kb), j0, i0, n);
-  }
-  // The skip's K block kb, gathered: 16-byte chunk `chunk` of box row `row`
-  // holds channels k .. k + 7 (one slot: C % 8 == 0), zero outside the skip
-  // and past 4C, stored where TMA's 128-byte swizzle would put it.
-  __device__ void gather_a(int t, int kb, uint8_t* a, int tid,
-                           int nthreads) const {
-    if (!gathered(kb)) return;
-    int n, i0, j0;
-    origin(t, n, i0, j0);
-    const int w = tw + 1;
-    const uint32_t base = sm90::smem_u32(a);
-    for (int idx = tid; idx < (th + 1) * w * 8; idx += nthreads) {
-      const int row = idx >> 3, chunk = idx & 7;
-      const int k = 64 * kb + 8 * chunk;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (k < c4) {
-        const int s = k / cs;
-        const int bi = row / w;
-        const int yy = oh + 2 * (i0 + bi) + (s >> 1);
-        const int xx = ow + 2 * (j0 + row - bi * w) + (s & 1);
-        if ((yy >> 1) < hpa && (xx >> 1) < wpa)
-          v = __ldg(reinterpret_cast<const uint4*>(
-              skip +
-              (((long long)n * hpa + (yy >> 1)) * wpa + (xx >> 1)) * c4 +
-              (2 * (yy & 1) + (xx & 1)) * cs + k - s * cs));
-      }
-      asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(
-                       base + row * 128 + ((chunk ^ (row & 7)) << 4)),
-                   "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
-                   : "memory");
-    }
-  }
-  // the B rows of (K block, tap): 64 rows of w viewed as [4 * 4C, 4O], one
-  // box per 64 columns
-  __device__ void load_b(int kb, int tap, uint8_t* b, uint64_t* bar) const {
-    const bool skip_side = SKIP && kb < kps;
-    const CUtensorMap* m = skip_side ? &wsmap : &wmap;
-    const int row = tap * c4 + 64 * (SKIP && !skip_side ? kb - kps : kb);
-#pragma unroll
-    for (int j = 0; j < NB / 64; ++j)
-      sm90::tma_load_2d(b + j * sm90::kMnBox, m, bar, 64 * j, row);
-  }
 
   // the flat output pixel of GEMM row m of tile (n, i0, j0), or -1 for a
   // junk row or a row past the output
   __device__ long long pixel(int n, int i0, int j0, int m) const {
-    const int w = tw + 1;
+    const int w = tw + HALO;
     const int a = m / w, b = m - a * w;
     const int i = i0 + a, j = j0 + b;
     if (a >= th || b >= tw || i >= ho || j >= wo) return -1;
@@ -207,14 +134,14 @@ struct FwdTiles {
 
   // the staging row of GEMM row m (a th x tw box, dense), or -1
   __device__ int stage_row(int m) const {
-    const int w = tw + 1;
+    const int w = tw + HALO;
     const int a = m / w, b = m - a * w;
     return a < th && b < tw ? a * tw + b : -1;
   }
 
   // y's fragment into the staging tile: NB / 64 boxes of BM rows x 128
   // bytes in TMA's 128-byte swizzle; junk rows go to row BM - 1, which no
-  // box reaches (th tw <= BM - th)
+  // box reaches (there are junk rows only where th tw < BM)
   __device__ void stage_y(float (&acc)[MI][NI / 2], uint8_t* stage,
                           int m0) const {
     const int lane = threadIdx.x & 31;
@@ -360,6 +287,137 @@ struct FwdTiles {
       });
     }
   }
+
+  // Host: the walk over the output grid [n, ho, wo] in tiles of th x tw
+  // (th (tw + HALO) <= BM GEMM rows), and the maps of the TMA stores.
+  int plan(int n, int ho_, int wo_, int th_, int tw_) {
+    if (th_ < 1 || tw_ < 1 || th_ * (tw_ + HALO) > BM)
+      return (int)cudaErrorInvalidValue;
+    ho = ho_;
+    wo = wo_;
+    th = th_;
+    tw = tw_;
+    tiles_w = (wo + tw - 1) / tw;
+    tiles_hw = tiles_w * ((ho + th - 1) / th);
+    n_tiles = n * tiles_hw;
+    if constexpr (TMA_STORE) {  // y and the pool as [th, tw] boxes
+      const cuuint64_t ydims[4] = {(cuuint64_t)O4, (cuuint64_t)wo,
+                                   (cuuint64_t)ho, (cuuint64_t)n};
+      const cuuint32_t ybox[4] = {64, (cuuint32_t)tw, (cuuint32_t)th, 1};
+      int e = y ? sm90::make_map(&ymap, y, 4, ydims, ybox) : 0;
+      if (e == 0 && (EPI & kPool) != 0) {
+        const cuuint64_t pdims[4] = {(cuuint64_t)O4 / 4, (cuuint64_t)wo,
+                                     (cuuint64_t)ho, (cuuint64_t)n};
+        const cuuint32_t pbox[4] = {(cuuint32_t)O4 / 4, (cuuint32_t)tw,
+                                    (cuuint32_t)th, 1};
+        e = sm90::make_map(&pmap, pool, 4, pdims, pbox, false);
+      }
+      return e;
+    }
+    return 0;
+  }
+};
+
+template <int O4, int SKIP, int EPI = 0>
+struct FwdTiles : FwdOut<O4, EPI, 1> {
+  using Out = FwdOut<O4, EPI, 1>;
+  using Out::BM;
+  using Out::NB;
+  using Out::origin;
+  using Out::th;
+  using Out::tw;
+  static constexpr int TAPS = 4;
+  // an A slot holds the largest tap shift (W + 1 <= BM + 1) and BM rows
+  // after it
+  static constexpr int A_ROWS = (2 * BM + 1 + 7) / 8 * 8;
+  static constexpr int B_STAGES = Out::b_stages(A_ROWS);
+  static constexpr bool B_MN = true, GATHER = SKIP == 2;
+
+  CUtensorMap xmap, wmap;  // H1's x and w; H2's up side: up and wb
+  CUtensorMap smap, wsmap;  // H2's skip side: skip and wa
+  const bf16* skip;    // the gathered skip
+  int kps;             // K blocks a side: ceil(4C / 64)
+  int c4, cs;          // 4C and C
+  int hpa, wpa;        // the skip's grid
+  int oh, ow;          // the crop offset, unpacked
+  int slot;            // the skip's K blocks are per-slot boxes (C % 64 == 0)
+
+  __device__ int k_blocks() const { return SKIP ? 2 * kps : kps; }
+  __device__ bool gathered(int kb) const { return GATHER && kb < kps; }
+  __device__ uint32_t a_tx(int kb) const {
+    return gathered(kb) ? 0u : (uint32_t)((th + 1) * (tw + 1)) * 128u;
+  }
+  __device__ int a_row(int tap) const {  // (u, v) = (tap >> 1, tap & 1)
+    return (tap >> 1) * (tw + 1) + (tap & 1);
+  }
+  __device__ void prefetch() const {
+    sm90::prefetch_map(&xmap);
+    sm90::prefetch_map(&wmap);
+    if (SKIP) {
+      if (!GATHER) sm90::prefetch_map(&smap);
+      sm90::prefetch_map(&wsmap);
+    }
+  }
+  __device__ void load_a(int t, int kb, uint8_t* a, uint64_t* bar) const {
+    int n, i0, j0;
+    origin(t, n, i0, j0);
+    if (SKIP && kb < kps) {
+      if (GATHER) return;
+      const int k0 = 64 * kb;
+      if (slot) {  // the block's output slot (d, e) = (s >> 1, s & 1)
+        const int s = k0 / cs;
+        const int yy = oh + (s >> 1), xx = ow + (s & 1);
+        sm90::tma_load_4d(a, &smap, bar,
+                          (2 * (yy & 1) + (xx & 1)) * cs + k0 - s * cs,
+                          (xx >> 1) + j0, (yy >> 1) + i0, n);
+      } else {
+        sm90::tma_load_4d(a, &smap, bar, k0, ow / 2 + j0, oh / 2 + i0, n);
+      }
+      return;
+    }
+    sm90::tma_load_4d(a, &xmap, bar, 64 * (SKIP ? kb - kps : kb), j0, i0, n);
+  }
+  // The skip's K block kb, gathered: 16-byte chunk `chunk` of box row `row`
+  // holds channels k .. k + 7 (one slot: C % 8 == 0), zero outside the skip
+  // and past 4C, stored where TMA's 128-byte swizzle would put it.
+  __device__ void gather_a(int t, int kb, uint8_t* a, int tid,
+                           int nthreads) const {
+    if (!gathered(kb)) return;
+    int n, i0, j0;
+    origin(t, n, i0, j0);
+    const int w = tw + 1;
+    const uint32_t base = sm90::smem_u32(a);
+    for (int idx = tid; idx < (th + 1) * w * 8; idx += nthreads) {
+      const int row = idx >> 3, chunk = idx & 7;
+      const int k = 64 * kb + 8 * chunk;
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (k < c4) {
+        const int s = k / cs;
+        const int bi = row / w;
+        const int yy = oh + 2 * (i0 + bi) + (s >> 1);
+        const int xx = ow + 2 * (j0 + row - bi * w) + (s & 1);
+        if ((yy >> 1) < hpa && (xx >> 1) < wpa)
+          v = __ldg(reinterpret_cast<const uint4*>(
+              skip +
+              (((long long)n * hpa + (yy >> 1)) * wpa + (xx >> 1)) * c4 +
+              (2 * (yy & 1) + (xx & 1)) * cs + k - s * cs));
+      }
+      asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(
+                       base + row * 128 + ((chunk ^ (row & 7)) << 4)),
+                   "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+                   : "memory");
+    }
+  }
+  // the B rows of (K block, tap): 64 rows of w viewed as [4 * 4C, 4O], one
+  // box per 64 columns
+  __device__ void load_b(int kb, int tap, uint8_t* b, uint64_t* bar) const {
+    const bool skip_side = SKIP && kb < kps;
+    const CUtensorMap* m = skip_side ? &wsmap : &wmap;
+    const int row = tap * c4 + 64 * (SKIP && !skip_side ? kb - kps : kb);
+#pragma unroll
+    for (int j = 0; j < NB / 64; ++j)
+      sm90::tma_load_2d(b + j * sm90::kMnBox, m, bar, 64 * j, row);
+  }
 };
 
 template <int O4, int SKIP, int EPI>
@@ -397,32 +455,11 @@ inline int fwd_maps(CUtensorMap* xmap, CUtensorMap* wmap, const void* x,
 template <int O4, int SKIP, int EPI>
 int fwd_launch(FwdTiles<O4, SKIP, EPI>& p, int n, int ho, int wo, int c4,
                int th, int tw, cudaStream_t stream) {
-  using P = FwdTiles<O4, SKIP, EPI>;
-  if (th * (tw + 1) > P::BM) return (int)cudaErrorInvalidValue;
-  p.ho = ho;
-  p.wo = wo;
-  p.th = th;
-  p.tw = tw;
-  p.tiles_w = (wo + tw - 1) / tw;
-  p.tiles_hw = p.tiles_w * ((ho + th - 1) / th);
-  p.n_tiles = n * p.tiles_hw;
   p.c4 = c4;
   p.cs = c4 / 4;
   p.kps = (c4 + 63) / 64;
-  if constexpr (P::TMA_STORE) {  // y and the pool as [th, tw] boxes
-    const cuuint64_t ydims[4] = {(cuuint64_t)O4, (cuuint64_t)wo,
-                                 (cuuint64_t)ho, (cuuint64_t)n};
-    const cuuint32_t ybox[4] = {64, (cuuint32_t)tw, (cuuint32_t)th, 1};
-    int e = p.y ? sm90::make_map(&p.ymap, p.y, 4, ydims, ybox) : 0;
-    if (e == 0 && (EPI & kPool) != 0) {
-      const cuuint64_t pdims[4] = {(cuuint64_t)O4 / 4, (cuuint64_t)wo,
-                                   (cuuint64_t)ho, (cuuint64_t)n};
-      const cuuint32_t pbox[4] = {(cuuint32_t)O4 / 4, (cuuint32_t)tw,
-                                  (cuuint32_t)th, 1};
-      e = sm90::make_map(&p.pmap, p.pool, 4, pdims, pbox, false);
-    }
-    if (e != 0) return e;
-  }
+  const int e = p.plan(n, ho, wo, th, tw);
+  if (e != 0) return e;
   if constexpr (SKIP != 0)
     return sm90::launch(packed_conv2x2_dual_fwd_kernel<O4, SKIP, EPI>, p,
                         stream);

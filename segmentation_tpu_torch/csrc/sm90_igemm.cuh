@@ -3,9 +3,10 @@
 // persistent grid.
 //
 // The product is D[m, c] = sum over taps and K of A_tap[m, k] B_tap[k, c]:
-// four shifted views of one A operand against four weight slices (the
-// packed 2x2 conv's taps). A is loaded once per 64-channel K block, as a
-// halo region that holds every tap's view; B once per K block and tap.
+// P::TAPS shifted views of one A operand against as many weight slices
+// (the packed 2x2 conv's four taps; one for a product without taps). A is
+// loaded once per 64-channel K block, as a halo region that holds every
+// tap's view; B once per K block and tap.
 //
 // One block of three warpgroups runs on each SM and walks output tiles
 // blockIdx.x, blockIdx.x + gridDim.x, ...:
@@ -30,14 +31,17 @@
 // 64 K values, one per column) or MN-major (rows of 64 columns, one per K
 // value: sw128_mn_desc), as the weight lies in memory for the product. A
 // problem P supplies
-//   constexpr NB (columns), NI (wgmma N: 128 or 256), MI (m64 groups a
+//   constexpr TAPS (views of an A slot: 4, or 1),
+//             NB (columns), NI (wgmma N: 128 or 256), MI (m64 groups a
 //             consumer runs), BM (GEMM rows of a tile), SPLIT_N (true:
 //             both consumers take all BM = 64 rows and NI columns each;
 //             false: each takes 64 MI rows of all NI = NB columns),
 //             A_ROWS (rows of an A slot), A_STAGES, B_STAGES, B_MN (B is
 //             MN-major), GATHER (some A slots are gathered: see gather),
 //             PINGPONG (the consumers take alternate tiles of BM = 64 MI
-//             rows, so that one's epilogue overlaps the other's wgmma);
+//             rows, so that one's epilogue overlaps the other's wgmma),
+//             PRODUCER_REGS (the producer warpgroup's registers:
+//             kProducerRegs, more where its warps gather);
 //   n_tiles, tiles(), k_blocks()        the walk;
 //   a_tx(kb), load_a(tile, kb, a, bar)  an A slot's TMA bytes and loads;
 //   gather_a(tile, kb, a, thread, nthreads)  (GATHER) its plain loads;
@@ -64,8 +68,16 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 384;       // producer warpgroup + two consumers
 constexpr int kScratch = 2048;      // a consumer warp's epilogue scratch
-constexpr int kProducerRegs = 40;   // setmaxnreg: 128 x 40 + 256 x 232
-constexpr int kConsumerRegs = 232;  //             <= 65,536 registers
+constexpr int kProducerRegs = 40;   // a TMA producer warpgroup's registers
+// setmaxnreg moves registers within the block's launch allocation, 168 a
+// thread (65,536 / 384, a multiple of 8): the consumers' registers beside
+// a producer warpgroup of `producer` (P::PRODUCER_REGS) are those left,
+// 128 x producer + 256 x consumer <= 384 x 168 (40: 232). More, and the
+// consumers' setmaxnreg.inc waits forever.
+constexpr int kLaunchRegs = 65536 / kThreads / 8 * 8;
+__host__ __device__ constexpr int consumer_regs(int producer) {
+  return (kThreads * kLaunchRegs - 128 * producer) / 256 / 8 * 8;
+}
 constexpr int kSmemMax = 232448;    // dynamic shared memory of one block
 
 // How many stages of `stage` bytes fit beside `fixed` bytes, at most `most`.
@@ -100,18 +112,16 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A tensor map of a dense row-major bf16 tensor: dims innermost first,
-// boxes of `box` (box[0] = 64: one 128-byte swizzled row; or unswizzled),
-// zero fill outside the tensor, negative coordinates included (a store
-// writes only the box's part inside). Returns a cudaError_t.
-inline int make_map(CUtensorMap* map, const void* base, int rank,
-                    const cuuint64_t* dims, const cuuint32_t* box,
-                    bool swizzle = true) {
+// A tensor map of a bf16 tensor: dims innermost first, the byte strides of
+// dims 1.. (each a multiple of 16: TMA's rule), boxes of `box` (box[0] =
+// 64: one 128-byte swizzled row; or unswizzled), zero fill outside the
+// tensor, negative coordinates included (a store writes only the box's
+// part inside). Returns a cudaError_t.
+inline int make_map_strided(CUtensorMap* map, const void* base, int rank,
+                            const cuuint64_t* dims, const cuuint64_t* strides,
+                            const cuuint32_t* box, bool swizzle = true) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
-  cuuint64_t strides[4];
-  cuuint64_t s = sizeof(bf16);
-  for (int i = 0; i + 1 < rank; ++i) strides[i] = s *= dims[i];
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
   const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                          (cuuint32_t)rank, const_cast<void*>(base), dims,
@@ -121,6 +131,16 @@ inline int make_map(CUtensorMap* map, const void* base, int rank,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The same of a dense row-major bf16 tensor.
+inline int make_map(CUtensorMap* map, const void* base, int rank,
+                    const cuuint64_t* dims, const cuuint32_t* box,
+                    bool swizzle = true) {
+  cuuint64_t strides[4];
+  cuuint64_t s = sizeof(bf16);
+  for (int i = 0; i + 1 < rank; ++i) strides[i] = s *= dims[i];
+  return make_map_strided(map, base, rank, dims, strides, box, swizzle);
 }
 
 // ----------------------------------------------------------- device PTX
@@ -181,6 +201,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
       "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];" ::"r"(smem_u32(dst)),
+      "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4)
       : "memory");
 }
 
@@ -458,7 +489,7 @@ __device__ __forceinline__ void produce(const P& p, const Ring<P>& r) {
       mbar_expect_tx(r.a_full(a.stage), p.a_tx(kb));
       p.load_a(t, kb, r.a(a.stage), r.a_full(a.stage));
       a.next();
-      for (int tap = 0; tap < 4; ++tap) {
+      for (int tap = 0; tap < P::TAPS; ++tap) {
         mbar_wait(r.b_empty(b.stage), b.phase ^ 1);
         mbar_expect_tx(r.b_full(b.stage), Ring<P>::B_BYTES);
         p.load_b(kb, tap, r.b(b.stage), r.b_full(b.stage));
@@ -513,7 +544,7 @@ __device__ __forceinline__ void consume(const P& p, const Ring<P>& r,
     if (P::PINGPONG && (i & 1) != cg) {  // the other consumer's tile
       for (int kb = 0; kb < p.k_blocks(); ++kb) {
         a.next();
-        for (int tap = 0; tap < 4; ++tap) b.next();
+        for (int tap = 0; tap < P::TAPS; ++tap) b.next();
       }
       continue;
     }
@@ -523,7 +554,7 @@ __device__ __forceinline__ void consume(const P& p, const Ring<P>& r,
     if (P::PINGPONG && i > 0) mbar_wait(r.done(cg ^ 1), ((i - 1) >> 1) & 1);
     for (int kb = 0; kb < p.k_blocks(); ++kb) {
       mbar_wait(r.a_full(a.stage), a.phase);
-      for (int tap = 0; tap < 4; ++tap) {
+      for (int tap = 0; tap < P::TAPS; ++tap) {
         mbar_wait(r.b_full(b.stage), b.phase);
         const uint64_t da =
             sw128_desc(r.a(a.stage) + (p.a_row(tap) + a_row0) * 128);
@@ -544,7 +575,7 @@ __device__ __forceinline__ void consume(const P& p, const Ring<P>& r,
         wgmma_wait<1>();
         release();
         prev_b = b.stage;
-        prev_a = tap == 3 ? a.stage : -1;
+        prev_a = tap == P::TAPS - 1 ? a.stage : -1;
         b.next();
       }
       a.next();
@@ -590,7 +621,8 @@ __device__ __forceinline__ void run(const P& p) {
   }
   __syncthreads();
   if (threadIdx.x < 128) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(
+        P::PRODUCER_REGS));
     if (threadIdx.x == 0) {
       p.prefetch();
       produce(p, r);
@@ -598,7 +630,8 @@ __device__ __forceinline__ void run(const P& p) {
       if (threadIdx.x >= 32) gather(p, r);
     }
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+    constexpr int regs = consumer_regs(P::PRODUCER_REGS);
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(regs));
     consume(p, r, threadIdx.x / 128 - 1);
   }
 }

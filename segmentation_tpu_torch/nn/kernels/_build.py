@@ -8,9 +8,9 @@ minutes). The library lands in ``csrc/build/`` under a name keyed by a
 hash of the sources and flags, so an edited source never loads a stale
 build. Nothing is built or loaded at import time. The link needs no
 ``-lcuda``: the one driver-API call, ``cuTensorMapEncodeTiled`` (the TMA
-tensor maps of H1, H2 and H6, ``csrc/sm90_igemm.cuh``), is reached at run time through the
-runtime's ``cudaGetDriverEntryPoint``. The helpers at the end are the
-wrappers' shared checks and ctypes arguments.
+tensor maps of the kernels on ``csrc/sm90_igemm.cuh``), is reached at run
+time through the runtime's ``cudaGetDriverEntryPoint``. The helpers at the
+end are the wrappers' shared checks and ctypes arguments.
 """
 
 from __future__ import annotations
@@ -39,9 +39,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "seg_packed_conv2x2": [_P] * 8 + [_I] * 7 + [_P],
     "seg_packed_conv2x2_dual": [_P] * 6 + [_I] * 11 + [_P],
-    "seg_strided_conv4x4s2": [_P] * 4 + [_I] * 5 + [_P],
+    "seg_strided_conv4x4s2": [_P] * 4 + [_I] * 7 + [_P],
     "seg_strided_conv4x4s2_requant": [_P] * 5 + [_I] * 5 + [_P],
-    "seg_rows_matmul": [_P] * 4 + [_I] * 6 + [_P],
+    "seg_rows_matmul": [_P] * 4 + [_I] * 8 + [_P],
     "seg_packed_conv2x2_s8": [_P] * 9 + [_I] * 6 + [_F, _P],
     "seg_packed_conv2x2_dual_s8": [_P] * 9 + [_I] * 9 + [_F, _F, _P],
     "seg_strided_conv4x4s2_s8": [_P] * 5 + [_I] * 5 + [_F, _P],

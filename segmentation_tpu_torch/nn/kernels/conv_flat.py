@@ -17,10 +17,12 @@ They replace the Pallas kernels of segmentation_tpu/nn/pallas/conv_flat.py
 (padded-flat and paired-column layouts, which exist for the TPU's tiles);
 every kernel here reads and writes plain NHWC. Every op ends in bias +
 ReLU (every packed site of the forward does). Kernel operands: bf16
-activations and weights, f32 bias; every tensor contiguous. H1 and H2 run
-on the Hopper mainloop (csrc/packed_conv2x2_fwd.cuh): their operands are
-TMA sources, 16-byte aligned, and their output tiles are planned here by
-``tiles.tile_plan``.
+activations and weights, f32 bias; every tensor contiguous. All four run
+on the Hopper mainloop (csrc/sm90_igemm.cuh, with the output side of
+csrc/packed_conv2x2_fwd.cuh): their operands are TMA sources, 16-byte
+aligned (H3's x only where TMA boxes it, ``tiles.strided_boxable``; else
+the kernel gathers it), and their output tiles are planned here by
+``tiles.tile_plan`` (``_fwd_plan``).
 """
 
 from __future__ import annotations
@@ -43,7 +45,11 @@ from segmentation_tpu_torch.nn.kernels.conv_bwd import (
     packed_conv2x2_dgrad_dual_plain,
     packed_conv2x2_dgrad_plain,
 )
-from segmentation_tpu_torch.nn.kernels.tiles import aligned, tile_plan
+from segmentation_tpu_torch.nn.kernels.tiles import (
+    aligned,
+    strided_boxable,
+    tile_plan,
+)
 from segmentation_tpu_torch.nn.packing import crop_packed, unpack2
 
 NAMES = ("packed_conv2x2", "packed_conv2x2_dual", "strided_conv4x4s2",
@@ -113,10 +119,37 @@ def _o4_ok(o4, name):
         raise ValueError(f"{name}: 4O = {o4}; the kernel takes 128 or 256")
 
 
-# H1's and H2's output tile, its wgmma rows (FwdTiles::BM): at 4O = 128 a
-# consumer warpgroup takes a whole tile (two m64n128; the two take turns),
-# at 4O = 256 each takes 64 of its rows (m64n256)
+# H1–H4's output tile, its wgmma rows (FwdOut::BM): at 4O = 128 a consumer
+# warpgroup takes a whole tile (two m64n128; the two take turns), at 4O =
+# 256 each takes 64 of its rows (m64n256)
 FWD_TILE_ROWS = 128
+
+
+def _fwd_plan(n, ho, wo, o4, halo=1, step=1):
+    """The output tiles of a bf16 forward kernel: th · (tw + halo) GEMM
+    rows, halo 1 where four taps read one halo box, 0 where one tap reads
+    the tile (H4, H3 gathered); tw a multiple of ``step``. (``o4``: the
+    tile variants of profile_variants.py size the tiles by it.)"""
+    return tile_plan(n, ho, wo, FWD_TILE_ROWS, halo, step)
+
+
+def strided_plan(x, o4):
+    """H3's output tiles for x [N, H, W, C]: four taps over a halo box
+    where TMA boxes x (``strided_boxable``), one tap over the tile where
+    the kernel gathers it."""
+    n, h, w, _ = x.shape
+    return _fwd_plan(n, (h - 2) // 2, (w - 2) // 2, o4,
+                     halo=int(strided_boxable(x)))
+
+
+def rows_plan(x, o4, scatter):
+    """H4's output tiles: one tap over the tile; the scatter loads one box
+    per output row of a tile, each on a 1024-byte boundary of the A slot,
+    so its tw is a multiple of 8."""
+    n, h, w, _ = x.shape
+    if scatter:
+        return _fwd_plan(n, 2 * h, 2 * w, o4, halo=0, step=8)
+    return _fwd_plan(n, h, w, o4, halo=0)
 
 
 def packed_conv2x2(x, w2, b4, *, pool=False, head=None, head_only=False):
@@ -147,7 +180,7 @@ def packed_conv2x2(x, w2, b4, *, pool=False, head=None, head_only=False):
         mask = torch.empty(shp + (4,), dtype=torch.uint8, device=dev)
         aligned("packed_conv2x2", wd)
     aligned("packed_conv2x2", x, w2, b4)
-    plan = tile_plan(n, hp - 1, wp - 1, FWD_TILE_ROWS)
+    plan = _fwd_plan(n, hp - 1, wp - 1, o4)
     if not head_only:
         y = torch.empty(shp + (o4,), dtype=torch.bfloat16, device=dev)
     if pool:
@@ -191,7 +224,7 @@ def packed_conv2x2_dual(skip, up, w2a, w2b, b4, *, offset: Tuple[int, int]):
     _require(w2b, "w2b", torch.bfloat16, (2, 2, c4, o4), dev)
     _require(b4, "b4", torch.float32, (o4,), dev)
     aligned("packed_conv2x2_dual", skip, up, w2a, w2b, b4)
-    plan = tile_plan(n, hp - 1, wp - 1, FWD_TILE_ROWS)
+    plan = _fwd_plan(n, hp - 1, wp - 1, o4)
     y = torch.empty((n, hp - 1, wp - 1, o4), dtype=torch.bfloat16, device=dev)
     with torch.cuda.device(dev):
         err = _build.library().seg_packed_conv2x2_dual(
@@ -206,7 +239,10 @@ def packed_conv2x2_dual(skip, up, w2a, w2b, b4, *, offset: Tuple[int, int]):
 
 def strided_conv4x4s2(x, w4, b4):
     """H3: x [N,H,W,C] unpacked, w4 [4,4,C,4O] → packed
-    [N,(H-2)//2,(W-2)//2,4O]. Takes any C (C=3 at the entry)."""
+    [N,(H-2)//2,(W-2)//2,4O]. Takes any C (C=3 at the entry): where TMA
+    can box x's space-to-depth view (``strided_boxable``) the kernel reads
+    it as H1 reads x, four taps over one halo box; else it gathers each
+    output pixel's 4×4×C window as one row (one tap)."""
     if _on_cpu(x):
         return strided_conv4x4s2_plain(x, w4, b4)
     n, h, w, c = x.shape
@@ -218,11 +254,14 @@ def strided_conv4x4s2(x, w4, b4):
     _require(x, "x", torch.bfloat16, x.shape, dev)
     _require(w4, "w4", torch.bfloat16, (4, 4, c, o4), dev)
     _require(b4, "b4", torch.float32, (o4,), dev)
-    y = torch.empty((n, (h - 2) // 2, (w - 2) // 2, o4), dtype=torch.bfloat16,
-                    device=dev)
+    aligned("strided_conv4x4s2", w4, b4)
+    ho, wo = (h - 2) // 2, (w - 2) // 2
+    plan = strided_plan(x, o4)
+    y = torch.empty((n, ho, wo, o4), dtype=torch.bfloat16, device=dev)
     with torch.cuda.device(dev):
         err = _build.library().seg_strided_conv4x4s2(
-            _ptr(x), _ptr(w4), _ptr(b4), _ptr(y), n, h, w, c, o4, _stream(x),
+            _ptr(x), _ptr(w4), _ptr(b4), _ptr(y), n, h, w, c, o4, plan.th,
+            plan.tw, _stream(x),
         )
     _build.check(err, "strided_conv4x4s2")
     launches["strided_conv4x4s2"] += 1
@@ -246,11 +285,13 @@ def rows_matmul(x, wm, b4, *, scatter=False):
     _require(x, "x", torch.bfloat16, x.shape, dev)
     _require(wm, "wm", torch.bfloat16, (c, o4), dev)
     _require(b4, "b4", torch.float32, (o4,), dev)
+    aligned("rows_matmul", x, wm, b4)
+    plan = rows_plan(x, o4, scatter)
     y = torch.empty((n, ho, wo, o4), dtype=torch.bfloat16, device=dev)
     with torch.cuda.device(dev):
         err = _build.library().seg_rows_matmul(
             _ptr(x), _ptr(wm), _ptr(b4), _ptr(y), n, ho, wo, c, o4,
-            int(scatter), _stream(x),
+            int(scatter), plan.th, plan.tw, _stream(x),
         )
     _build.check(err, "rows_matmul")
     launches["rows_matmul"] += 1

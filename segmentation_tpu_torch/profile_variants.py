@@ -1,30 +1,40 @@
-"""Time source variants of the kernels on the Hopper mainloop (H1 and H2
-bf16, H6) in turns on one GPU.
+"""Time source variants of the kernels on the Hopper mainloop (the bf16
+forward of H1–H4, H6) in turns on one GPU.
 
     python -m segmentation_tpu_torch.profile_variants \
-        [--variants base,no_store,...] [--rounds 2] [--out FILE]
+        [--variants base,no_store,...] [--rounds 2] [--parent DIR] \
+        [--out FILE]
 
 Each variant is a copy of this package with named source patches
 (``VARIANTS``), made under ``csrc/build/variants/<name>/`` and built
-there by its own process (all at once). The copies then time the six
-2×2 sites of the 512² forward (B = 8, chip_smoke.py's phase-3 shapes)
+there by its own process (all at once). The copies then time the ten
+packed sites of the 512² forward (B = 8, chip_smoke.py's phase-3 shapes)
 and H6's six training sites, each the least of 3 runs of 20 launches by
 CUDA events, in turns: the variants in order, then in reverse, --rounds
 times. Before timing, each variant but the cut-outs (``CUTS``, which
 compute garbage) is held against the plain versions at the sites.
+``--parent DIR`` adds the variant ``parent``: the package of another
+checkout (DIR/segmentation_tpu_torch, unpatched, e.g. the parent commit
+unpacked by ``git archive``), timed by this file's sites and loop.
 
 The variants: ``base`` (the sources as they are); the cut-outs
-``no_store`` (H1/H2's epilogue stores nothing) and ``no_store_no_load``
-(nor does the producer load: wgmma on whatever the stages hold); the
-epilogue designs of H1/H2 that were measured against the one kept:
-``no_tma_store`` (4O = 128 stores y and the pool from registers,
-sm90::store_acc), ``no_pingpong`` (4O = 128 tiles of 256 rows split
-between the consumers, stores from registers), ``pingpong_all``
-(4O = 256 ping-pong too, tiles of 64 rows); and the ring's depth:
-``a_stages_3`` (three A slots, which leaves 4O = 256 three B stages) and
-``b_stages_8`` (up to eight B stages, but shared memory leaves four at
-both widths, so it builds base's kernels again: the spread between two
-builds of the same code).
+``no_store`` (the forward kernels' epilogue stores nothing: H1–H4) and
+``no_store_no_load`` (nor does the producer load: wgmma on whatever the
+stages hold; H1–H4 and H6, whose stores stay); the epilogue designs of
+the forward that were measured against the one kept: ``no_tma_store``
+(4O = 128 stores y and the pool from registers, sm90::store_acc),
+``no_pingpong`` (4O = 128 tiles of 256 rows split between the consumers,
+stores from registers), ``pingpong_all`` (4O = 256 ping-pong too, tiles
+of 64 rows); and the ring's depth: ``a_stages_3`` (three A slots, which
+leaves 4O = 256 three B stages) and ``b_stages_8`` (up to eight B
+stages, but shared memory leaves four at both widths, so it builds
+base's kernels again: the spread between two builds of the same code);
+and H3's gather: ``gather_regs_40`` (its producer warpgroup at the TMA
+producer's 40 registers a thread instead of 96, two tasks of 8 loads a
+pass), ``gather_tasks_2`` (two tasks a pass instead of four),
+``no_l2_prefetch`` (no L2 prefetch of the next tile's input rows) and the
+cut-out ``gather_no_load`` (the gather computes its addresses and stores
+them, loading nothing).
 """
 
 from __future__ import annotations
@@ -39,13 +49,14 @@ from typing import Dict, List, Tuple
 PKG = Path(__file__).resolve().parent
 FWD = "csrc/packed_conv2x2_fwd.cuh"
 SM90 = "csrc/sm90_igemm.cuh"
+STRIDED = "csrc/strided_conv4x4s2.cu"
 FLAT = "nn/kernels/conv_flat.py"
 
 # (file in the package, text, replacement, occurrences)
 Patch = Tuple[str, str, str, int]
 _PP = "  static constexpr bool PINGPONG = O4 == 128;"
 _BM = "  static constexpr int BM = 128;  // FWD_TILE_ROWS of conv_flat.py"
-_ROWS = "tile_plan(n, hp - 1, wp - 1, FWD_TILE_ROWS)"
+_ROWS = "tile_plan(n, ho, wo, FWD_TILE_ROWS, halo, step)"
 _NO_STORE: List[Patch] = [
     (FWD, "    if constexpr (TMA_STORE) {\n      // the staging is free",
      "    if (bias != nullptr) return;\n"
@@ -57,7 +68,8 @@ _NO_LOAD: List[Patch] = [
     (SM90, "        mbar_expect_tx(r.b_full(b.stage), Ring<P>::B_BYTES);\n"
            "        p.load_b(kb, tap, r.b(b.stage), r.b_full(b.stage));",
      "        mbar_expect_tx(r.b_full(b.stage), 0u);", 1)]
-CUTS = ("no_store", "no_store_no_load")
+CUTS = ("no_store", "no_store_no_load", "gather_no_load")
+PARENT = "parent"  # another checkout's package (--parent), unpatched
 VARIANTS: Dict[str, List[Patch]] = {
     "base": [],
     "no_store": _NO_STORE,
@@ -69,17 +81,31 @@ VARIANTS: Dict[str, List[Patch]] = {
         (FWD, _PP, _PP.replace("O4 == 128", "false"), 1),
         (FWD, _BM, "  static constexpr int BM = 128 * MI;", 1),
         (FLAT, _ROWS, _ROWS.replace("FWD_TILE_ROWS",
-                                    "{128: 256, 256: 128}[o4]"), 2)],
+                                    "{128: 256, 256: 128}[o4]"), 1)],
     "pingpong_all": [
         (FWD, _PP, _PP.replace("O4 == 128", "true"), 1),
         (FWD, _BM, "  static constexpr int BM = 64 * MI;", 1),
         (FLAT, _ROWS, _ROWS.replace("FWD_TILE_ROWS",
-                                    "{128: 128, 256: 64}[o4]"), 2)],
+                                    "{128: 128, 256: 64}[o4]"), 1)],
     "b_stages_8": [
-        (FWD, "      NB * 128, 4);", "      NB * 128, 8);", 1)],
+        (FWD, "        NB * 128, 4);", "        NB * 128, 8);", 1)],
     "a_stages_3": [
         (FWD, "  static constexpr int A_STAGES = 2;",
          "  static constexpr int A_STAGES = 3;", 1)],
+    "gather_regs_40": [
+        (STRIDED, "PRODUCER_REGS = BOX ? sm90::kProducerRegs : 96;",
+         "PRODUCER_REGS = BOX ? sm90::kProducerRegs : 40;", 1),
+        (STRIDED, "GATHER_TASKS = MODE == kHalves ? 2 : 4;",
+         "GATHER_TASKS = 2;", 1)],
+    "gather_tasks_2": [
+        (STRIDED, "GATHER_TASKS = MODE == kHalves ? 2 : 4;",
+         "GATHER_TASKS = 2;", 1)],
+    "gather_no_load": [
+        (STRIDED, "return __ldg(reinterpret_cast<const unsigned int*>(p));",
+         "return (uint32_t)(uintptr_t)p;", 1)],
+    "no_l2_prefetch": [
+        (STRIDED, "      if (kb == 0) prefetch_rows(t + gridDim.x, tid, "
+                  "nthreads);\n", "", 1)],
 }
 
 
@@ -96,20 +122,22 @@ def patched(name: str) -> Dict[str, str]:
     return out
 
 
-def make(name: str, work: Path) -> Path:
-    """Copy the package to work/<name>/ with the variant's patches; return
-    the directory to put first on sys.path."""
+def make(name: str, work: Path, source: Path = PKG) -> Path:
+    """Copy the package at ``source`` to work/<name>/ with the variant's
+    patches (none for ``parent``); return the directory to put first on
+    sys.path."""
     root = work / name
     shutil.rmtree(root, ignore_errors=True)
-    shutil.copytree(PKG, root / PKG.name,
+    shutil.copytree(source, root / PKG.name,
                     ignore=shutil.ignore_patterns("build", "__pycache__"))
-    for rel, text in patched(name).items():
-        (root / PKG.name / rel).write_text(text)
+    if name != PARENT:
+        for rel, text in patched(name).items():
+            (root / PKG.name / rel).write_text(text)
     return root
 
 
 def _sites(gen):
-    """(op, label, args, kwargs) at the 512² sites, B = 8: H1 and H2 as
+    """(op, label, args, kwargs) at the 512² sites, B = 8: H1–H4 as
     chip_smoke.py's phase 3, H6 as its phase 3c."""
     import torch
 
@@ -136,6 +164,15 @@ def _sites(gen):
     head = (wgt(128, 4), torch.randn((4,), generator=gen, device=dev))
     n = 8
     return [
+        ("strided_conv4x4s2", "conv1_1 C=3",
+         (act(n, 512, 512, 3), wgt(4, 4, 3, 128), bias(128)), {}),
+        ("strided_conv4x4s2", "conv2_1 C=32",
+         (act(n, 254, 254, 32), wgt(4, 4, 32, 256), bias(256)), {}),
+        ("rows_matmul", "upconv3 identity",
+         (act(n, 84, 84, 128), wgt(128, 256), bias(256)),
+         {"scatter": False}),
+        ("rows_matmul", "upconv4 scatter",
+         (act(n, 82, 82, 256), wgt(64, 128), bias(128)), {"scatter": True}),
         ("packed_conv2x2", "conv1_2 +pool",
          (act(n, 255, 255, 128), wgt(2, 2, 128, 128), bias(128)),
          {"pool": True}),
@@ -226,10 +263,14 @@ def run_variant(name: str, mode: str) -> None:
 
 
 def _spawn(root: Path, name: str, mode: str, timeout: float):
+    """run_variant of this file (not the copy's: a parent checkout has its
+    own) in a process that imports the package from the copy at root."""
     cmd = [sys.executable, "-c",
-           "import sys; sys.path.insert(0, sys.argv[1]); "
-           "from segmentation_tpu_torch.profile_variants import run_variant; "
-           "run_variant(sys.argv[2], sys.argv[3])", str(root), name, mode]
+           "import sys, importlib.util as u; sys.path.insert(0, sys.argv[1]); "
+           "s = u.spec_from_file_location('profile_variants_run', "
+           "sys.argv[4]); m = u.module_from_spec(s); s.loader.exec_module(m); "
+           "m.run_variant(sys.argv[2], sys.argv[3])", str(root), name, mode,
+           str(Path(__file__).resolve())]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True), timeout
 
@@ -248,15 +289,20 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--variants", default=",".join(VARIANTS))
     ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--parent", default=None,
+                    help="a checkout whose package is timed as 'parent'")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
+    names = args.variants.split(",")
+    if PARENT in names and not args.parent:
+        raise SystemExit("profile_variants: the variant parent needs --parent")
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_variants: needs an NVIDIA GPU")
-    names = args.variants.split(",")
     work = PKG / "csrc" / "build" / "variants"
-    roots = {n: make(n, work) for n in names}
+    source = {PARENT: Path(args.parent or ".") / PKG.name}
+    roots = {n: make(n, work, source.get(n, PKG)) for n in names}
     lines: List[str] = [subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True,

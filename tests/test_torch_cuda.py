@@ -154,19 +154,66 @@ def test_packed_conv2x2_fwd_is_deterministic(gen, op):
     assert all(torch.equal(a, b) for a, b in zip(first, second, strict=True))
 
 
-@pytest.mark.parametrize("c,o4", [(3, 128), (32, 256), (5, 256)])
-def test_strided_conv4x4s2_kernel(gen, c, o4):
-    args = (_act(gen, 2, 22, 19, c), _wgt(gen, 4, 4, c, o4), _bias(gen, o4))
+# H3's cases, x [N, H, W] at each C: even sides, odd H and W (the VALID
+# conv never reads the last row and column), a 4×4 input (one output
+# pixel), ragged tiles. C = 3 (the entry), 5, and 4 with odd W: TMA cannot
+# stride the space-to-depth view, the kernel gathers im2col rows (C = 5:
+# two K blocks); C = 4 with even W, 16 (a partial K block: 2C = 32 of 64),
+# 32 (conv2_1) and 64 (two blocks a row parity): boxed
+STRIDED = {"even": (2, 22, 20), "odd H/W": (2, 23, 19), "4x4": (1, 4, 4),
+           "ragged tiles": (1, 88, 130)}
+
+
+@pytest.mark.parametrize("o4", [128, 256])
+@pytest.mark.parametrize("c", [3, 4, 5, 16, 32, 64])
+@pytest.mark.parametrize("shape", list(STRIDED))
+def test_strided_conv4x4s2_kernel(gen, shape, c, o4):
+    args = (_act(gen, *STRIDED[shape], c), _wgt(gen, 4, 4, c, o4),
+            _bias(gen, o4))
     _check(cf.strided_conv4x4s2(*args), cf.strided_conv4x4s2_plain(*args))
 
 
+def test_strided_conv4x4s2_gathers_a_misaligned_x(gen):
+    """C = 32 off a 16-byte line: TMA cannot take x, the kernel gathers."""
+    x = _misaligned(_act(gen, 2, 22, 20, 32))
+    args = (x, _wgt(gen, 4, 4, 32, 256), _bias(gen, 256))
+    _check(cf.strided_conv4x4s2(*args), cf.strided_conv4x4s2_plain(*args))
+
+
+# H4's cases, x [N, h, w] (C channels; 4C for the scatter, whose output is
+# [N, 2h, 2w]): upconv3's shape cut down, ragged tiles, one pixel, N = 3
+ROWS = {"small": (2, 7, 9), "ragged tiles": (1, 43, 37),
+        "one pixel": (1, 1, 1), "N=3": (3, 10, 21)}
+
+
+@pytest.mark.parametrize("o4", [128, 256])
+@pytest.mark.parametrize("c", [64, 128, 256])
 @pytest.mark.parametrize("scatter", [False, True])
-def test_rows_matmul_kernel(gen, scatter):
-    c = 64 if scatter else 128
-    x = _act(gen, 2, 7, 9, 4 * c if scatter else c)
-    args = (x, _wgt(gen, c, 128), _bias(gen, 128))
+@pytest.mark.parametrize("shape", list(ROWS))
+def test_rows_matmul_kernel(gen, shape, scatter, c, o4):
+    x = _act(gen, *ROWS[shape], 4 * c if scatter else c)
+    args = (x, _wgt(gen, c, o4), _bias(gen, o4))
     _check(cf.rows_matmul(*args, scatter=scatter),
            cf.rows_matmul_plain(*args, scatter=scatter))
+
+
+@pytest.mark.parametrize("op", ["H3 boxed", "H3 gathered", "H4 identity",
+                                "H4 scatter"])
+def test_strided_rows_fwd_is_deterministic(gen, op):
+    """Two launches on the same inputs give the same bits (no atomics)."""
+    if op.startswith("H3"):
+        c = 32 if op == "H3 boxed" else 3
+        args = (_act(gen, 2, 60, 71, c), _wgt(gen, 4, 4, c, 128),
+                _bias(gen, 128))
+        kw, fn = {}, cf.strided_conv4x4s2
+    else:
+        scatter = op == "H4 scatter"
+        args = (_act(gen, 2, 23, 29, 256 if scatter else 128),
+                _wgt(gen, 64 if scatter else 128, 256), _bias(gen, 256))
+        kw, fn = {"scatter": scatter}, cf.rows_matmul
+    first, second = fn(*args, **kw), fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def _misaligned(t):
@@ -192,6 +239,37 @@ def test_wrapper_refuses_bad_operands(gen):
         cf.packed_conv2x2(_act(gen, 1, 1, 5, 128), w, b)
     with pytest.raises(ValueError, match="16-byte"):
         cf.packed_conv2x2(_misaligned(x), w, b)
+
+
+def test_strided_rows_wrappers_refuse_bad_operands(gen):
+    x, w4, b = _act(gen, 1, 10, 10, 32), _wgt(gen, 4, 4, 32, 128), \
+        _bias(gen, 128)
+    with pytest.raises(ValueError, match="128 or 256"):
+        cf.strided_conv4x4s2(x, _wgt(gen, 4, 4, 32, 64), _bias(gen, 64))
+    with pytest.raises(ValueError, match="< 4x4"):
+        cf.strided_conv4x4s2(_act(gen, 1, 3, 10, 32), w4, b)
+    with pytest.raises(TypeError):
+        cf.strided_conv4x4s2(x.float(), w4, b)
+    with pytest.raises(ValueError, match="shape"):
+        cf.strided_conv4x4s2(x, _wgt(gen, 4, 4, 16, 128), b)
+    with pytest.raises(ValueError, match="contiguous"):
+        cf.strided_conv4x4s2(x.transpose(1, 2), w4, b)
+    with pytest.raises(ValueError, match="16-byte"):
+        cf.strided_conv4x4s2(x, _misaligned(w4), b)
+    xr, wm = _act(gen, 1, 5, 5, 128), _wgt(gen, 128, 256)
+    b2 = _bias(gen, 256)
+    with pytest.raises(ValueError, match="128 or 256"):
+        cf.rows_matmul(xr, _wgt(gen, 128, 64), _bias(gen, 64))
+    with pytest.raises(ValueError, match="vs wm"):
+        cf.rows_matmul(xr, wm, b2, scatter=True)
+    with pytest.raises(ValueError, match="vs wm"):
+        cf.rows_matmul(_act(gen, 1, 5, 5, 12), _wgt(gen, 12, 256), b2)
+    with pytest.raises(TypeError):
+        cf.rows_matmul(xr.float(), wm, b2)
+    with pytest.raises(ValueError, match="contiguous"):
+        cf.rows_matmul(xr.transpose(1, 2), wm, b2)
+    with pytest.raises(ValueError, match="16-byte"):
+        cf.rows_matmul(_misaligned(xr), wm, b2)
 
 
 def test_dual_wrapper_refuses_bad_operands(gen):

@@ -21,6 +21,10 @@ from segmentation_tpu_torch import profile_serving as ps
     ("void segk::packed_conv2x2_dgrad_kernel<128, true>("
      "segk::DgradTiles<128, true>)", "H6 packed_conv2x2_dgrad"),
     ("void strided_conv4x4s2_kernel<true>(...)", "H3 strided_conv4x4s2"),
+    ("void segk::strided_conv4x4s2_fwd_kernel<128, false>("
+     "segk::StridedTiles<128, false>)", "H3 strided_conv4x4s2"),
+    ("void segk::rows_matmul_fwd_kernel<256, true>("
+     "segk::RowsTiles<256, true>)", "H4 rows_matmul"),
     ("void rows_matmul_s8_kernel(RowsLoader<s8>, ...)", "H4 rows_matmul"),
     ("void segk::(anonymous namespace)::crop_normalize_kernel<"
      "__nv_bfloat16>(unsigned char const*, ...)", "H7 crop_normalize"),
