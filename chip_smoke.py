@@ -28,7 +28,11 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                codes, the inline-quantize modes on bf16 operands, H1's
                pool at conv1_2 of the 4-D route), and the image entry's
                requant-only and s8-input modes (whose requant-only codes
-               through H1's pool must equal H5's outputs);
+               through H1's pool must equal H5's outputs); the lines of
+               H1's and H2's int8 modes (on the Hopper mainloop, s8 wgmma)
+               add the tile, the share of the bound and the share of the
+               packed form's s8 tensor peak (1979 TOP/s), and each mode's
+               sums follow;
   3c.        — the same for H6 (the packed-conv input grad), single and
                dual, at its six training sites, each line with the tile
                (th × tw) the wrapper's plan picked, the share of the bound
@@ -318,11 +322,13 @@ def _sites8(n, gen):
     """The int8 paths' kernel sites of one 512² forward, every mode:
     resident s8 activations (post-ReLU codes) or, for the inline-quantize
     modes, bf16 activations whose codes at ACT_SCALE reach past 127; s8
-    weights, and epilogue vectors that spread the requantized outputs over
-    the code range."""
+    weights (with the K-major copies H1 and H2 read, made once as the
+    model's plan makes them), and epilogue vectors that spread the
+    requantized outputs over the code range."""
     import torch
 
     from segmentation_tpu_torch.models.unet_fast import head_diff
+    from segmentation_tpu_torch.nn.kernels.conv_int8 import k_major
 
     dev = gen.device
 
@@ -348,6 +354,13 @@ def _sites8(n, gen):
         return (wq(2, 2, c4, o4), wq(2, 2, c4, o4), cs_a, cs_b,
                 torch.ones((o4,), device=dev), add)
 
+    def h1(args, kw):  # H1's int8 site: the K-major copy beside wq
+        return args, {**kw, "wk": k_major(args[1])}
+
+    def h2(args, kw):  # H2's: the copies of wqa, wqb
+        return args, {**kw, "wka": k_major(args[2]),
+                      "wkb": k_major(args[3])}
+
     x = torch.rand((n, 512, 512, 3), generator=gen, device=dev)
     w4 = torch.randn((4, 4, 3, 128), generator=gen, device=dev) / 48**0.5
     mul1 = torch.full((128,), 100.0, device=dev)  # conv1_1 acc std ~ 0.6
@@ -356,7 +369,7 @@ def _sites8(n, gen):
                        / 32**0.5, torch.randn((2,), generator=gen, device=dev))
     head = (wd.to(torch.bfloat16), bd)
     inline = {"act_scale": ACT_SCALE}
-    return [
+    sites = [
         ("entry_chain", "level 1 conv1_1+conv1_2+pool",
          (x.to(torch.bfloat16), w4.to(torch.bfloat16), mul1, add1,
           wq(2, 2, 128, 128), *vecs(128, 512)), {}),
@@ -412,6 +425,10 @@ def _sites8(n, gen):
           *vecs(128, 512, 1 / 20)),
          {"requant": False, "head": head, "head_only": True}),
     ]
+    return [(name, label, *(h2 if name.startswith("packed_conv2x2_dual")
+                            else h1 if name.startswith("packed_conv2x2")
+                            else lambda a, k: (a, k))(args, kw))
+            for name, label, args, kw in sites]
 
 
 def _entry_modes_agree(n, gen):
@@ -425,7 +442,8 @@ def _entry_modes_agree(n, gen):
     site = _sites8(n, gen)[0]
     x, w4, mul1, add1, wq2, mul2, add2 = site[2]
     codes = ci.conv3entry_requant(x, w4, mul1, add1)
-    two = ci.packed_conv2x2_s8(codes, wq2, mul2, add2, pool=True)
+    two = ci.packed_conv2x2_s8(codes, wq2, mul2, add2, pool=True,
+                               wk=ci.k_major(wq2))
     one = ci.entry_chain(x, w4, mul1, add1, wq2, mul2, add2)
     torch.cuda.synchronize()
     for g, w, what in zip(two, one, ("y", "pooled")):
@@ -610,8 +628,9 @@ def _library_call(name, args, kw):
 
 def _packed_gemm_ops(name, args):
     """The packed GEMM of a kernel on the Hopper mainloop at a site: 2 ·
-    output pixels · K · columns, 16/9 of the function's operations. H1: K
-    = 4 taps × 4C, 4O columns; H2: the same for each side; H3: K = 16C
+    output pixels · K · columns, 16/9 of the function's operations. H1
+    (every mode): K = 4 taps × 4C, 4O columns; H2: the same for each side;
+    H3: K = 16C
     (four taps × two row parities × 2C, or one im2col row), 4O columns;
     H4: K = C, 4O columns per output pixel (no zero taps); H6: K = 4 taps
     × 4O, 4C columns (8C for the dual) per dx pixel."""
@@ -626,7 +645,7 @@ def _packed_gemm_ops(name, args):
     if name == "rows_matmul":
         x, wm = args[:2]
         return 2 * (x.numel() // wm.shape[0]) * wm.shape[0] * wm.shape[1]
-    dual = name == "packed_conv2x2_dual"
+    dual = name.startswith("packed_conv2x2_dual")
     x, w = args[1 if dual else 0], args[3 if dual else 1]
     n, hp, wp, c4 = x.shape
     return 2 * n * (hp - 1) * (wp - 1) * 4 * c4 * w.shape[-1] * (1 + dual)
@@ -636,6 +655,7 @@ def _tile_plan_of(name, args, kw):
     """The tile plan the wrapper of a Hopper-mainloop kernel picks."""
     from segmentation_tpu_torch.nn.kernels import conv_bwd as cb
     from segmentation_tpu_torch.nn.kernels import conv_flat as cf
+    from segmentation_tpu_torch.nn.kernels import conv_int8 as ci
     from segmentation_tpu_torch.nn.kernels.tiles import tile_plan
 
     if name.startswith("packed_conv2x2_dgrad"):
@@ -647,24 +667,40 @@ def _tile_plan_of(name, args, kw):
         return cf.strided_plan(args[0], args[1].shape[-1])
     if name == "rows_matmul":
         return cf.rows_plan(args[0], args[1].shape[-1], kw.get("scatter"))
-    x = args[1] if name == "packed_conv2x2_dual" else args[0]
+    if name.startswith("packed_conv2x2_dual_s8"):
+        up, wqa = args[1], args[2]
+        n, hp, wp, _ = up.shape
+        return tile_plan(n, hp - 1, wp - 1,
+                         ci.dual_tile_rows(wqa.shape[-1]))
+    x = args[1] if name.startswith("packed_conv2x2_dual") else args[0]
     n, hp, wp, _ = x.shape
     return tile_plan(n, hp - 1, wp - 1, cf.FWD_TILE_ROWS)
 
 
-# the bf16 kernels on csrc/sm90_igemm.cuh (TMA or gathered A, wgmma)
+# the kernels on csrc/sm90_igemm.cuh (TMA or gathered A, wgmma): the bf16
+# modes of H1–H4, H6, and the int8 modes of H1 and H2
+SM90_S8 = ("packed_conv2x2_s8", "packed_conv2x2_s8_pool",
+           "packed_conv2x2_s8_inline", "packed_conv2x2_dual_s8",
+           "packed_conv2x2_dual_s8_inline")
 SM90 = ("packed_conv2x2", "packed_conv2x2_dual", "strided_conv4x4s2",
-        "rows_matmul", "packed_conv2x2_dgrad", "packed_conv2x2_dgrad_dual")
+        "rows_matmul", "packed_conv2x2_dgrad",
+        "packed_conv2x2_dgrad_dual") + SM90_S8
+
+
+def _peak_kind(name):
+    """The tensor peak a Hopper-mainloop kernel's packed GEMM runs at."""
+    return "s8" if name in SM90_S8 else "bf16"
 
 
 def _tile_note(name, args, kw, ms, bound):
     """A Hopper-mainloop kernel's extra words on a site's time line: the
     tile the wrapper's plan picked, the share of the bound, the share of
-    the packed tensor peak."""
+    the packed tensor peak (s8's for the int8 modes)."""
     plan = _tile_plan_of(name, args, kw)
-    peak = _packed_gemm_ops(name, args) / PEAK_OPS_S["bf16"] * 1e3
+    kind = _peak_kind(name)
+    peak = _packed_gemm_ops(name, args) / PEAK_OPS_S[kind] * 1e3
     return (f"; tile {plan.th}x{plan.tw}, {bound / ms:.3f} of the bound, "
-            f"{peak / ms:.3f} of the packed tensor peak")
+            f"{peak / ms:.3f} of the packed {kind} tensor peak")
 
 
 def _kernel_phase(mod, sites):
@@ -1375,12 +1411,15 @@ def main() -> None:
             table.update(part)
     worst, ms, plain_ms, bound, bound_by, library_ms, packed = tables
     for k in SM90:
+        lib = "none" if library_ms[k] is None else f"{library_ms[k]:.4f} ms"
+        kind = _peak_kind(k)
         print(f"[kernels] {k} B={B_SERVE} over its sites: {ms[k]:.4f} ms, "
-              f"plain {plain_ms[k]:.4f} ms, library {library_ms[k]:.4f} ms, "
+              f"plain {plain_ms[k]:.4f} ms, library {lib}, "
               f"bound {bound[k]:.4f} ms ({bound[k] / ms[k]:.3f} of it "
-              f"reached), packed GEMM {packed[k] / 1e9:.1f} GFLOP "
-              f"({packed[k] / PEAK_OPS_S['bf16'] * 1e3 / ms[k]:.3f} of the "
-              f"tensor peak)")
+              f"reached), packed GEMM {packed[k] / 1e9:.1f} G"
+              f"{'OP' if kind == 's8' else 'FLOP'} "
+              f"({packed[k] / PEAK_OPS_S[kind] * 1e3 / ms[k]:.3f} of the "
+              f"{kind} tensor peak)")
     exact = _entry_modes_agree(B_SERVE, generator(99, "cuda"))
     print(f"[kernels] B={B_SERVE} H5 against conv3entry_requant + H1 pool: "
           f"{'equal code for code' if exact else 'within one code'}")

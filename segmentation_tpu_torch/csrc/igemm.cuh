@@ -8,15 +8,17 @@
 // scatter). The kernels differ only in their Loader and epilogue.
 //
 // Two element types share the core: bf16 x bf16 -> f32 (H3's requant-only
-// entry mode) and s8 x s8 -> s32 (the int8 modes of H1-H5). The bf16 modes
-// of H1-H4 run on the Hopper mainloop (sm90_igemm.cuh). K advances in
+// entry mode) and s8 x s8 -> s32 (the int8 modes of H3-H5). The bf16 modes
+// of H1-H4 and the int8 modes of H1 and H2 run on the Hopper mainloop
+// (sm90_igemm.cuh), which takes this file's quantize (quant16) and int8
+// epilogue (affine_relu, finish) as they are. K advances in
 // 64-byte chunks (32 bf16 or 64 s8 values); a Loader returns 16 bytes of
 // one pixel's row of A (8 bf16 or 16 s8), so the loaders' address rules do
 // not depend on the element width.
 //
 // Design, first version: one 256-thread block computes BM pixels x all BN
-// (= 4O, 128 or 256) output channels, so the slot-max pool and the mask
-// head see whole pixels inside the block. Each thread prefetches its next
+// (= 4O, 128 or 256) output channels, so the slot-max pool sees whole
+// pixels inside the block. Each thread prefetches its next
 // A/B chunk into registers (16-byte loads) while the warps run WMMA
 // 16x16x16 products on the current chunk in shared memory. The accumulator
 // tile is then staged in shared memory for the epilogue. No wgmma/TMA yet.
@@ -100,11 +102,6 @@ using AccFrag = wmma::fragment<wmma::accumulator, 16, 16, 16,
 
 __device__ __forceinline__ uint4 zero4() { return make_uint4(0u, 0u, 0u, 0u); }
 
-__device__ __forceinline__ unsigned pack2bf(float a, float b) {
-  return (unsigned)__bfloat16_as_ushort(__float2bfloat16(a)) |
-         ((unsigned)__bfloat16_as_ushort(__float2bfloat16(b)) << 16);
-}
-
 __device__ __forceinline__ float bf_round(float a) {
   return __bfloat162float(__float2bfloat16(a));
 }
@@ -129,16 +126,23 @@ __device__ __forceinline__ Pix decode(long long m, int ho, int wo) {
 // q = clip(round_half_even(f32(x) * inv), -127, 127), inv = f32(1 /
 // act_scale) as the host computed it (a multiply, not a division: the two
 // differ on some inputs). 16 bf16 values (two 16-byte loads) become the 16
-// codes of one s8 column block.
+// codes of one s8 column block. The clip goes first (the rounding is
+// monotone and +-127 are integers), then the rounding: adding 1.5 * 2^23
+// rounds the f32 sum to the nearest integer, ties to even, as
+// __float2int_rn does, and leaves the code in its low byte (an add, where
+// the conversion runs at a fraction of the add's rate).
+__device__ __forceinline__ unsigned quant_byte(bf16 x, float inv) {
+  const float t =
+      fminf(fmaxf(__fmul_rn(__bfloat162float(x), inv), -127.0f), 127.0f);
+  return __float_as_uint(__fadd_rn(t, 12582912.0f));
+}
+
 __device__ __forceinline__ unsigned quant4(const bf16* v, float inv) {
-  unsigned w = 0;
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    int q = __float2int_rn(__fmul_rn(__bfloat162float(v[t]), inv));
-    q = min(max(q, -127), 127);
-    w |= ((unsigned)q & 0xffu) << (8 * t);
-  }
-  return w;
+  const unsigned lo = __byte_perm(quant_byte(v[0], inv),
+                                  quant_byte(v[1], inv), 0x0040);
+  const unsigned hi = __byte_perm(quant_byte(v[2], inv),
+                                  quant_byte(v[3], inv), 0x0040);
+  return __byte_perm(lo, hi, 0x5410);
 }
 
 __device__ __forceinline__ uint4 quant16(uint4 lo, uint4 hi, float inv) {
@@ -306,16 +310,7 @@ struct Linear {
   }
 };
 
-// Eight finished values (already rounded to the element type) to memory.
-__device__ __forceinline__ void store8(bf16* p, const float v[8]) {
-  uint4 u;
-  u.x = pack2bf(v[0], v[1]);
-  u.y = pack2bf(v[2], v[3]);
-  u.z = pack2bf(v[4], v[5]);
-  u.w = pack2bf(v[6], v[7]);
-  *reinterpret_cast<uint4*>(p) = u;
-}
-
+// Eight finished s8 values (integers in f32) to memory.
 __device__ __forceinline__ unsigned pack4s8(const float* v) {
   return ((unsigned)(int)v[0] & 0xffu) | (((unsigned)(int)v[1] & 0xffu) << 8) |
          (((unsigned)(int)v[2] & 0xffu) << 16) |
@@ -392,27 +387,6 @@ __device__ __forceinline__ void epilogue_pool(const float* Cs,
       v[t] = fmaxf(fmaxf(crow[t], crow[O + t]),
                    fmaxf(crow[2 * O + t], crow[3 * O + t]));
     store8(pool + m * O + c, v);
-  }
-}
-
-// Binary mask head: mask[m, t] = (sum_o y[m, o] * wd[o, t] + bd[t] > 0).
-template <int BN, class Rows>
-__device__ __forceinline__ void epilogue_head(const float* Cs,
-                                              const bf16* __restrict__ wd,
-                                              const float* __restrict__ bd,
-                                              uint8_t* __restrict__ mask,
-                                              const Rows& rows) {
-  constexpr int LDC = BN + 4;
-  for (int idx = threadIdx.x; idx < TileCfg<BN>::BM * 4; idx += kThreads) {
-    const int r = idx >> 2;
-    const int t = idx & 3;
-    const long long m = rows(r);
-    if (m < 0) continue;
-    const float* crow = Cs + r * LDC;
-    float s = 0.0f;
-    for (int o = 0; o < BN; ++o)
-      s += crow[o] * __bfloat162float(wd[o * 4 + t]);
-    mask[m * 4 + t] = (s + bd[t] > 0.0f) ? 1 : 0;
   }
 }
 

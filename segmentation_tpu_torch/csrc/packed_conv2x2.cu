@@ -1,12 +1,14 @@
 // H1 packed_conv2x2: 2x2 VALID conv over a packed (space-to-depth) tensor,
-// [N, hp, wp, 4C] -> [N, hp-1, wp-1, 4O].
-//   bf16: bf16 x and w, + f32 bias, ReLU, bf16 store, on the Hopper
-//         mainloop (packed_conv2x2_fwd.cuh: TMA halo boxes, wgmma,
-//         warp-specialised, persistent);
-//   s8:   s8 x and w (s32 accumulation), the int8 epilogue
-//         relu(acc * mul + add), stored requantized to s8 or as bf16;
-//         x is s8 codes, or bf16 quantized as it loads (act_inv, the
-//         inline-quantize mode: igemm.cuh QuantLoader), on the WMMA core.
+// [N, hp, wp, 4C] -> [N, hp-1, wp-1, 4O], on the Hopper mainloop
+// (packed_conv2x2_fwd.cuh: TMA halo boxes, wgmma, warp-specialised,
+// persistent):
+//   bf16: bf16 x and w, + f32 bias, ReLU, bf16 store;
+//   s8:   s8 x and the K-major copy of w (s8 wgmma, s32 accumulation), the
+//         int8 epilogue relu(acc * mul + add), stored requantized to s8 or
+//         as bf16; x is s8 codes (TMA boxes of 128 channels), or bf16
+//         gathered by the producer warpgroup's idle warps and quantized as
+//         they store it (act_inv, the inline-quantize mode: QuantLoader's
+//         rule, once per K block).
 // Options: the fused 2x2/2 max pool (slot-max, [N, hp-1, wp-1, O], in the
 // output's type) and the fused binary mask head (u8 [N, hp-1, wp-1, 4],
 // on the stored bf16 value) with or without the store.
@@ -26,90 +28,64 @@
 // epilogue, so that neither the pre-pool activation nor the last decoder
 // activation takes a second pass over device memory, and stores y as rows
 // of 128 contiguous bytes.
-#include "igemm.cuh"
 #include "packed_conv2x2_fwd.cuh"
 
 namespace segk {
 
-template <class T>
-struct Conv2x2Loader {
-  const T* x;
-  int hp, wp, c4, ho, wo;
-  struct Row {
-    const T* p;
-    bool ok;
-  };
-  __device__ __forceinline__ Row row(long long m, bool ok) const {
-    Row r;
-    r.ok = ok;
-    r.p = x;
-    if (ok) {
-      const Pix q = decode(m, ho, wo);
-      r.p = x + ((q.n * hp + q.i) * (long long)wp + q.j) * c4;
-    }
-    return r;
-  }
-  __device__ __forceinline__ uint4 load(const Row& r, int k) const {
-    const int tap = k / c4;  // (u, v) = (tap >> 1, tap & 1)
-    const int c = k - tap * c4;
-    return *reinterpret_cast<const uint4*>(
-        r.p + ((long long)(tap >> 1) * wp + (tap & 1)) * c4 + c);
-  }
+// The int8 problem's operands, as the C entry takes them.
+struct Conv2x2S8 {
+  const void *x, *wk, *mul, *add;
+  void *y, *pool;
+  const void *wd, *bd;
+  void* mask;
+  int n, hp, wp, c4, th, tw;
+  float act_inv;
+  cudaStream_t stream;
 };
 
-// Out = s8: requantizing site; Out = bf16: float site (the mask head's).
-// Loader: Conv2x2Loader<s8>, or QuantLoader over Conv2x2Loader<bf16>.
-template <int BN, class Out, class Loader>
-__global__ void __launch_bounds__(kThreads)
-    packed_conv2x2_s8_kernel(Loader ld, int K, const s8* __restrict__ w,
-                             const float* __restrict__ mul,
-                             const float* __restrict__ add,
-                             Out* __restrict__ y, Out* __restrict__ pool,
-                             const bf16* __restrict__ wd,
-                             const float* __restrict__ bd,
-                             uint8_t* __restrict__ mask, long long M) {
-  extern __shared__ __align__(128) unsigned char seg_smem[];
-  const long long m0 = (long long)blockIdx.x * TileCfg<BN>::BM;
-  int* Cs = igemm_tile<BN, s8>(ld, w, K, m0, M, seg_smem);
-  const bool keep = pool != nullptr || mask != nullptr;
-  const Linear rows{m0, M};
-  epilogue_affine<BN, Out>(Cs, mul, add, y, keep, rows);
-  if (keep) {
-    __syncthreads();
-    const float* Cf = reinterpret_cast<const float*>(Cs);
-    if (pool != nullptr) epilogue_pool<BN>(Cf, pool, rows);
-    if (mask != nullptr) epilogue_head<BN>(Cf, wd, bd, mask, rows);
+// One int8 mode: EPI (kPool, kHead, kRequant; kInt8 added here); GATHER:
+// x is bf16, gathered and quantized inline.
+template <int O4, int EPI, bool GATHER>
+int conv2x2_s8(const Conv2x2S8& a) {
+  FwdTiles<O4, false, EPI | kInt8, GATHER> p{};
+  const int e = fwd_maps_s8(&p.xmap, &p.wmap, GATHER ? nullptr : a.x, a.wk,
+                            a.n, a.hp, a.wp, a.c4, O4, a.th, a.tw);
+  if (e != 0) return e;
+  using OutT = typename FwdTiles<O4, false, EPI | kInt8, GATHER>::OutT;
+  p.mul = (const float*)a.mul;
+  p.add = (const float*)a.add;
+  p.y = (OutT*)a.y;
+  p.pool = (OutT*)a.pool;
+  p.wd = (const bf16*)a.wd;
+  p.bd = (const float*)a.bd;
+  p.mask = (uint8_t*)a.mask;
+  p.xs = (const uint8_t*)a.x;
+  p.gb = GATHER;
+  p.inv_b = a.act_inv;
+  p.hx = a.hp;
+  p.wx = a.wp;
+  return fwd_launch(p, a.n, a.hp - 1, a.wp - 1, a.c4, a.th, a.tw, a.stream);
+}
+
+template <int O4, int EPI>
+int conv2x2_s8_src(const Conv2x2S8& a) {
+  return a.act_inv > 0.0f ? conv2x2_s8<O4, EPI, true>(a)
+                          : conv2x2_s8<O4, EPI, false>(a);
+}
+
+template <int O4>
+int conv2x2_s8_modes(const Conv2x2S8& a, bool requant) {
+  const int epi =
+      (a.pool != nullptr ? kPool : 0) | (a.mask != nullptr ? kHead : 0);
+  if (requant)
+    return epi == kPool ? conv2x2_s8_src<O4, kRequant | kPool>(a)
+                        : conv2x2_s8_src<O4, kRequant>(a);
+  switch (epi) {
+    case 0: return conv2x2_s8_src<O4, 0>(a);
+    case kPool: return conv2x2_s8_src<O4, kPool>(a);
+    case kHead: return conv2x2_s8_src<O4, kHead>(a);
+    default: return conv2x2_s8_src<O4, kPool | kHead>(a);
   }
-}
-
-template <int BN, class Out, class Loader>
-int run_conv2x2_s8(const Loader& ld, int K, const void* w, const void* mul,
-                   const void* add, void* y, void* pool, const void* wd,
-                   const void* bd, void* mask, long long M,
-                   cudaStream_t stream) {
-  return launch<BN, s8>(packed_conv2x2_s8_kernel<BN, Out, Loader>, M, stream,
-                        0, ld, K, (const s8*)w, (const float*)mul,
-                        (const float*)add, (Out*)y, (Out*)pool,
-                        (const bf16*)wd, (const float*)bd, (uint8_t*)mask,
-                        M);
-}
-
-template <class Loader>
-int conv2x2_s8_modes(const Loader& ld, int K, int o4, int requant,
-                     const void* w, const void* mul, const void* add,
-                     void* y, void* pool, const void* wd, const void* bd,
-                     void* mask, long long M, cudaStream_t s) {
-  if (o4 == 128)
-    return requant ? run_conv2x2_s8<128, s8>(ld, K, w, mul, add, y, pool, wd,
-                                             bd, mask, M, s)
-                   : run_conv2x2_s8<128, bf16>(ld, K, w, mul, add, y, pool,
-                                               wd, bd, mask, M, s);
-  if (o4 == 256)
-    return requant ? run_conv2x2_s8<256, s8>(ld, K, w, mul, add, y, pool, wd,
-                                             bd, mask, M, s)
-                   : run_conv2x2_s8<256, bf16>(ld, K, w, mul, add, y, pool,
-                                               wd, bd, mask, M, s);
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace segk
@@ -143,48 +119,46 @@ extern "C" int seg_packed_conv2x2(const void* x, const void* w,
   const int epi = (pool != nullptr ? kPool : 0) | (mask != nullptr ? kHead : 0);
   if (o4 == 128) {
     switch (epi) {
-      case 0: { FwdTiles<128, 0, 0> p{}; return run(p); }
-      case kPool: { FwdTiles<128, 0, kPool> p{}; return run(p); }
-      case kHead: { FwdTiles<128, 0, kHead> p{}; return run(p); }
-      default: { FwdTiles<128, 0, kPool | kHead> p{}; return run(p); }
+      case 0: { FwdTiles<128, false, 0> p{}; return run(p); }
+      case kPool: { FwdTiles<128, false, kPool> p{}; return run(p); }
+      case kHead: { FwdTiles<128, false, kHead> p{}; return run(p); }
+      default: { FwdTiles<128, false, kPool | kHead> p{}; return run(p); }
     }
   }
   if (o4 == 256) {
     switch (epi) {
-      case 0: { FwdTiles<256, 0, 0> p{}; return run(p); }
-      case kPool: { FwdTiles<256, 0, kPool> p{}; return run(p); }
-      case kHead: { FwdTiles<256, 0, kHead> p{}; return run(p); }
-      default: { FwdTiles<256, 0, kPool | kHead> p{}; return run(p); }
+      case 0: { FwdTiles<256, false, 0> p{}; return run(p); }
+      case kPool: { FwdTiles<256, false, kPool> p{}; return run(p); }
+      case kHead: { FwdTiles<256, false, kHead> p{}; return run(p); }
+      default: { FwdTiles<256, false, kPool | kHead> p{}; return run(p); }
     }
   }
   return (int)cudaErrorInvalidValue;
 }
 
 // The int8 mode: x [n, hp, wp, c4] (c4 % 16 == 0), s8 codes when act_inv
-// is 0, else bf16 quantized on load at act_inv = f32(1 / act_scale);
-// w [4*c4, o4] s8; mul, add [o4] f32; y and pool s8 (requant != 0) or
-// bf16, or null; the head as above (needs requant == 0).
-extern "C" int seg_packed_conv2x2_s8(const void* x, const void* w,
+// is 0, else bf16 quantized as it is gathered, at act_inv = f32(1 /
+// act_scale); wk [o4, 4*c4] s8, the K-major copy of the weight [2, 2, c4,
+// o4] (conv_int8.k_major); mul, add [o4] f32; y and pool s8 (requant != 0)
+// or bf16, or null; the head as above (needs requant == 0); (th, tw) the
+// output tile as above. Every pointer 16-byte aligned.
+extern "C" int seg_packed_conv2x2_s8(const void* x, const void* wk,
                                      const void* mul, const void* add,
                                      void* y, void* pool, const void* wd,
                                      const void* bd, void* mask, int n,
                                      int hp, int wp, int c4, int o4,
-                                     int requant, float act_inv,
-                                     void* stream) {
+                                     int requant, float act_inv, int th,
+                                     int tw, void* stream) {
   using namespace segk;
-  const long long M = (long long)n * (hp - 1) * (wp - 1);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (c4 % 16 || (requant && mask != nullptr))
+  if (c4 < 16 || c4 % 16 || n < 1 || hp < 2 || wp < 2 || th < 1 || tw < 1 ||
+      th > 255 || tw > 255 || (requant && mask != nullptr))
     return (int)cudaErrorInvalidValue;
-  if (act_inv > 0.0f) {
-    const QuantLoader<Conv2x2Loader<bf16>> ld{
-        {(const bf16*)x, hp, wp, c4, hp - 1, wp - 1}, act_inv};
-    return conv2x2_s8_modes(ld, 4 * c4, o4, requant, w, mul, add, y, pool,
-                            wd, bd, mask, M, s);
-  }
-  const Conv2x2Loader<s8> ld{(const s8*)x, hp, wp, c4, hp - 1, wp - 1};
-  return conv2x2_s8_modes(ld, 4 * c4, o4, requant, w, mul, add, y, pool, wd,
-                          bd, mask, M, s);
+  const Conv2x2S8 a{x,  wk, mul, add, y,  pool,    wd,
+                    bd, mask, n, hp, wp, c4, th, tw, act_inv,
+                    (cudaStream_t)stream};
+  if (o4 == 128) return conv2x2_s8_modes<128>(a, requant != 0);
+  if (o4 == 256) return conv2x2_s8_modes<256>(a, requant != 0);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* seg_error_string(int err) {

@@ -67,7 +67,8 @@ struct DgradTiles {
   static constexpr int A_STAGES = 2;
   static constexpr int B_STAGES = sm90::stages_that_fit(
       1024 + 8 * sm90::kScratch + 128 + A_STAGES * A_ROWS * 128, NB * 128, 4);
-  static constexpr int TAPS = 4;
+  static constexpr int TAPS = 4, SIDES = 1;
+  using Acc = float;
   static constexpr int PRODUCER_REGS = sm90::kProducerRegs;
   static constexpr bool B_MN = false, GATHER = false, PINGPONG = false;
   static constexpr int STAGE_BYTES = 0;

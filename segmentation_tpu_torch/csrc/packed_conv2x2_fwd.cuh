@@ -1,15 +1,20 @@
-// The bf16 forward of the packed 2x2 convs (H1 packed_conv2x2, H2
-// packed_conv2x2_dual) as a problem of the Hopper mainloop sm90_igemm.cuh,
-// and the output side (FwdOut: the tile walk and the epilogue) that it
-// shares with the bf16 problems of H3 (strided_conv4x4s2.cu) and H4
-// (rows_matmul.cu).
+// The forward of the packed 2x2 convs (H1 packed_conv2x2, H2
+// packed_conv2x2_dual), bf16 and int8, as a problem of the Hopper mainloop
+// sm90_igemm.cuh, and the output side (FwdOut: the tile walk and the
+// epilogue) that it shares with the bf16 problems of H3
+// (strided_conv4x4s2.cu) and H4 (rows_matmul.cu).
 //
 //   y[n, i, j, :] = relu(bias + sum over taps (u, v) and sides of
 //                        x_side[n, i + u, j + v, :] w_side[u, v])
 //
 // H1 has one side, x. H2 has two: the center crop of the skip at the
 // unpacked offset (oh, ow) against wa, then up against wb; one f32
-// accumulator holds both.
+// accumulator holds both. The int8 modes (kInt8) multiply s8 codes in s32
+// and end in the int8 epilogue relu(acc * mul + add) (igemm.cuh
+// affine_relu; kRequant: requantized to s8, else bf16); H2's sides are
+// quantized at different scales, so each has its own s32 accumulator
+// (kTwoAcc), mixed in f32 as acc_a * cs_a + acc_b * cs_b before the
+// epilogue.
 //
 // Design:
 //  - Output tiles are th x tw pixel rectangles of one image (the wrapper's
@@ -18,78 +23,105 @@
 //    junk column per image row, so that every tap's A operand is one halo
 //    box shifted by whole rows; HALO = 0 where one tap reads the tile
 //    itself (H4, H3's gathered entry).
-//  - A, per 64-channel K block: the 4-D TMA box [1, th + 1, W, 64] of the
-//    side's tensor at (n, i0, j0, k0). Pixel (a, b) of tap (u, v) reads box
-//    row (a + u) W + (b + v) = m + u W + v. TMA fills zeros outside the
-//    tensor: channels past 4C (a partial K block) and the junk rows' reads
-//    past the image. The skip: output slot (d, e) of pixel (i, j) reads the
-//    skip at unpacked (oh + 2 i + d, ow + 2 j + e), i.e. packed pixel
-//    ((oh + d) / 2 + i, (ow + e) / 2 + j), slot ((oh + d) % 2, (ow + e) % 2)
-//    (the floor division; the crop gathers nothing when oh, ow are even).
-//    Even offsets: the box at (n, oh / 2 + i0, ow / 2 + j0, k0). C a
-//    multiple of 64: each K block lies in one output slot, so it is one box
-//    at that slot's origin and source channel. Odd offsets with C % 64 != 0
-//    (C = 32: one K block holds two slots of different origins): the three
-//    idle warps of the producer warpgroup gather the block with 16-byte
-//    loads (sm90_igemm.cuh gather), zero outside the skip.
-//  - B is the packed weight itself, MN-major: w [2, 2, 4C, 4O] viewed as
+//  - A, per K block of 128 bytes (64 bf16 or 128 s8 channels): the 4-D TMA
+//    box [1, th + 1, W, 128 bytes] of the side's tensor at (n, i0, j0, k0).
+//    Pixel (a, b) of tap (u, v) reads box row (a + u) W + (b + v) = m + u W
+//    + v. TMA fills zeros outside the tensor: channels past 4C (a partial K
+//    block) and the junk rows' reads past the image. The skip: output slot
+//    (d, e) of pixel (i, j) reads the skip at unpacked (oh + 2 i + d, ow +
+//    2 j + e), i.e. packed pixel ((oh + d) / 2 + i, (ow + e) / 2 + j), slot
+//    ((oh + d) % 2, (ow + e) % 2) (the floor division; the crop gathers
+//    nothing when oh, ow are even). Even offsets: the box at (n, oh / 2 +
+//    i0, ow / 2 + j0, k0). bf16 with C a multiple of 64: each K block lies
+//    in one output slot, so it is one box at that slot's origin and source
+//    channel. Other odd offsets (one K block holds slots of different
+//    origins: bf16 C = 32, s8 C = 32 and 64): the three idle warps of the
+//    producer warpgroup gather the block with 16-byte loads (sm90_igemm.cuh
+//    gather), zero outside the skip.
+//  - The inline-quantize modes (int8, a side in bf16 with its inverse
+//    scale): the same warps gather the side's K blocks, 16 channels at a
+//    time (two 16-byte loads), quantize them by QuantLoader's rule
+//    (igemm.cuh quant16) once per K block, not once per tap, and store the
+//    s8 codes in the swizzle TMA would have written.
+//  - B, bf16: the packed weight itself, MN-major: w [2, 2, 4C, 4O] viewed as
 //    [4 * 4C, 4O] has the rows t 4C + c of tap t, 4O columns each; one 2-D
 //    box [64 rows, 64 columns] per 64 columns of a K block and tap (wgmma
-//    tnsp-b). Rows past 4C in a partial K block belong to the next tap (or
-//    lie past the weight: zeros) and meet A's zero channels.
+//    tnsp-b). s8 (wgmma has no transpose for s8): the K-major copy wk [4O,
+//    4 * 4C] made once with the int8 weights (conv_int8.k_major), one box
+//    [4O rows, 128 K bytes] per K block and tap. Rows past 4C in a partial
+//    K block belong to the next tap (or lie past the weight: zeros) and
+//    meet A's zero channels.
 //  - Tiles of BM = 128 GEMM rows x NB = 4O columns. 4O = 128: ping-pong,
 //    each consumer warpgroup takes every other tile whole (two m64n128),
 //    so that one's epilogue overlaps the other's wgmma. 4O = 256: both
 //    consumers split each tile, 64 rows each (m64n256); 64-row ping-pong
 //    tiles would read the weights from L2 twice as often, which costs the
 //    long-K dual more than the overlap gains (profile_variants.py,
-//    pingpong_all).
-//  - Epilogue: f32 bias, ReLU, round to bf16 (nearest even); then the
-//    mask head (a per-row dot of the rounded y with wd [4O, 4], summed over
-//    the 4 lanes of a quad, u8 > 0), the 2x2 pool (the max over the slot
-//    columns c, c + O, c + 2 O, c + 3 O, which one thread holds, O being a
-//    multiple of 8) and y, each where the call asks for it. 4O = 128: y
-//    and the pool go by stmatrix / st.shared into a staging tile of the
-//    consumer, then by TMA stores of [th, tw] boxes (which clip the ragged
-//    edge), so the consumer goes on to its next tile while they drain; 4O
-//    = 256 (no room for staging beside the B ring): sm90::store_acc, 4
-//    rows x 128 contiguous bytes a store. Junk rows store nothing.
+//    pingpong_all). H2's two s32 accumulators do not fit beside either
+//    (one m64n256 is 128 registers): at 4O = 128 the consumers split each
+//    tile's rows (m64n128 a side), at 4O = 256 each takes all 64 rows of a
+//    tile and half its columns (SPLIT_N, m64n128 a side).
+//  - Epilogue: bf16: f32 bias, ReLU, round to bf16 (nearest even). int8:
+//    the affine in f32 in the reference's order, ReLU, then round half to
+//    even and clip to +-127 (s8) or round to bf16. Then the mask head (a
+//    per-row dot of the rounded y with wd [4O, 4], summed over the 4 lanes
+//    of a quad, u8 > 0), the 2x2 pool (the max over the slot columns c, c
+//    + O, c + 2 O, c + 3 O, which one thread holds, O being a multiple of
+//    8) and y, each where the call asks for it. Ping-pong (4O = 128): y and
+//    the pool go by stmatrix (bf16) or 16-bit st.shared (s8) into a
+//    staging tile of the consumer, then by TMA stores of [th, tw] boxes
+//    (which clip the ragged edge), so the consumer goes on to its next
+//    tile while they drain; else (no room for staging beside the B ring):
+//    sm90::store_acc / store_acc_s8, 4 rows x 128 contiguous bytes a
+//    store. Junk rows store nothing.
 //  - Where the time goes (B = 8, the six sites, PERF.md): the wgmma loop
 //    alone at ~0.6-0.8 of the packed tensor peak, then the stores, then the
 //    loads; the 4O = 256 sites read the weights from L2 once per 128-row
 //    tile (4 KiB per output pixel at conv2_2).
 #pragma once
 
+#include <type_traits>
+
+#include "igemm.cuh"
 #include "sm90_igemm.cuh"
 
 namespace segk {
 
 using bf16 = __nv_bfloat16;
 
-// SKIP: 0 H1 (one side); 1 H2 with the skip read by TMA boxes; 2 H2 with
-// the skip gathered (odd offset, C % 64 != 0). EPI: the epilogue's
-// options, kPool and kHead (compiled in only where asked: the head's sums
-// beside 128 accumulators would spill).
-constexpr int kPool = 1, kHead = 2;
+// EPI, the epilogue's options: kPool and kHead (compiled in only where
+// asked: the head's sums beside 128 accumulators would spill); the int8
+// modes: kInt8 (s8 operands, s32 accumulation, the int8 epilogue),
+// kRequant (s8 out), kTwoAcc (one accumulator per side, H2).
+constexpr int kPool = 1, kHead = 2, kInt8 = 4, kRequant = 8, kTwoAcc = 16;
 
-// The output side of a bf16 forward problem: 4O = O4 columns, tiles of th
-// x tw output pixels as GEMM rows m = a (tw + HALO) + b, the walk over
-// them, the epilogue (EPI: kPool, kHead) and the ring's shape around it. A
-// problem derives from it and adds TAPS, A_ROWS, B_STAGES, B_MN, GATHER,
-// its maps and the loads.
+// The output side of a forward problem: 4O = O4 columns, tiles of th x tw
+// output pixels as GEMM rows m = a (tw + HALO) + b, the walk over them,
+// the epilogue (EPI) and the ring's shape around it. A problem derives
+// from it and adds TAPS, A_ROWS, B_STAGES, B_MN, GATHER, its maps and the
+// loads.
 template <int O4, int EPI, int HALO>
 struct FwdOut {
+  static constexpr bool INT8 = (EPI & kInt8) != 0;
+  static constexpr int SIDES = (EPI & kTwoAcc) != 0 ? 2 : 1;
+  using Acc = std::conditional_t<INT8, int, float>;
+  using OutT = std::conditional_t<(EPI & kRequant) != 0, s8, bf16>;
+  static_assert(INT8 || (EPI & (kRequant | kTwoAcc)) == 0, "int8 options");
+  static_assert((EPI & kHead) == 0 || std::is_same_v<OutT, bf16>,
+                "the head reads the bf16 value");
   static constexpr int NB = O4;
-  static constexpr bool SPLIT_N = false;
-  static constexpr int NI = NB;
-  static constexpr int MI = NI == 128 ? 2 : 1;
-  static constexpr bool PINGPONG = O4 == 128;
-  static constexpr int BM = 128;  // FWD_TILE_ROWS of conv_flat.py
+  static constexpr bool SPLIT_N = SIDES == 2 && O4 == 256;
+  static constexpr int NI = SPLIT_N ? 128 : NB;
+  static constexpr int MI = NI == 128 && SIDES == 1 ? 2 : 1;
+  static constexpr bool PINGPONG = O4 == 128 && SIDES == 1;
+  static constexpr int BM = SPLIT_N ? 64 : 128;  // tiles: conv_flat, conv_int8
+  static_assert(!SPLIT_N || (EPI & (kPool | kHead)) == 0, "split columns");
   // ping-pong tiles store y (and the pool) by TMA from a staging tile of
-  // BM x NB bf16 per consumer (the pool's stages in its scratch)
+  // BM x NB outputs per consumer (the pool's stages in its scratch)
   static constexpr bool TMA_STORE = PINGPONG;
-  static constexpr int STAGE_BYTES = TMA_STORE ? 2 * BM * NB * 2 : 0;
-  static_assert(!TMA_STORE || BM * NB / 4 * 2 <= 4 * sm90::kScratch,
+  static constexpr int OUT_BYTES = (int)sizeof(OutT);
+  static constexpr int STAGE_BYTES = TMA_STORE ? 2 * BM * NB * OUT_BYTES : 0;
+  static_assert(!TMA_STORE || BM * NB / 4 * OUT_BYTES <= 4 * sm90::kScratch,
                 "the pool's staging is a consumer's scratch");
   static constexpr int A_STAGES = 2;
   static constexpr int PRODUCER_REGS = sm90::kProducerRegs;
@@ -102,9 +134,13 @@ struct FwdOut {
   }
 
   CUtensorMap ymap, pmap;   // TMA_STORE: y and the pool
-  const float* bias;
-  bf16* y;
-  bf16* pool;
+  const float* bias;        // bf16
+  const float* mul;         // int8: the epilogue's vectors [4O]
+  const float* add;
+  const float* cs_a;        // kTwoAcc: the sides' dequant scales [4O]
+  const float* cs_b;
+  OutT* y;
+  OutT* pool;
   const bf16* wd;
   const float* bd;
   uint8_t* mask;
@@ -139,13 +175,37 @@ struct FwdOut {
     return a < th && b < tw ? a * tw + b : -1;
   }
 
-  // y's fragment into the staging tile: NB / 64 boxes of BM rows x 128
-  // bytes in TMA's 128-byte swizzle; junk rows go to row BM - 1, which no
-  // box reaches (there are junk rows only where th tw < BM)
-  __device__ void stage_y(float (&acc)[MI][NI / 2], uint8_t* stage,
+  // y's fragment into the staging tile: NB * OUT_BYTES / 128 boxes of BM
+  // rows x 128 bytes in TMA's 128-byte swizzle; junk rows go to row BM -
+  // 1, which no box reaches (there are junk rows only where th tw < BM).
+  // bf16: stmatrix; s8: each thread's column pairs as 16-bit stores.
+  template <class A>
+  __device__ void stage_y(A (&acc)[MI][NI / 2], uint8_t* stage,
                           int m0) const {
     const int lane = threadIdx.x & 31;
     const uint32_t base = sm90::smem_u32(stage);
+    if constexpr (std::is_same_v<OutT, s8>) {
+      static_assert(NB == 128, "one 128-byte box a row");
+      const int q = lane & 3;
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          int r = stage_row(m0 + 64 * mi + (lane >> 2) + 8 * h);
+          r = r < 0 ? BM - 1 : r;
+#pragma unroll
+          for (int jn = 0; jn < NI / 8; ++jn) {
+            const A* d = &acc[mi][4 * jn + 2 * h];
+            asm volatile("st.shared.u16 [%0], %1;" ::"r"(
+                             base + r * 128 + (((jn >> 1) ^ (r & 7)) << 4) +
+                             (jn & 1) * 8 + 2 * q),
+                         "h"((unsigned short)sm90::pack_s8x2(
+                             sm90::as_f32(d[0]), sm90::as_f32(d[1])))
+                         : "memory");
+          }
+        }
+      return;
+    }
     // stmatrix.x4: lanes 8q..8q+7 give the rows of matrix q (rows 8 (q & 1)
     // and columns 8 (q >> 1) on of a 16 x 16 block)
     const int st_row = (lane & 7) + 8 * ((lane >> 3) & 1);
@@ -155,29 +215,26 @@ struct FwdOut {
       r = r < 0 ? BM - 1 : r;
 #pragma unroll
       for (int jb = 0; jb < NI / 16; ++jb) {
-        const float* d = &acc[mi][8 * jb];
+        const A* d = &acc[mi][8 * jb];
         const int chunk = (2 * jb + (lane >> 4)) & 7;
+        using sm90::as_f32;
         asm volatile(
             "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};"
             ::"r"(base + (jb >> 2) * BM * 128 + r * 128 +
                   ((chunk ^ (r & 7)) << 4)),
-            "r"(sm90::pack_bf16(d[0], d[1])), "r"(sm90::pack_bf16(d[2], d[3])),
-            "r"(sm90::pack_bf16(d[4], d[5])), "r"(sm90::pack_bf16(d[6], d[7]))
+            "r"(sm90::pack_bf16(as_f32(d[0]), as_f32(d[1]))),
+            "r"(sm90::pack_bf16(as_f32(d[2]), as_f32(d[3]))),
+            "r"(sm90::pack_bf16(as_f32(d[4]), as_f32(d[5]))),
+            "r"(sm90::pack_bf16(as_f32(d[6]), as_f32(d[7])))
             : "memory");
       }
     }
   }
 
+  // bf16: relu(acc + bias) rounded to bf16, in place
   __device__ void store(int t, int cg, float (&acc)[MI][NI / 2],
                         uint8_t* scratch, uint8_t* stage) const {
-    int n, i0, j0;
-    origin(t, n, i0, j0);
-    const int lane = threadIdx.x & 31, q = lane & 3;
-    const int warp = (threadIdx.x >> 5) & 3;
-    const int m0 = (PINGPONG ? 0 : cg * 64 * MI) + 16 * warp;
-    const bool issuer = (threadIdx.x & 127) == 0;  // a consumer's thread 0
-    // the pool's staging: the consumer's four scratch blocks
-    uint8_t* const pstage = scratch - warp * sm90::kScratch;
+    const int q = threadIdx.x & 3;
     // fragment: acc[mi][4 jn + 2 h + e] is row m0 + 64 mi + lane / 4 + 8 h,
     // column 8 jn + 2 q + e
 #pragma unroll
@@ -193,6 +250,82 @@ struct FwdOut {
           acc[mi][4 * jn + e] = __bfloat162float(__float2bfloat16(v));
         }
     }
+    emit(t, cg, acc, scratch, stage);
+  }
+
+  // int8, one accumulator: relu(f32(acc) * mul + add), finished, in place
+  // (the f32 bits in acc)
+  __device__ void store(int t, int cg, int (&acc)[MI][NI / 2],
+                        uint8_t* scratch, uint8_t* stage) const {
+    const int q = threadIdx.x & 3;
+#pragma unroll
+    for (int jn = 0; jn < NI / 8; ++jn) {
+      const float2 m2 = __ldg(reinterpret_cast<const float2*>(mul) +
+                              4 * jn + q);
+      const float2 a2 = __ldg(reinterpret_cast<const float2*>(add) +
+                              4 * jn + q);
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          int& d = acc[mi][4 * jn + e];
+          sm90::put_f32(d, finish(affine_relu(__int2float_rn(d),
+                                              e & 1 ? m2.y : m2.x,
+                                              e & 1 ? a2.y : a2.x),
+                                  (OutT*)nullptr));
+        }
+    }
+    emit(t, cg, acc, scratch, stage);
+  }
+
+  // int8, two accumulators (H2): the sides mixed in f32 as acc_a cs_a +
+  // acc_b cs_b, then relu(mix * mul + add), finished, in place in acc_a
+  __device__ void store(int t, int cg, int (&acc_a)[MI][NI / 2],
+                        int (&acc_b)[MI][NI / 2], uint8_t* scratch,
+                        uint8_t* stage) const {
+    const int c2 = (SPLIT_N ? cg * NI : 0) / 2 + (threadIdx.x & 3);
+#pragma unroll
+    for (int jn = 0; jn < NI / 8; ++jn) {
+      const float2 ca = __ldg(reinterpret_cast<const float2*>(cs_a) +
+                              4 * jn + c2);
+      const float2 cb = __ldg(reinterpret_cast<const float2*>(cs_b) +
+                              4 * jn + c2);
+      const float2 m2 = __ldg(reinterpret_cast<const float2*>(mul) +
+                              4 * jn + c2);
+      const float2 a2 = __ldg(reinterpret_cast<const float2*>(add) +
+                              4 * jn + c2);
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * jn + e;
+          const float mix = __fadd_rn(
+              __fmul_rn(__int2float_rn(acc_a[mi][i]), e & 1 ? ca.y : ca.x),
+              __fmul_rn(__int2float_rn(acc_b[mi][i]), e & 1 ? cb.y : cb.x));
+          sm90::put_f32(acc_a[mi][i],
+                        finish(affine_relu(mix, e & 1 ? m2.y : m2.x,
+                                           e & 1 ? a2.y : a2.x),
+                               (OutT*)nullptr));
+        }
+    }
+    emit(t, cg, acc_a, scratch, stage);
+  }
+
+  // The finished values (rounded to OutT; f32, or its bits in an s32
+  // accumulator) of one consumer's rows: the head, the pool, y.
+  template <class A>
+  __device__ void emit(int t, int cg, A (&acc)[MI][NI / 2],
+                       uint8_t* scratch, uint8_t* stage) const {
+    using sm90::as_f32;
+    int n, i0, j0;
+    origin(t, n, i0, j0);
+    const int lane = threadIdx.x & 31, q = lane & 3;
+    const int warp = (threadIdx.x >> 5) & 3;
+    const int m0 = (PINGPONG || SPLIT_N ? 0 : cg * 64 * MI) + 16 * warp;
+    const int c0 = SPLIT_N ? cg * NI : 0;  // the consumer's first column
+    const bool issuer = (threadIdx.x & 127) == 0;  // a consumer's thread 0
+    // the pool's staging: the consumer's four scratch blocks
+    uint8_t* const pstage = scratch - warp * sm90::kScratch;
     if constexpr (TMA_STORE) {
       // the staging is free once the consumer's last stores have read it
       if (issuer) sm90::bulk_wait_read();
@@ -215,8 +348,8 @@ struct FwdOut {
           for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
             for (int h = 0; h < 2; ++h)
-              hd[mi][h][s] += acc[mi][4 * jn + 2 * h] * f0 +
-                              acc[mi][4 * jn + 2 * h + 1] * f1;
+              hd[mi][h][s] += as_f32(acc[mi][4 * jn + 2 * h]) * f0 +
+                              as_f32(acc[mi][4 * jn + 2 * h + 1]) * f1;
         }
       }
 #pragma unroll
@@ -253,15 +386,19 @@ struct FwdOut {
 #pragma unroll
             for (int e = 0; e < 2; ++e)
               v[e] = fmaxf(
-                  fmaxf(acc[mi][4 * jn + 2 * h + e],
-                        acc[mi][4 * (jn + JO) + 2 * h + e]),
-                  fmaxf(acc[mi][4 * (jn + 2 * JO) + 2 * h + e],
-                        acc[mi][4 * (jn + 3 * JO) + 2 * h + e]));
-            bf16* const dst = TMA_STORE
-                ? reinterpret_cast<bf16*>(pstage) + r * O
+                  fmaxf(as_f32(acc[mi][4 * jn + 2 * h + e]),
+                        as_f32(acc[mi][4 * (jn + JO) + 2 * h + e])),
+                  fmaxf(as_f32(acc[mi][4 * (jn + 2 * JO) + 2 * h + e]),
+                        as_f32(acc[mi][4 * (jn + 3 * JO) + 2 * h + e])));
+            OutT* const dst = TMA_STORE
+                ? reinterpret_cast<OutT*>(pstage) + r * O
                 : pool + pix * O;
-            *reinterpret_cast<uint32_t*>(dst + 8 * jn + 2 * q) =
-                sm90::pack_bf16(v[0], v[1]);
+            if constexpr (std::is_same_v<OutT, s8>)
+              *reinterpret_cast<uint16_t*>(dst + 8 * jn + 2 * q) =
+                  (uint16_t)sm90::pack_s8x2(v[0], v[1]);
+            else
+              *reinterpret_cast<uint32_t*>(dst + 8 * jn + 2 * q) =
+                  sm90::pack_bf16(v[0], v[1]);
           }
         }
     }
@@ -272,19 +409,22 @@ struct FwdOut {
       if (issuer) {
         if (y != nullptr)
 #pragma unroll
-          for (int c = 0; c < NB / 64; ++c)
-            sm90::tma_store_4d(&ymap, stage + c * BM * 128, 64 * c, j0, i0,
-                               n);
+          for (int c = 0; c < NB * OUT_BYTES / 128; ++c)
+            sm90::tma_store_4d(&ymap, stage + c * BM * 128,
+                               128 / OUT_BYTES * c, j0, i0, n);
         if constexpr ((EPI & kPool) != 0)
           sm90::tma_store_4d(&pmap, pstage, 0, j0, i0, n);
         sm90::bulk_commit();
       }
     } else if (y != nullptr) {
-      sm90::store_acc<NI, MI>(acc, scratch,
-                              [&](int mi, int row, int col) -> bf16* {
+      auto dst = [&](int mi, int row, int col) -> OutT* {
         const long long pix = pixel(n, i0, j0, m0 + 64 * mi + row);
-        return pix < 0 ? nullptr : y + pix * NB + col;
-      });
+        return pix < 0 ? nullptr : y + pix * NB + c0 + col;
+      };
+      if constexpr (std::is_same_v<OutT, s8>)
+        sm90::store_acc_s8<NI, MI>(acc, scratch, dst);
+      else
+        sm90::store_acc<NI, MI>(acc, scratch, dst);
     }
   }
 
@@ -301,16 +441,19 @@ struct FwdOut {
     tiles_hw = tiles_w * ((ho + th - 1) / th);
     n_tiles = n * tiles_hw;
     if constexpr (TMA_STORE) {  // y and the pool as [th, tw] boxes
+      constexpr CUtensorMapDataType type =
+          OUT_BYTES == 1 ? sm90::kMapS8 : sm90::kMapBf16;
       const cuuint64_t ydims[4] = {(cuuint64_t)O4, (cuuint64_t)wo,
                                    (cuuint64_t)ho, (cuuint64_t)n};
-      const cuuint32_t ybox[4] = {64, (cuuint32_t)tw, (cuuint32_t)th, 1};
-      int e = y ? sm90::make_map(&ymap, y, 4, ydims, ybox) : 0;
+      const cuuint32_t ybox[4] = {128 / OUT_BYTES, (cuuint32_t)tw,
+                                  (cuuint32_t)th, 1};
+      int e = y ? sm90::make_map(&ymap, y, 4, ydims, ybox, true, type) : 0;
       if (e == 0 && (EPI & kPool) != 0) {
         const cuuint64_t pdims[4] = {(cuuint64_t)O4 / 4, (cuuint64_t)wo,
                                      (cuuint64_t)ho, (cuuint64_t)n};
         const cuuint32_t pbox[4] = {(cuuint32_t)O4 / 4, (cuuint32_t)tw,
                                     (cuuint32_t)th, 1};
-        e = sm90::make_map(&pmap, pool, 4, pdims, pbox, false);
+        e = sm90::make_map(&pmap, pool, 4, pdims, pbox, false, type);
       }
       return e;
     }
@@ -318,10 +461,15 @@ struct FwdOut {
   }
 };
 
-template <int O4, int SKIP, int EPI = 0>
+// H1 (DUAL false: x) or H2 (DUAL true: the skip's K blocks, then up's).
+// GATHER: the kernel may gather K blocks (gathered(kb): the bf16 skip at
+// an odd offset with C % 64 != 0; int8: the skip at an odd offset, or a
+// side in bf16, quantized inline).
+template <int O4, bool DUAL, int EPI = 0, bool GATHER_ = false>
 struct FwdTiles : FwdOut<O4, EPI, 1> {
   using Out = FwdOut<O4, EPI, 1>;
   using Out::BM;
+  using Out::INT8;
   using Out::NB;
   using Out::origin;
   using Out::th;
@@ -331,19 +479,31 @@ struct FwdTiles : FwdOut<O4, EPI, 1> {
   // after it
   static constexpr int A_ROWS = (2 * BM + 1 + 7) / 8 * 8;
   static constexpr int B_STAGES = Out::b_stages(A_ROWS);
-  static constexpr bool B_MN = true, GATHER = SKIP == 2;
+  static constexpr bool B_MN = !INT8, GATHER = GATHER_;
+  // the channels of a K block (128 bytes)
+  static constexpr int KC = INT8 ? 128 : 64;
+  // the gather keeps GATHER_CHUNKS chunks of each thread in flight (two
+  // 16-byte loads each where it quantizes)
+  static constexpr int GATHER_CHUNKS = 4;
+  static constexpr int PRODUCER_REGS = GATHER ? 80 : sm90::kProducerRegs;
 
   CUtensorMap xmap, wmap;  // H1's x and w; H2's up side: up and wb
   CUtensorMap smap, wsmap;  // H2's skip side: skip and wa
-  const bf16* skip;    // the gathered skip
-  int kps;             // K blocks a side: ceil(4C / 64)
-  int c4, cs;          // 4C and C
-  int hpa, wpa;        // the skip's grid
-  int oh, ow;          // the crop offset, unpacked
-  int slot;            // the skip's K blocks are per-slot boxes (C % 64 == 0)
+  const uint8_t* skip;     // the gathered skip
+  const uint8_t* xs;       // int8: the gathered x (H1) or up (H2)
+  float inv_a, inv_b;      // int8: a side's inverse scale, or 0 (s8 codes)
+  int ga, gb;              // the skip's / x's (up's) K blocks are gathered
+  int kps;                 // K blocks a side: ceil(4C / KC)
+  int c4, cs;              // 4C and C
+  int hx, wx;              // x's (up's) grid
+  int hpa, wpa;            // the skip's grid
+  int oh, ow;              // the crop offset, unpacked
+  int slot;  // bf16: the skip's K blocks are per-slot boxes (C % 64 == 0)
 
-  __device__ int k_blocks() const { return SKIP ? 2 * kps : kps; }
-  __device__ bool gathered(int kb) const { return GATHER && kb < kps; }
+  __device__ int k_blocks() const { return DUAL ? 2 * kps : kps; }
+  __device__ bool gathered(int kb) const {
+    return GATHER && (DUAL && kb < kps ? ga : gb) != 0;
+  }
   __device__ uint32_t a_tx(int kb) const {
     return gathered(kb) ? 0u : (uint32_t)((th + 1) * (tw + 1)) * 128u;
   }
@@ -351,19 +511,19 @@ struct FwdTiles : FwdOut<O4, EPI, 1> {
     return (tap >> 1) * (tw + 1) + (tap & 1);
   }
   __device__ void prefetch() const {
-    sm90::prefetch_map(&xmap);
+    if (!GATHER || !gb) sm90::prefetch_map(&xmap);
     sm90::prefetch_map(&wmap);
-    if (SKIP) {
-      if (!GATHER) sm90::prefetch_map(&smap);
+    if (DUAL) {
+      if (!GATHER || !ga) sm90::prefetch_map(&smap);
       sm90::prefetch_map(&wsmap);
     }
   }
   __device__ void load_a(int t, int kb, uint8_t* a, uint64_t* bar) const {
+    if (gathered(kb)) return;
     int n, i0, j0;
     origin(t, n, i0, j0);
-    if (SKIP && kb < kps) {
-      if (GATHER) return;
-      const int k0 = 64 * kb;
+    if (DUAL && kb < kps) {
+      const int k0 = KC * kb;
       if (slot) {  // the block's output slot (d, e) = (s >> 1, s & 1)
         const int s = k0 / cs;
         const int yy = oh + (s >> 1), xx = ow + (s & 1);
@@ -375,63 +535,102 @@ struct FwdTiles : FwdOut<O4, EPI, 1> {
       }
       return;
     }
-    sm90::tma_load_4d(a, &xmap, bar, 64 * (SKIP ? kb - kps : kb), j0, i0, n);
+    sm90::tma_load_4d(a, &xmap, bar, KC * (DUAL ? kb - kps : kb), j0, i0, n);
   }
-  // The skip's K block kb, gathered: 16-byte chunk `chunk` of box row `row`
-  // holds channels k .. k + 7 (one slot: C % 8 == 0), zero outside the skip
-  // and past 4C, stored where TMA's 128-byte swizzle would put it.
+  // A gathered K block, stored where TMA's 128-byte swizzle would put it.
+  // Thread tid takes 16-byte chunk tid % 8 of box rows tid / 8, tid / 8 +
+  // nthreads / 8, ... (nthreads % 8 == 0), walked pixel by pixel: its
+  // channels k .. (8 bf16, or 16 s8 channels) lie in one slot of the skip
+  // (C % 8 == 0 for bf16, C % 16 == 0 for s8), so box row (bi, bj) reads
+  // the source pixel (r0 + bi, c0 + bj) at one channel offset: the skip's
+  // packed pixel under the crop, or x's. Zero outside the source and past
+  // 4C. int8: s8 codes, or bf16 (two loads) quantized at the side's inverse
+  // scale (QuantLoader's rule, igemm.cuh quant16); GATHER_CHUNKS chunks a
+  // thread are loaded before any is stored.
   __device__ void gather_a(int t, int kb, uint8_t* a, int tid,
                            int nthreads) const {
     if (!gathered(kb)) return;
     int n, i0, j0;
     origin(t, n, i0, j0);
-    const int w = tw + 1;
+    const bool sk = DUAL && kb < kps;
+    const float inv = INT8 ? (sk ? inv_a : inv_b) : 0.0f;
+    const int es = INT8 && inv == 0.0f ? 1 : 2;  // the source's bytes
+    const int chunk = tid & 7, rstep = nthreads >> 3;
+    const int k = KC * (DUAL && !sk ? kb - kps : kb) + KC / 8 * chunk;
+    int hh = hx, ww = wx, r0 = i0, c0 = j0, ch = k;
+    if (sk) {
+      const int s = k / cs;  // the output slot (d, e) = (s >> 1, s & 1)
+      const int yy = oh + (s >> 1), xx = ow + (s & 1);
+      hh = hpa;
+      ww = wpa;
+      r0 = (yy >> 1) + i0;
+      c0 = (xx >> 1) + j0;
+      ch = (2 * (yy & 1) + (xx & 1)) * cs + k - s * cs;
+    }
+    const long long pix = (long long)c4 * es;
+    const uint8_t* img =
+        (sk ? skip : xs) + (long long)n * hh * ww * pix + (long long)ch * es;
+    const bool live = k < c4;
     const uint32_t base = sm90::smem_u32(a);
-    for (int idx = tid; idx < (th + 1) * w * 8; idx += nthreads) {
-      const int row = idx >> 3, chunk = idx & 7;
-      const int k = 64 * kb + 8 * chunk;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (k < c4) {
-        const int s = k / cs;
-        const int bi = row / w;
-        const int yy = oh + 2 * (i0 + bi) + (s >> 1);
-        const int xx = ow + 2 * (j0 + row - bi * w) + (s & 1);
-        if ((yy >> 1) < hpa && (xx >> 1) < wpa)
-          v = __ldg(reinterpret_cast<const uint4*>(
-              skip +
-              (((long long)n * hpa + (yy >> 1)) * wpa + (xx >> 1)) * c4 +
-              (2 * (yy & 1) + (xx & 1)) * cs + k - s * cs));
+    const int w = tw + 1, rows = (th + 1) * w;
+    int row = tid >> 3;
+    int bi = row / w, bj = row - bi * w;
+    constexpr int U = GATHER_CHUNKS;
+    while (row < rows) {
+      uint4 lo[U], hi[U];
+      int at[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        at[u] = row;
+        const bool ok = live && row < rows && r0 + bi < hh && c0 + bj < ww;
+        const uint4* p = reinterpret_cast<const uint4*>(
+            img + ((long long)(r0 + bi) * ww + c0 + bj) * pix);
+        lo[u] = ok ? __ldg(p) : make_uint4(0, 0, 0, 0);
+        hi[u] = ok && INT8 && es == 2 ? __ldg(p + 1) : make_uint4(0, 0, 0, 0);
+        row += rstep;
+        for (bj += rstep; bj >= w; bj -= w) ++bi;
       }
-      asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(
-                       base + row * 128 + ((chunk ^ (row & 7)) << 4)),
-                   "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
-                   : "memory");
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int r = at[u];
+        if (r >= rows) break;
+        const uint4 v = INT8 && es == 2 ? quant16(lo[u], hi[u], inv) : lo[u];
+        asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(
+                         base + r * 128 + ((chunk ^ (r & 7)) << 4)),
+                     "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+                     : "memory");
+      }
     }
   }
-  // the B rows of (K block, tap): 64 rows of w viewed as [4 * 4C, 4O], one
-  // box per 64 columns
+  // the B rows of (K block, tap): bf16, 64 rows of w viewed as [4 * 4C,
+  // 4O], one box per 64 columns; s8, the 128 K bytes of every column of
+  // the K-major wk [4O, 4 * 4C]
   __device__ void load_b(int kb, int tap, uint8_t* b, uint64_t* bar) const {
-    const bool skip_side = SKIP && kb < kps;
+    const bool skip_side = DUAL && kb < kps;
     const CUtensorMap* m = skip_side ? &wsmap : &wmap;
-    const int row = tap * c4 + 64 * (SKIP && !skip_side ? kb - kps : kb);
+    const int row = tap * c4 + KC * (DUAL && !skip_side ? kb - kps : kb);
+    if constexpr (INT8) {
+      sm90::tma_load_2d(b, m, bar, row, 0);
+    } else {
 #pragma unroll
-    for (int j = 0; j < NB / 64; ++j)
-      sm90::tma_load_2d(b + j * sm90::kMnBox, m, bar, 64 * j, row);
+      for (int j = 0; j < NB / 64; ++j)
+        sm90::tma_load_2d(b + j * sm90::kMnBox, m, bar, 64 * j, row);
+    }
   }
 };
 
-template <int O4, int SKIP, int EPI>
+template <int O4, bool DUAL, int EPI, bool GATHER>
 __global__ void __launch_bounds__(sm90::kThreads, 1)
     packed_conv2x2_fwd_kernel(
-        const __grid_constant__ FwdTiles<O4, SKIP, EPI> p) {
+        const __grid_constant__ FwdTiles<O4, DUAL, EPI, GATHER> p) {
   sm90::run(p);
 }
 
 // H2's kernel, under its own name: profiles group kernels by name
-template <int O4, int SKIP, int EPI>
+template <int O4, bool DUAL, int EPI, bool GATHER>
 __global__ void __launch_bounds__(sm90::kThreads, 1)
     packed_conv2x2_dual_fwd_kernel(
-        const __grid_constant__ FwdTiles<O4, SKIP, EPI> p) {
+        const __grid_constant__ FwdTiles<O4, DUAL, EPI, GATHER> p) {
   sm90::run(p);
 }
 
@@ -450,21 +649,41 @@ inline int fwd_maps(CUtensorMap* xmap, CUtensorMap* wmap, const void* x,
   return e;
 }
 
+// The int8 maps: s8 x [n, hx, wx, c4] as [1, th + 1, tw + 1, 128] halo
+// boxes (none where x is gathered: null), and the K-major s8 weight wk
+// [o4, 4 c4] as [o4, 128] boxes.
+inline int fwd_maps_s8(CUtensorMap* xmap, CUtensorMap* wmap, const void* x,
+                       const void* wk, int n, int hx, int wx, int c4, int o4,
+                       int th, int tw) {
+  const cuuint64_t xdims[4] = {(cuuint64_t)c4, (cuuint64_t)wx, (cuuint64_t)hx,
+                               (cuuint64_t)n};
+  const cuuint32_t xbox[4] = {128, (cuuint32_t)tw + 1, (cuuint32_t)th + 1, 1};
+  const cuuint64_t wdims[2] = {(cuuint64_t)(4 * c4), (cuuint64_t)o4};
+  const cuuint32_t wbox[2] = {128, (cuuint32_t)o4};
+  int e = x != nullptr
+              ? sm90::make_map(xmap, x, 4, xdims, xbox, true, sm90::kMapS8)
+              : 0;
+  if (e == 0) e = sm90::make_map(wmap, wk, 2, wdims, wbox, true, sm90::kMapS8);
+  return e;
+}
+
 // The walk and launch of a filled problem: the tiles of the output grid
 // [n, ho, wo] and the K blocks of 4C.
-template <int O4, int SKIP, int EPI>
-int fwd_launch(FwdTiles<O4, SKIP, EPI>& p, int n, int ho, int wo, int c4,
-               int th, int tw, cudaStream_t stream) {
+template <int O4, bool DUAL, int EPI, bool GATHER>
+int fwd_launch(FwdTiles<O4, DUAL, EPI, GATHER>& p, int n, int ho, int wo,
+               int c4, int th, int tw, cudaStream_t stream) {
+  using P = FwdTiles<O4, DUAL, EPI, GATHER>;
   p.c4 = c4;
   p.cs = c4 / 4;
-  p.kps = (c4 + 63) / 64;
+  p.kps = (c4 + P::KC - 1) / P::KC;
   const int e = p.plan(n, ho, wo, th, tw);
   if (e != 0) return e;
-  if constexpr (SKIP != 0)
-    return sm90::launch(packed_conv2x2_dual_fwd_kernel<O4, SKIP, EPI>, p,
-                        stream);
+  if constexpr (DUAL)
+    return sm90::launch(packed_conv2x2_dual_fwd_kernel<O4, DUAL, EPI, GATHER>,
+                        p, stream);
   else
-    return sm90::launch(packed_conv2x2_fwd_kernel<O4, SKIP, EPI>, p, stream);
+    return sm90::launch(packed_conv2x2_fwd_kernel<O4, DUAL, EPI, GATHER>, p,
+                        stream);
 }
 
 }  // namespace segk

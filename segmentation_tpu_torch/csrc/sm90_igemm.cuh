@@ -17,21 +17,29 @@
 //                   K block and tap). It gives its registers to the
 //                   consumers (setmaxnreg).
 //   warpgroups 1-2  the consumers. For each K block and tap they wait for
-//                   the stages, run wgmma.m64nNk16 on the tap's view of the
-//                   A slot and the B stage into f32 registers, keep one
+//                   the stages, run wgmma on the tap's view of the A slot
+//                   and the B stage into the problem's accumulator
+//                   registers (P::Acc: f32 of bf16 products, s32 of s8
+//                   products; P::SIDES of them, see below), keep one
 //                   wgmma group in flight and release the stages of the
 //                   group before. After a tile's last group they store
 //                   their accumulators (the problem's epilogue) while the
 //                   producer already loads the next tile.
 //
-// Both operands are 64 bf16 (128 bytes) a row in the 128-byte swizzle
-// that TMA writes and wgmma reads (CU_TENSOR_MAP_SWIZZLE_128B, descriptor
-// layout 1, 8-row groups 1024 bytes apart). A is K-major; a tap's A view
-// may start on any row of its slot (see sw128_desc). B is K-major (rows of
-// 64 K values, one per column) or MN-major (rows of 64 columns, one per K
-// value: sw128_mn_desc), as the weight lies in memory for the product. A
-// problem P supplies
-//   constexpr TAPS (views of an A slot: 4, or 1),
+// Both operands are 128 bytes a row (64 bf16, or 128 s8: a K block) in the
+// 128-byte swizzle that TMA writes and wgmma reads
+// (CU_TENSOR_MAP_SWIZZLE_128B, descriptor layout 1, 8-row groups 1024
+// bytes apart); a wgmma k-step is 32 bytes of K either way (k16 bf16,
+// k32 s8), so the slots, the taps' row shifts and the descriptors' steps
+// do not depend on the type. A is K-major; a tap's A view may start on any
+// row of its slot (see sw128_desc). B is K-major (rows of one K block, one
+// per column) or, for bf16 only, MN-major (rows of 64 columns, one per K
+// value: sw128_mn_desc), as the weight lies in memory for the product (s8
+// wgmma has no transpose). A problem P supplies
+//   using Acc (float: bf16 products; int: s8 products),
+//   constexpr SIDES (1; 2: two accumulators, the first for K blocks below
+//             p.kps, the second for the rest),
+//             TAPS (views of an A slot: 4, or 1),
 //             NB (columns), NI (wgmma N: 128 or 256), MI (m64 groups a
 //             consumer runs), BM (GEMM rows of a tile), SPLIT_N (true:
 //             both consumers take all BM = 64 rows and NI columns each;
@@ -48,9 +56,9 @@
 //   load_b(kb, tap, b, bar)             a B stage;
 //   a_row(tap)                          the first row of tap's A view;
 //   STAGE_BYTES                         staging for TMA stores (or 0);
-//   store(tile, consumer, acc, scratch, stage)  the consumers' epilogue:
-//             scratch the warp's 2 KiB, stage the consumer's half of the
-//             staging.
+//   store(tile, consumer, acc, [acc_2,] scratch, stage)  the consumers'
+//             epilogue: scratch the warp's 2 KiB, stage the consumer's half
+//             of the staging.
 //
 // Tensor maps are encoded on the host by cuTensorMapEncodeTiled, reached
 // through cudaGetDriverEntryPoint: the library links with nvcc -shared
@@ -112,18 +120,24 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A tensor map of a bf16 tensor: dims innermost first, the byte strides of
-// dims 1.. (each a multiple of 16: TMA's rule), boxes of `box` (box[0] =
-// 64: one 128-byte swizzled row; or unswizzled), zero fill outside the
-// tensor, negative coordinates included (a store writes only the box's
-// part inside). Returns a cudaError_t.
+// The element types of the tensor maps: bf16, and s8 (TMA's 8-bit type;
+// it only moves bytes, and fills zeros either way).
+constexpr CUtensorMapDataType kMapBf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+constexpr CUtensorMapDataType kMapS8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+
+// A tensor map of a bf16 (or `type`) tensor: dims innermost first, the
+// byte strides of dims 1.. (each a multiple of 16: TMA's rule), boxes of
+// `box` (box[0] = 128 bytes: one 128-byte swizzled row; or unswizzled),
+// zero fill outside the tensor, negative coordinates included (a store
+// writes only the box's part inside). Returns a cudaError_t.
 inline int make_map_strided(CUtensorMap* map, const void* base, int rank,
                             const cuuint64_t* dims, const cuuint64_t* strides,
-                            const cuuint32_t* box, bool swizzle = true) {
+                            const cuuint32_t* box, bool swizzle = true,
+                            CUtensorMapDataType type = kMapBf16) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+  const CUresult r = enc(map, type,
                          (cuuint32_t)rank, const_cast<void*>(base), dims,
                          strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
                          swizzle ? CU_TENSOR_MAP_SWIZZLE_128B
@@ -133,14 +147,15 @@ inline int make_map_strided(CUtensorMap* map, const void* base, int rank,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// The same of a dense row-major bf16 tensor.
+// The same of a dense row-major tensor.
 inline int make_map(CUtensorMap* map, const void* base, int rank,
                     const cuuint64_t* dims, const cuuint32_t* box,
-                    bool swizzle = true) {
+                    bool swizzle = true, CUtensorMapDataType type = kMapBf16) {
   cuuint64_t strides[4];
-  cuuint64_t s = sizeof(bf16);
+  cuuint64_t s = type == kMapS8 ? 1 : sizeof(bf16);
   for (int i = 0; i + 1 < rank; ++i) strides[i] = s *= dims[i];
-  return make_map_strided(map, base, rank, dims, strides, box, swizzle);
+  return make_map_strided(map, base, rank, dims, strides, box, swizzle,
+                          type);
 }
 
 // ----------------------------------------------------------- device PTX
@@ -286,6 +301,11 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+template <int N>
+__device__ __forceinline__ void fence_acc(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
 
 // D[64 x N] (+)= A[64 x 16] B[16 x N] from shared memory, A K-major, B
 // K-major (TB = 0) or MN-major (TB = 1, wgmma's tnsp-b); scale_d = 0
@@ -364,13 +384,109 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
 }
 
+// D[64 x N] (+)= A[64 x 32] B[32 x N] in s8 with s32 accumulators, both
+// K-major (s8 wgmma has no transpose).
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t da,
+                                                    uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]),
+        "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]),
+        "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]),
+        "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]),
+        "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]),
+        "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]),
+        "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]),
+        "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n256k32_s8(int (&d)[128], uint64_t da,
+                                                    uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
+      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, "
+      "%122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]),
+        "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]),
+        "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]),
+        "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]),
+        "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]),
+        "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]),
+        "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]),
+        "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
+        "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]),
+        "+r"(d[71]), "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]),
+        "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]), "+r"(d[80]),
+        "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]),
+        "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]), "+r"(d[90]),
+        "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]),
+        "+r"(d[101]), "+r"(d[102]), "+r"(d[103]), "+r"(d[104]), "+r"(d[105]),
+        "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]),
+        "+r"(d[111]), "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]),
+        "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]), "+r"(d[120]),
+        "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]),
+        "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// One k-step of D[64 x N] (N = 128 or 256): 32 bytes of K, k16 of bf16 into
+// f32 (B K-major, TB = 0, or MN-major, TB = 1) or k32 of s8 into s32.
 template <int N, int TB>
-__device__ __forceinline__ void wgmma_k16(float (&d)[N / 2], uint64_t da,
-                                          uint64_t db, int scale_d) {
+__device__ __forceinline__ void wgmma_step(float (&d)[N / 2], uint64_t da,
+                                           uint64_t db, int scale_d) {
   if constexpr (N == 256)
     wgmma_m64n256k16<TB>(d, da, db, scale_d);
   else
     wgmma_m64n128k16<TB>(d, da, db, scale_d);
+}
+template <int N, int TB>
+__device__ __forceinline__ void wgmma_step(int (&d)[N / 2], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  static_assert(TB == 0, "s8 wgmma reads B K-major only");
+  if constexpr (N == 256)
+    wgmma_m64n256k32_s8(d, da, db, scale_d);
+  else
+    wgmma_m64n128k32_s8(d, da, db, scale_d);
+}
+
+// A finished epilogue value kept in an accumulator register: f32 itself,
+// or its bits in an s32 accumulator (the int8 epilogues finish in place:
+// the wgmma operands keep the accumulators live across the tile loop, so
+// a second array of finished values would not fit beside them).
+__device__ __forceinline__ float as_f32(float v) { return v; }
+__device__ __forceinline__ float as_f32(int v) { return __int_as_float(v); }
+__device__ __forceinline__ void put_f32(float& d, float v) { d = v; }
+__device__ __forceinline__ void put_f32(int& d, float v) {
+  d = __float_as_int(v);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -387,8 +503,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // chunk l % 8 of row 4 i + l / 8 (of the warp's 16 rows of m64 group mi)
 // at dst(mi, row, col), the address of column col of that row, or nothing
 // where dst is null.
-template <int NI, int MI, class Dst>
-__device__ __forceinline__ void store_acc(float (&acc)[MI][NI / 2],
+template <int NI, int MI, class A, class Dst>
+__device__ __forceinline__ void store_acc(A (&acc)[MI][NI / 2],
                                           uint8_t* scratch, Dst dst) {
   const int lane = threadIdx.x & 31;
   const uint32_t base = smem_u32(scratch);
@@ -402,13 +518,15 @@ __device__ __forceinline__ void store_acc(float (&acc)[MI][NI / 2],
     for (int pass = 0; pass < NI / 64; ++pass) {
 #pragma unroll
       for (int jq = 0; jq < 4; ++jq) {
-        const float* d = &acc[mi][8 * (4 * pass + jq)];
+        const A* d = &acc[mi][8 * (4 * pass + jq)];
         const int chunk = 2 * jq + (lane >> 4);
         asm volatile(
             "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};"
             ::"r"(base + st_row * 128 + ((chunk ^ (st_row & 7)) << 4)),
-            "r"(pack_bf16(d[0], d[1])), "r"(pack_bf16(d[2], d[3])),
-            "r"(pack_bf16(d[4], d[5])), "r"(pack_bf16(d[6], d[7]))
+            "r"(pack_bf16(as_f32(d[0]), as_f32(d[1]))),
+            "r"(pack_bf16(as_f32(d[2]), as_f32(d[3]))),
+            "r"(pack_bf16(as_f32(d[4]), as_f32(d[5]))),
+            "r"(pack_bf16(as_f32(d[6]), as_f32(d[7])))
             : "memory");
       }
       __syncwarp();
@@ -421,6 +539,58 @@ __device__ __forceinline__ void store_acc(float (&acc)[MI][NI / 2],
                      : "r"(base + row * 128 + ((ld_chunk ^ (row & 7)) << 4))
                      : "memory");
         bf16* out = dst(mi, row, 64 * pass + 8 * ld_chunk);
+        if (out != nullptr) *reinterpret_cast<uint4*>(out) = v;
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// Two finished s8 values (integers in f32, within +-127) as 16 bits, the
+// lower column first.
+__device__ __forceinline__ uint32_t pack_s8x2(float lo, float hi) {
+  return ((uint32_t)(int)lo & 0xffu) | (((uint32_t)(int)hi & 0xffu) << 8);
+}
+
+// The same store of finished s8 values (the int8 epilogue's requantized
+// codes, as f32), 128 columns at a time: each thread puts its column
+// pairs (16 bits) of rows lane / 4 and lane / 4 + 8 into the scratch (rows
+// of 128 bytes, 16-byte chunks XOR-swizzled by row: no bank conflicts),
+// then each store writes 4 rows x 128 contiguous bytes as above.
+template <int NI, int MI, class A, class Dst>
+__device__ __forceinline__ void store_acc_s8(A (&acc)[MI][NI / 2],
+                                             uint8_t* scratch, Dst dst) {
+  const int lane = threadIdx.x & 31, q = lane & 3;
+  const uint32_t base = smem_u32(scratch);
+  const int ld_row = lane >> 3, ld_chunk = lane & 7;
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi) {
+#pragma unroll
+    for (int pass = 0; pass < NI / 128; ++pass) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = (lane >> 2) + 8 * h;
+#pragma unroll
+        for (int jq = 0; jq < 16; ++jq) {
+          const A* d = &acc[mi][4 * (16 * pass + jq) + 2 * h];
+          asm volatile("st.shared.u16 [%0], %1;" ::"r"(
+                           base + row * 128 + (((jq >> 1) ^ (row & 7)) << 4) +
+                           (jq & 1) * 8 + 2 * q),
+                       "h"((unsigned short)pack_s8x2(as_f32(d[0]),
+                                                     as_f32(d[1])))
+                       : "memory");
+        }
+      }
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = 4 * i + ld_row;
+        uint4 v;
+        asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];"
+                     : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+                     : "r"(base + row * 128 + ((ld_chunk ^ (row & 7)) << 4))
+                     : "memory");
+        int8_t* out = dst(mi, row, 128 * pass + 16 * ld_chunk);
         if (out != nullptr) *reinterpret_cast<uint4*>(out) = v;
       }
       __syncwarp();
@@ -527,7 +697,8 @@ __device__ __forceinline__ void consume(const P& p, const Ring<P>& r,
   const int a_row0 = P::SPLIT_N || P::PINGPONG ? 0 : cg * 64 * P::MI;
   const int b_off = (P::SPLIT_N ? cg * P::NI : 0) * 128;
   uint8_t* scratch = r.scratch(cg * 4 + ((threadIdx.x >> 5) & 3));
-  float acc[P::MI][P::NI / 2];
+  using Acc = typename P::Acc;
+  Acc acc[P::SIDES][P::MI][P::NI / 2];
   Pos<P::A_STAGES> a;
   Pos<P::B_STAGES> b;
   // the wgmma group in flight: its B stage, and its A slot when it is the
@@ -560,17 +731,29 @@ __device__ __forceinline__ void consume(const P& p, const Ring<P>& r,
             sw128_desc(r.a(a.stage) + (p.a_row(tap) + a_row0) * 128);
         const uint64_t db = P::B_MN ? sw128_mn_desc(r.b(b.stage) + b_off)
                                     : sw128_desc(r.b(b.stage) + b_off);
-        constexpr int b_step = P::B_MN ? 2048 >> 4 : 2;  // one k16 step
+        constexpr int b_step = P::B_MN ? 2048 >> 4 : 2;  // one k-step
+        // the K blocks of one side into d; `more`: d already holds a sum
+        auto mma = [&](Acc (&d)[P::MI][P::NI / 2], bool more) {
 #pragma unroll
-        for (int mi = 0; mi < P::MI; ++mi) fence_acc(acc[mi]);
+          for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+            for (int mi = 0; mi < P::MI; ++mi)
+              wgmma_step<P::NI, P::B_MN>(d[mi], da + 512 * mi + 2 * ks,
+                                         db + b_step * ks,
+                                         (more || ks > 0) ? 1 : 0);
+        };
+#pragma unroll
+        for (int s = 0; s < P::SIDES; ++s)
+#pragma unroll
+          for (int mi = 0; mi < P::MI; ++mi) fence_acc(acc[s][mi]);
         wgmma_fence();
-#pragma unroll
-        for (int ks = 0; ks < 4; ++ks)
-#pragma unroll
-          for (int mi = 0; mi < P::MI; ++mi)
-            wgmma_k16<P::NI, P::B_MN>(acc[mi], da + 512 * mi + 2 * ks,
-                                      db + b_step * ks,
-                                      (kb > 0 || tap > 0 || ks > 0) ? 1 : 0);
+        if constexpr (P::SIDES == 1) {
+          mma(acc[0], kb > 0 || tap > 0);
+        } else if (kb < p.kps) {
+          mma(acc[0], kb > 0 || tap > 0);
+        } else {
+          mma(acc[P::SIDES - 1], kb > p.kps || tap > 0);
+        }
         wgmma_commit();
         wgmma_wait<1>();
         release();
@@ -583,11 +766,16 @@ __device__ __forceinline__ void consume(const P& p, const Ring<P>& r,
     if (P::PINGPONG && leader) mbar_arrive(r.done(cg));
     wgmma_wait<0>();
 #pragma unroll
-    for (int mi = 0; mi < P::MI; ++mi) fence_acc(acc[mi]);
+    for (int s = 0; s < P::SIDES; ++s)
+#pragma unroll
+      for (int mi = 0; mi < P::MI; ++mi) fence_acc(acc[s][mi]);
     release();
     prev_b = -1;
-    p.store(t, cg, acc, scratch,
-            r.stage() + cg * (P::STAGE_BYTES / 2));
+    if constexpr (P::SIDES == 1)
+      p.store(t, cg, acc[0], scratch, r.stage() + cg * (P::STAGE_BYTES / 2));
+    else
+      p.store(t, cg, acc[0], acc[P::SIDES - 1], scratch,
+              r.stage() + cg * (P::STAGE_BYTES / 2));
   }
   // a consumer's TMA stores must have read its staging before it exits
   if constexpr (P::STAGE_BYTES > 0)

@@ -60,7 +60,11 @@ from segmentation_tpu_torch.models.unet_fast import (
     pack_conv3_weight_s2,
 )
 from segmentation_tpu_torch.nn.kernels import conv_int8
-from segmentation_tpu_torch.nn.kernels.conv_int8 import Int8Ops, conv3x3_s8
+from segmentation_tpu_torch.nn.kernels.conv_int8 import (
+    Int8Ops,
+    conv3x3_s8,
+    k_major,
+)
 from segmentation_tpu_torch.nn.packing import crop_packed
 
 S8, BF16 = torch.int8, torch.bfloat16
@@ -327,10 +331,18 @@ class UNetS2DInt8(UNetS2DInference):
     def plan(self, p) -> Dict[str, torch.Tensor]:
         """Add the hand-kernel sites' epilogue vectors to a calibrated
         ``p`` and return it: ``qmul``/``qadd`` (and the duals'
-        ``qcs_a``/``qcs_b``), computed once from the activation scales.
-        The int8 route runs on a planned dict only (``_PLANNED`` in it)."""
+        ``qcs_a``/``qcs_b``), computed once from the activation scales, and
+        the K-major copies of the H1 and H2 sites' s8 weights (``wk``,
+        ``wk_a``/``wk_b``: conv_int8.k_major, which their s8 wgmma reads;
+        made here once, never per request). The int8 route runs on a
+        planned dict only (``_PLANNED`` in it)."""
         entry, packed, dual, _ = self._site_names()
         q = {}
+        for name in packed:
+            q[f"{name}/wk"] = k_major(p[f"{name}/wq"])
+        for name in dual:
+            for side in "ab":
+                q[f"{name}/wk_{side}"] = k_major(p[f"{name}/wq_{side}"])
         c1 = entry[0]  # H5's conv1_1: requant at conv1_2's scale, no cs
         b4 = p[f"{c1}/b4"]
         q[f"{c1}/qmul"], q[f"{c1}/qadd"] = _affine(
@@ -399,7 +411,8 @@ class UNetS2DInt8(UNetS2DInference):
             h4 = quant_act(h4, self._in_scale_of(p, name))
         return self.ops8.packed_conv2x2(
             h4, p[f"{name}/wq"], p[f"{name}/qmul"], p[f"{name}/qadd"],
-            requant=self._out_keys.get(name) in p, pool=True)
+            requant=self._out_keys.get(name) in p, pool=True,
+            wk=p[f"{name}/wk"])
 
     def _packed_conv(self, p, name, h4):
         if self._calibrating is not None:
@@ -408,7 +421,7 @@ class UNetS2DInt8(UNetS2DInference):
             return super()._packed_conv(p, name, h4)
         return self.ops8.packed_conv2x2(
             h4, p[f"{name}/wq"], p[f"{name}/qmul"], p[f"{name}/qadd"],
-            requant=self._out_keys.get(name) in p)
+            requant=self._out_keys.get(name) in p, wk=p[f"{name}/wk"])
 
     def _head_conv(self, p, name, h4):
         if not self._q(p):
@@ -416,7 +429,7 @@ class UNetS2DInt8(UNetS2DInference):
         return self.ops8.packed_conv2x2(
             h4, p[f"{name}/wq"], p[f"{name}/qmul"], p[f"{name}/qadd"],
             requant=False, head=(p["head/wd"], p["head/bd"]),
-            head_only=True)
+            head_only=True, wk=p[f"{name}/wk"])
 
     def _deconv(self, p, up, h, scatter):
         quantized = up in self._deconv_names()
@@ -447,7 +460,8 @@ class UNetS2DInt8(UNetS2DInference):
         return self.ops8.packed_conv2x2_dual(
             skip, h4, p[f"{name}/wq_a"], p[f"{name}/wq_b"],
             p[f"{name}/qcs_a"], p[f"{name}/qcs_b"], p[f"{name}/qmul"],
-            p[f"{name}/qadd"], offset=offset, act_scale_b=act_b)
+            p[f"{name}/qadd"], offset=offset, act_scale_b=act_b,
+            wka=p[f"{name}/wk_a"], wkb=p[f"{name}/wk_b"])
 
     def _std_conv(self, p, name, h):
         if self._calibrating is not None:

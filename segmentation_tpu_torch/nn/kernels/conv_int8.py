@@ -22,6 +22,15 @@ the dual's ``act_scale_a`` / ``act_scale_b``): the inline-quantize modes,
 ``quant_inline``, bit-equal to nn/pallas/conv.py _quant_rows. A bf16
 operand without its scale raises.
 
+H1's and H2's int8 modes run on the Hopper mainloop (csrc/sm90_igemm.cuh
+with csrc/packed_conv2x2_fwd.cuh: TMA halo boxes, s8 wgmma). s8 wgmma
+reads B K-major only, so their wrappers take the K-major copy of each s8
+weight beside it (``wk``; the dual's ``wka`` / ``wkb``: ``k_major(wq)``,
+made once where the int8 weights are planned, models/unet_int8.py
+``UNetS2DInt8.plan``); a CUDA call without it raises. The plain versions
+take the same arguments and ignore the copy, so ``Int8Ops`` swaps the two
+paths whole. Their output tiles are planned here (``tiles.tile_plan``).
+
 They replace the int8 modes of the Pallas kernels of
 segmentation_tpu/nn/pallas/conv_flat.py (entry_chain_pf2 :1644,
 conv3entry_pf2 :1738) and nn/pallas/conv.py. The products are exact (s8 ×
@@ -62,10 +71,12 @@ from segmentation_tpu_torch.nn.kernels._build import (
     _stream,
 )
 from segmentation_tpu_torch.nn.kernels.conv_flat import (
+    FWD_TILE_ROWS,
     _conv_nhwc,
     _head_mask,
     _o4_ok,
 )
+from segmentation_tpu_torch.nn.kernels.tiles import aligned, tile_plan
 from segmentation_tpu_torch.nn.packing import crop_packed, unpack2
 
 # the kernel modes, each with its launch count: resident s8 operands, the
@@ -140,8 +151,25 @@ def _slot_max(y):
     return y.reshape(n, h, w, 4, o4 // 4).amax(3)
 
 
+def k_major(wq: torch.Tensor) -> torch.Tensor:
+    """The K-major copy [4O, 4·4C] of a packed s8 weight wq [2, 2, 4C, 4O]
+    (row o holds column o's K = tap · 4C + c values), which H1's and H2's
+    s8 wgmma reads: ``wq.reshape(4·4C, 4O).T``, contiguous."""
+    return wq.reshape(-1, wq.shape[-1]).t().contiguous()
+
+
+def dual_tile_rows(o4: int) -> int:
+    """GEMM rows of an output tile of H2's s8 mode (FwdOut::BM): its two
+    s32 accumulators fit as m64n128 a side, the tile's rows split between
+    the consumers at 4O = 128, its columns at 4O = 256 (64 rows)."""
+    return FWD_TILE_ROWS if o4 == 128 else FWD_TILE_ROWS // 2
+
+
 def packed_conv2x2_s8_plain(x, wq, mul, add, *, requant=True, pool=False,
-                            head=None, head_only=False, act_scale=None):
+                            head=None, head_only=False, act_scale=None,
+                            wk=None):
+    """H1 int8's plain version (``wk``, the kernel's K-major copy, is not
+    read)."""
     if head_only and head is None:
         raise ValueError("head_only needs head=(wd, bd)")
     x = _codes(x, act_scale, "packed_conv2x2_s8")
@@ -156,7 +184,8 @@ def packed_conv2x2_s8_plain(x, wq, mul, add, *, requant=True, pool=False,
 
 def packed_conv2x2_dual_s8_plain(skip, up, wqa, wqb, cs_a, cs_b, mul, add,
                                  *, offset, act_scale_a=None,
-                                 act_scale_b=None):
+                                 act_scale_b=None, wka=None, wkb=None):
+    """H2 int8's plain version (``wka``, ``wkb``: not read)."""
     skip = _codes(skip, act_scale_a, "packed_conv2x2_dual_s8 skip")
     up = _codes(up, act_scale_b, "packed_conv2x2_dual_s8 up")
     acc_a = _int_conv(crop_packed(skip, up.shape, offset), wqa).float()
@@ -210,6 +239,14 @@ def _operand(t, name, shape, act_scale, dev):
     return 0.0 if act_scale is None else act_inverse(act_scale)
 
 
+def _k_major_operand(wk, name, c4, o4, dev):
+    """Check the K-major copy an s8 wgmma kernel reads."""
+    if wk is None:
+        raise ValueError(f"{name}: a CUDA call needs the K-major weight "
+                         f"copy (k_major(wq), [{o4}, {4 * c4}] s8)")
+    _require(wk, name, S8, (o4, 4 * c4), dev)
+
+
 def _mode(name, act_scale):
     """The launch count of a kernel mode: an inline-quantize launch counts
     under its kernel's ``_inline`` mode (H1's pool included)."""
@@ -219,13 +256,13 @@ def _mode(name, act_scale):
 
 
 def packed_conv2x2_s8(x, wq, mul, add, *, requant=True, pool=False,
-                      head=None, head_only=False, act_scale=None):
+                      head=None, head_only=False, act_scale=None, wk=None):
     """H1 int8: x [N,hp,wp,4C] s8 codes, or bf16 quantized inline at
-    ``act_scale``; wq s8 [2,2,4C,4O], mul/add f32 [4O] → y
-    [N,hp-1,wp-1,4O], s8 (``requant``) or bf16; with ``pool`` also the
-    slot-max [..,O] of y; with ``head=(wd bf16 [4O,4], bd f32 [4])`` (a
-    float site) also the u8 mask; ``head_only`` returns the mask alone.
-    Outputs in the order (y, mask, pooled)."""
+    ``act_scale``; wq s8 [2,2,4C,4O] and its K-major copy ``wk`` (CUDA),
+    mul/add f32 [4O] → y [N,hp-1,wp-1,4O], s8 (``requant``) or bf16; with
+    ``pool`` also the slot-max [..,O] of y; with ``head=(wd bf16 [4O,4],
+    bd f32 [4])`` (a float site) also the u8 mask; ``head_only`` returns
+    the mask alone. Outputs in the order (y, mask, pooled)."""
     _check_operand(x, act_scale, "packed_conv2x2_s8")
     if _on_cpu(x):
         return packed_conv2x2_s8_plain(x, wq, mul, add, requant=requant,
@@ -245,8 +282,10 @@ def packed_conv2x2_s8(x, wq, mul, add, *, requant=True, pool=False,
                          f"{tuple(x.shape)}")
     inv = _operand(x, "x", x.shape, act_scale, dev)
     _require(wq, "wq", S8, (2, 2, c4, o4), dev)
+    _k_major_operand(wk, "wk", c4, o4, dev)
     _vec(mul, "mul", o4, dev)
     _vec(add, "add", o4, dev)
+    aligned("packed_conv2x2_s8", x, wk, mul, add)
     out_t = S8 if requant else BF16
     wd = bd = mask = pooled = y = None
     shp = (n, hp - 1, wp - 1)
@@ -254,16 +293,18 @@ def packed_conv2x2_s8(x, wq, mul, add, *, requant=True, pool=False,
         wd, bd = head
         _require(wd, "wd", BF16, (o4, 4), dev)
         _require(bd, "bd", F32, (4,), dev)
+        aligned("packed_conv2x2_s8", wd)
         mask = torch.empty(shp + (4,), dtype=torch.uint8, device=dev)
     if not head_only:
         y = torch.empty(shp + (o4,), dtype=out_t, device=dev)
     if pool:
         pooled = torch.empty(shp + (o4 // 4,), dtype=out_t, device=dev)
+    plan = tile_plan(n, hp - 1, wp - 1, FWD_TILE_ROWS)
     with torch.cuda.device(dev):
         err = _build.library().seg_packed_conv2x2_s8(
-            _ptr(x), _ptr(wq), _ptr(mul), _ptr(add), _ptr(y), _ptr(pooled),
+            _ptr(x), _ptr(wk), _ptr(mul), _ptr(add), _ptr(y), _ptr(pooled),
             _ptr(wd), _ptr(bd), _ptr(mask), n, hp, wp, c4, o4, int(requant),
-            inv, _stream(x),
+            inv, plan.th, plan.tw, _stream(x),
         )
     _build.check(err, "packed_conv2x2_s8")
     launches[_mode("packed_conv2x2_s8_pool" if pool else "packed_conv2x2_s8",
@@ -273,13 +314,15 @@ def packed_conv2x2_s8(x, wq, mul, add, *, requant=True, pool=False,
 
 
 def packed_conv2x2_dual_s8(skip, up, wqa, wqb, cs_a, cs_b, mul, add, *,
-                           offset, act_scale_a=None, act_scale_b=None):
+                           offset, act_scale_a=None, act_scale_b=None,
+                           wka=None, wkb=None):
     """H2 int8: skip [N,hpa,wpa,4C], up [N,hp,wp,4C] → s8
     [N,hp-1,wp-1,4O] = requant(relu((conv(crop(skip), wqa)·cs_a +
     conv(up, wqb)·cs_b)·mul + add)), the skip cropped at the UNPACKED
     ``offset`` (even: a packed slice; odd: a slot phase). Each side is s8
     codes, or bf16 quantized inline at ``act_scale_a`` / ``act_scale_b``
-    (after the crop's gather, with which it commutes)."""
+    (after the crop's gather, with which it commutes). A CUDA call takes
+    the weights' K-major copies ``wka``, ``wkb`` too."""
     _check_operand(skip, act_scale_a, "packed_conv2x2_dual_s8 skip")
     _check_operand(up, act_scale_b, "packed_conv2x2_dual_s8 up")
     if _on_cpu(up):
@@ -303,15 +346,20 @@ def packed_conv2x2_dual_s8(skip, up, wqa, wqb, cs_a, cs_b, mul, add, *,
     inv_a = _operand(skip, "skip", (n, hpa, wpa, c4), act_scale_a, dev)
     _require(wqa, "wqa", S8, (2, 2, c4, o4), dev)
     _require(wqb, "wqb", S8, (2, 2, c4, o4), dev)
+    _k_major_operand(wka, "wka", c4, o4, dev)
+    _k_major_operand(wkb, "wkb", c4, o4, dev)
     for t, name in ((cs_a, "cs_a"), (cs_b, "cs_b"), (mul, "mul"),
                     (add, "add")):
         _vec(t, name, o4, dev)
+    aligned("packed_conv2x2_dual_s8", skip, up, wka, wkb, cs_a, cs_b, mul,
+            add)
     y = torch.empty((n, hp - 1, wp - 1, o4), dtype=S8, device=dev)
+    plan = tile_plan(n, hp - 1, wp - 1, dual_tile_rows(o4))
     with torch.cuda.device(dev):
         err = _build.library().seg_packed_conv2x2_dual_s8(
-            _ptr(skip), _ptr(up), _ptr(wqa), _ptr(wqb), _ptr(cs_a),
+            _ptr(skip), _ptr(up), _ptr(wka), _ptr(wkb), _ptr(cs_a),
             _ptr(cs_b), _ptr(mul), _ptr(add), _ptr(y), n, hpa, wpa, hp, wp,
-            c4, o4, oh, ow, inv_a, inv_b, _stream(up),
+            c4, o4, oh, ow, inv_a, inv_b, plan.th, plan.tw, _stream(up),
         )
     _build.check(err, "packed_conv2x2_dual_s8")
     inline = act_scale_a is not None or act_scale_b is not None

@@ -3,8 +3,10 @@
     python -m segmentation_tpu_torch.profile_serving [--requests 3] \
         [--out FILE]
 
-Serves the flagship (512², B = 8) bf16 model and the calibrated int8 model
-(calibrated on one seeded batch) as chip_smoke.py does. For each it times
+Serves the flagship (512², B = 8) bf16 model and the three calibrated int8
+configurations (the flagship padded-flat route, ``padflat=False`` and
+``quant_deconvs=False``, each calibrated on one seeded batch) as
+chip_smoke.py does. For each it times
 ``--requests`` requests by CUDA events, then traces the same requests and
 reads the trace's device activities (kernels, copies, sets) only:
 
@@ -164,8 +166,10 @@ def main(argv=None) -> None:
     calib = torch.rand(shape, generator=generator(4321, "cuda"),
                        device="cuda")
     lines, table = [smi], []
-    for tag, kw in (("bf16", {}), ("int8", {"int8": True,
-                                             "calib": [calib]})):
+    int8 = {"int8": True, "calib": [calib]}
+    for tag, kw in (("bf16", {}), ("int8", int8),
+                    ("int8_4d", {**int8, "padflat": False}),
+                    ("int8_fdeconv", {**int8, "quant_deconvs": False})):
         server, _ = entry("cuda", batch=args.batch, seed=0, **kw)
         wall, dev_ms, groups, rows = profile(server, reqs)
         lat, dispatch = host_clock(server, reqs)

@@ -1,5 +1,6 @@
 """Time source variants of the kernels on the Hopper mainloop (the bf16
-forward of H1–H4, H6) in turns on one GPU.
+forward of H1–H4, H6, and the int8 modes of H1 and H2) in turns on one
+GPU.
 
     python -m segmentation_tpu_torch.profile_variants \
         [--variants base,no_store,...] [--rounds 2] [--parent DIR] \
@@ -8,11 +9,14 @@ forward of H1–H4, H6) in turns on one GPU.
 Each variant is a copy of this package with named source patches
 (``VARIANTS``), made under ``csrc/build/variants/<name>/`` and built
 there by its own process (all at once). The copies then time the ten
-packed sites of the 512² forward (B = 8, chip_smoke.py's phase-3 shapes)
-and H6's six training sites, each the least of 3 runs of 20 launches by
-CUDA events, in turns: the variants in order, then in reverse, --rounds
-times. Before timing, each variant but the cut-outs (``CUTS``, which
-compute garbage) is held against the plain versions at the sites.
+packed sites of the 512² forward (B = 8, chip_smoke.py's phase-3 shapes),
+H6's six training sites and the int8 sites of H1 and H2 (phase 3b's
+shapes; the K-major weight copies made here, outside the timing, and
+passed only to a package whose wrappers take them), each the least of 3
+runs of 20 launches by CUDA events, in turns: the variants in order, then
+in reverse, --rounds times. Before timing, each variant but the cut-outs
+(``CUTS``, which compute garbage) is held against the plain versions at
+the sites (int8 codes within one, on at most 1e-3 of them).
 ``--parent DIR`` adds the variant ``parent``: the package of another
 checkout (DIR/segmentation_tpu_torch, unpatched, e.g. the parent commit
 unpacked by ``git archive``), timed by this file's sites and loop.
@@ -34,12 +38,17 @@ producer's 40 registers a thread instead of 96, two tasks of 8 loads a
 pass), ``gather_tasks_2`` (two tasks a pass instead of four),
 ``no_l2_prefetch`` (no L2 prefetch of the next tile's input rows) and the
 cut-out ``gather_no_load`` (the gather computes its addresses and stores
-them, loading nothing).
+them, loading nothing); the int8 gather of H1 and H2 (the inline-quantize
+modes, the skip at an odd offset): ``s8_gather_chunks_8`` (eight chunks a
+thread in flight instead of four, its warpgroup at 96 registers) and the
+cut-out ``s8_gather_no_quant`` (the loads and stores without the
+quantize).
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import shutil
 import subprocess
 import sys
@@ -54,12 +63,13 @@ FLAT = "nn/kernels/conv_flat.py"
 
 # (file in the package, text, replacement, occurrences)
 Patch = Tuple[str, str, str, int]
-_PP = "  static constexpr bool PINGPONG = O4 == 128;"
-_BM = "  static constexpr int BM = 128;  // FWD_TILE_ROWS of conv_flat.py"
+_PP = "  static constexpr bool PINGPONG = O4 == 128 && SIDES == 1;"
+_BM = ("  static constexpr int BM = SPLIT_N ? 64 : 128;  // tiles: conv_flat, "
+       "conv_int8")
 _ROWS = "tile_plan(n, ho, wo, FWD_TILE_ROWS, halo, step)"
 _NO_STORE: List[Patch] = [
     (FWD, "    if constexpr (TMA_STORE) {\n      // the staging is free",
-     "    if (bias != nullptr) return;\n"
+     "    if (bias != nullptr || mul != nullptr) return;\n"
      "    if constexpr (TMA_STORE) {\n      // the staging is free", 1)]
 _NO_LOAD: List[Patch] = [
     (SM90, "      mbar_expect_tx(r.a_full(a.stage), p.a_tx(kb));\n"
@@ -68,7 +78,8 @@ _NO_LOAD: List[Patch] = [
     (SM90, "        mbar_expect_tx(r.b_full(b.stage), Ring<P>::B_BYTES);\n"
            "        p.load_b(kb, tap, r.b(b.stage), r.b_full(b.stage));",
      "        mbar_expect_tx(r.b_full(b.stage), 0u);", 1)]
-CUTS = ("no_store", "no_store_no_load", "gather_no_load")
+CUTS = ("no_store", "no_store_no_load", "gather_no_load",
+        "s8_gather_no_quant")
 PARENT = "parent"  # another checkout's package (--parent), unpatched
 VARIANTS: Dict[str, List[Patch]] = {
     "base": [],
@@ -79,12 +90,14 @@ VARIANTS: Dict[str, List[Patch]] = {
          "  static constexpr bool TMA_STORE = false;", 1)],
     "no_pingpong": [
         (FWD, _PP, _PP.replace("O4 == 128", "false"), 1),
-        (FWD, _BM, "  static constexpr int BM = 128 * MI;", 1),
+        (FWD, _BM, "  static constexpr int BM = SPLIT_N ? 64 : 128 * MI;",
+         1),
         (FLAT, _ROWS, _ROWS.replace("FWD_TILE_ROWS",
                                     "{128: 256, 256: 128}[o4]"), 1)],
     "pingpong_all": [
         (FWD, _PP, _PP.replace("O4 == 128", "true"), 1),
-        (FWD, _BM, "  static constexpr int BM = 64 * MI;", 1),
+        (FWD, _BM, "  static constexpr int BM = SIDES == 2 ? (SPLIT_N ? 64 "
+                   ": 128) : 64 * MI;", 1),
         (FLAT, _ROWS, _ROWS.replace("FWD_TILE_ROWS",
                                     "{128: 128, 256: 64}[o4]"), 1)],
     "b_stages_8": [
@@ -106,6 +119,14 @@ VARIANTS: Dict[str, List[Patch]] = {
     "no_l2_prefetch": [
         (STRIDED, "      if (kb == 0) prefetch_rows(t + gridDim.x, tid, "
                   "nthreads);\n", "", 1)],
+    "s8_gather_chunks_8": [
+        (FWD, "  static constexpr int GATHER_CHUNKS = 4;",
+         "  static constexpr int GATHER_CHUNKS = 8;", 1),
+        (FWD, "PRODUCER_REGS = GATHER ? 80 : sm90::kProducerRegs;",
+         "PRODUCER_REGS = GATHER ? 96 : sm90::kProducerRegs;", 1)],
+    "s8_gather_no_quant": [
+        (FWD, "? quant16(lo[u], hi[u], inv) : lo[u];",
+         "? make_uint4(lo[u].x ^ hi[u].x, 0, 0, 0) : lo[u];", 1)],
 }
 
 
@@ -205,6 +226,77 @@ def _sites(gen):
          {}),
         ("packed_conv2x2_dgrad", "conv9_2",
          (cot(n, 162, 162, 128), wgt(2, 2, 128, 128)), {}),
+    ] + _sites8(gen, n)
+
+
+def _sites8(gen, n):
+    """The int8 sites of H1 and H2 (chip_smoke.py's phase 3b): s8 codes,
+    bf16 operands at act_scale 1/16 for the inline modes, s8 weights with
+    their K-major copies (``wk``, ``wka``, ``wkb``), epilogue vectors that
+    spread the codes over their range. The op is the kernel mode
+    (conv_int8.NAMES)."""
+    import torch
+
+    dev = gen.device
+
+    def codes(*s):
+        return torch.randint(0, 128, s, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    def acts(*s):
+        return (torch.rand(s, generator=gen, device=dev) * (150 / 16)).to(
+            torch.bfloat16)
+
+    def wq(*s):
+        return torch.randint(-127, 128, s, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    def kmaj(w):
+        return w.reshape(-1, w.shape[-1]).t().contiguous()
+
+    def vecs(o4, k, scale=1.0):
+        mul = (torch.rand((o4,), generator=gen, device=dev) + 0.5) \
+            * (60.0 / (5376.0 * k**0.5) * scale)
+        return mul, torch.randn((o4,), generator=gen, device=dev) * 10 * scale
+
+    def h1(op, label, x, o4, kw, scale=1.0):
+        w = wq(2, 2, x.shape[-1], o4)
+        return (op, label, (x, w, *vecs(o4, 4 * x.shape[-1], scale)),
+                {**kw, "wk": kmaj(w)})
+
+    def h2(op, label, skip, up, o4, offset, act_b=None):
+        c4 = up.shape[-1]
+        wa, wb = wq(2, 2, c4, o4), wq(2, 2, c4, o4)
+        (cs_a, _), (cs_b, add) = vecs(o4, 8 * c4), vecs(o4, 8 * c4)
+        kw = {"offset": offset, "wka": kmaj(wa), "wkb": kmaj(wb)}
+        if act_b is not None:
+            kw["act_scale_b"] = act_b
+        return (op, label, (skip, up, wa, wb, cs_a, cs_b,
+                            torch.ones((o4,), device=dev), add), kw)
+
+    head = ((torch.randn((128, 4), generator=gen, device=dev) / 128**0.5)
+            .to(torch.bfloat16), torch.randn((4,), generator=gen, device=dev))
+    return [
+        h1("packed_conv2x2_s8_pool", "conv1_2 +pool (4-D route)",
+           codes(n, 255, 255, 128), 128, {"pool": True}),
+        h1("packed_conv2x2_s8_pool", "conv2_2 +pool",
+           codes(n, 126, 126, 256), 256, {"pool": True}),
+        h1("packed_conv2x2_s8_inline", "conv2_2 bf16 in +pool",
+           acts(n, 126, 126, 256), 256, {"pool": True, "act_scale": 1 / 16}),
+        h1("packed_conv2x2_s8", "conv8_2", codes(n, 83, 83, 256), 256, {}),
+        h1("packed_conv2x2_s8", "conv9_2 head_only (bf16 value)",
+           codes(n, 163, 163, 128), 128,
+           {"requant": False, "head": head, "head_only": True}, 1 / 20),
+        h2("packed_conv2x2_dual_s8", "conv8_1 odd phase (41,41)",
+           codes(n, 125, 125, 256), codes(n, 84, 84, 256), 256, (41, 41)),
+        h2("packed_conv2x2_dual_s8_inline",
+           "conv8_1 odd phase (41,41) bf16 up", codes(n, 125, 125, 256),
+           acts(n, 84, 84, 256), 256, (41, 41), 1 / 16),
+        h2("packed_conv2x2_dual_s8", "conv9_1 even (90,90)",
+           codes(n, 254, 254, 128), codes(n, 164, 164, 128), 128, (90, 90)),
+        h2("packed_conv2x2_dual_s8_inline", "conv9_1 even (90,90) bf16 up",
+           codes(n, 254, 254, 128), acts(n, 164, 164, 128), 128, (90, 90),
+           1 / 16),
     ]
 
 
@@ -217,6 +309,7 @@ def run_variant(name: str, mode: str) -> None:
     from segmentation_tpu_torch.nn.kernels import _build
     from segmentation_tpu_torch.nn.kernels import conv_bwd as cb
     from segmentation_tpu_torch.nn.kernels import conv_flat as cf
+    from segmentation_tpu_torch.nn.kernels import conv_int8 as ci
 
     if f"variants/{name}/" not in Path(_build.__file__).as_posix():
         raise RuntimeError(f"{name}: imported {_build.__file__}")
@@ -225,16 +318,23 @@ def run_variant(name: str, mode: str) -> None:
         print(f"[{name}] built in {_build.build_seconds:.1f} s")
         return
     sums: Dict[str, float] = {}
-    for op, label, args, kw in _sites(generator(15, "cuda")):
-        mod = cb if "dgrad" in op else cf
-        fn = getattr(mod, op)
+    for op, label, args, kw0 in _sites(generator(15, "cuda")):
+        mod = cb if "dgrad" in op else ci if op in ci.NAMES else cf
+        fn = getattr(mod, ci.wrapper_of(op) if mod is ci else op)
+        # a package whose wrappers take no K-major copy gets none
+        params = inspect.signature(fn).parameters
+        kw = {k: v for k, v in kw0.items() if k in params}
         got = fn(*args, **kw)
         if mode == "check":
-            want = getattr(mod, op + "_plain")(*args, **kw)
+            want = getattr(mod, fn.__name__ + "_plain")(*args, **kw)
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
             for g, w in zip(got, want, strict=True):
-                if g.dtype == torch.uint8:
+                if g.dtype == torch.int8:
+                    d = (g.int() - w.int()).abs()
+                    bad = d.max().item()
+                    ok = bad <= 1 and (d > 0).float().mean().item() <= 1e-3
+                elif g.dtype == torch.uint8:
                     bad = (g != w).float().mean().item()
                     ok = bad < 0.01
                 else:

@@ -344,34 +344,95 @@ def _check_s8(got, want):
             _check(g, w)
 
 
-@pytest.mark.parametrize("o4", [128, 256])
-@pytest.mark.parametrize("mode", ["requant", "pool", "float", "head_only"])
-def test_packed_conv2x2_s8_kernel(gen, o4, mode):
-    c4 = 256
+# H1's int8 cases, x [N, hp, wp, 4C]: the 512² conv2_2 site (N = 1), a last
+# tile ragged in both directions, one output row, one column, N = 3, and
+# 4C = 16 and 48 (one K block of 128 channels, the rest TMA's zeros) and 144
+# (a second block of 16); each at 4O = 128 (ping-pong tiles, s8 staged for
+# TMA stores) and 256 (tiles split between the consumers, register stores)
+FWD8 = {"conv2_2": (1, 126, 126, 256),
+        "ragged tiles": (1, 44, 65, 128),
+        "one row": (1, 2, 40, 256),
+        "one column": (1, 40, 2, 128),
+        "N=3": (3, 20, 45, 256),
+        "4C=16": (2, 9, 13, 16),
+        "4C=48": (2, 9, 13, 48),
+        "4C=144": (1, 12, 17, 144)}
+MODES8 = ["requant", "pool", "float", "head_only", "float pool head"]
+
+
+def _s8_site(gen, x, o4, mode, **kw):
+    """(args, kwargs) of H1's int8 mode ``mode`` on x: s8 weights and
+    their K-major copy, epilogue vectors (bf16 values of O(1) at a float
+    site), the head's operands where the mode has it."""
+    c4 = x.shape[-1]
     mul, add = _requant_vecs(gen, o4, 4 * c4)
-    if mode in ("float", "head_only"):
-        mul = mul / 20  # bf16 values of O(1)
-    args = (_s8(gen, 2, 13, 21, c4), _s8(gen, 2, 2, c4, o4), mul, add)
-    kw = {"pool": mode == "pool", "requant": mode in ("requant", "pool")}
-    if mode == "head_only":
+    requant = mode in ("requant", "pool")
+    if not requant:
+        mul = mul / 20
+    wq = _s8(gen, 2, 2, c4, o4)
+    kw = {**kw, "pool": "pool" in mode, "requant": requant,
+          "wk": ci.k_major(wq)}
+    if "head" in mode:
         kw["head"] = (_wgt(gen, o4, 4),
                       torch.randn((4,), generator=gen, device="cuda"))
-        kw["head_only"] = True
+        kw["head_only"] = mode == "head_only"
+    return (x, wq, mul, add), kw
+
+
+@pytest.mark.parametrize("o4", [128, 256])
+@pytest.mark.parametrize("mode", MODES8)
+@pytest.mark.parametrize("shape", list(FWD8))
+def test_packed_conv2x2_s8_kernel(gen, shape, o4, mode):
+    args, kw = _s8_site(gen, _s8(gen, *FWD8[shape]), o4, mode)
+    ci.reset_launches()
     _check_s8(ci.packed_conv2x2_s8(*args, **kw),
               ci.packed_conv2x2_s8_plain(*args, **kw))
+    assert ci.launches["packed_conv2x2_s8_pool" if "pool" in mode
+                       else "packed_conv2x2_s8"] == 1
 
 
-@pytest.mark.parametrize("c4,o4", [(256, 256), (128, 128)])
-@pytest.mark.parametrize("offset", [(0, 0), (6, 4), (5, 7), (2, 3)])
-def test_packed_conv2x2_dual_s8_kernel(gen, c4, o4, offset):
-    skip, up = _s8(gen, 2, 15, 17, c4), _s8(gen, 2, 9, 11, c4)
+# H2's int8 cases: (skip, up, 4O) shapes. 4C = 256 (C = 64) and 128 (C =
+# 32): an odd offset gathers the skip (two or four slots of different
+# origins a K block), an even one is one box; 4C = 64 (one partial K block
+# a side) and 192 (a second block of 64); ragged tiles, one row, column, N
+# = 3; 4O = 128 (the consumers split a tile's rows) and 256 (its columns,
+# 64-row tiles)
+DUAL8 = {"4C=256": ((2, 15, 17, 256), (2, 9, 11, 256), 256),
+         "4C=128": ((2, 15, 17, 128), (2, 9, 11, 128), 128),
+         "4C=128 4O=256": ((1, 15, 17, 128), (1, 9, 11, 128), 256),
+         "4C=256 4O=128": ((1, 15, 17, 256), (1, 9, 11, 256), 128),
+         "4C=64": ((2, 15, 17, 64), (2, 9, 11, 64), 256),
+         "4C=192": ((1, 15, 17, 192), (1, 9, 11, 192), 128),
+         "ragged tiles": ((1, 48, 69, 128), (1, 44, 65, 128), 128),
+         "ragged tiles 4O=256": ((1, 48, 69, 256), (1, 44, 65, 256), 256),
+         "one row": ((1, 6, 44, 128), (1, 2, 40, 128), 256),
+         "one column": ((1, 44, 6, 256), (1, 40, 2, 256), 128),
+         "N=3": ((3, 24, 49, 256), (3, 20, 45, 256), 256)}
+
+
+def _dual8_site(gen, case, offset, inline=""):
+    sshape, ushape, o4 = DUAL8[case]
+    c4 = ushape[-1]
+    skip = _acts8(gen, *sshape) if "a" in inline else _s8(gen, *sshape)
+    up = _acts8(gen, *ushape) if "b" in inline else _s8(gen, *ushape)
     cs_a, _ = _requant_vecs(gen, o4, 8 * c4)
     cs_b, add = _requant_vecs(gen, o4, 8 * c4)
-    mul = torch.ones((o4,), device="cuda")
-    args = (skip, up, _s8(gen, 2, 2, c4, o4), _s8(gen, 2, 2, c4, o4), cs_a,
-            cs_b, mul, add)
-    _check_s8(ci.packed_conv2x2_dual_s8(*args, offset=offset),
-              ci.packed_conv2x2_dual_s8_plain(*args, offset=offset))
+    wqa, wqb = _s8(gen, 2, 2, c4, o4), _s8(gen, 2, 2, c4, o4)
+    kw = {"offset": offset, "wka": ci.k_major(wqa), "wkb": ci.k_major(wqb),
+          "act_scale_a": ACT_S if "a" in inline else None,
+          "act_scale_b": ACT_S if "b" in inline else None}
+    return (skip, up, wqa, wqb, cs_a, cs_b, torch.ones((o4,), device="cuda"),
+            add), kw
+
+
+@pytest.mark.parametrize("offset", OFFSETS)
+@pytest.mark.parametrize("case", list(DUAL8))
+def test_packed_conv2x2_dual_s8_kernel(gen, case, offset):
+    args, kw = _dual8_site(gen, case, offset)
+    ci.reset_launches()
+    _check_s8(ci.packed_conv2x2_dual_s8(*args, **kw),
+              ci.packed_conv2x2_dual_s8_plain(*args, **kw))
+    assert ci.launches["packed_conv2x2_dual_s8"] == 1
 
 
 @pytest.mark.parametrize("c,o4", [(32, 256), (16, 128)])
@@ -414,19 +475,11 @@ def _acts8(gen, *shape):
 
 
 @pytest.mark.parametrize("o4", [128, 256])
-@pytest.mark.parametrize("mode", ["requant", "pool", "float", "head_only"])
-def test_packed_conv2x2_s8_inline_kernel(gen, o4, mode):
-    c4 = 256
-    mul, add = _requant_vecs(gen, o4, 4 * c4)
-    if mode in ("float", "head_only"):
-        mul = mul / 20
-    args = (_acts8(gen, 2, 13, 21, c4), _s8(gen, 2, 2, c4, o4), mul, add)
-    kw = {"pool": mode == "pool", "requant": mode in ("requant", "pool"),
-          "act_scale": ACT_S}
-    if mode == "head_only":
-        kw["head"] = (_wgt(gen, o4, 4),
-                      torch.randn((4,), generator=gen, device="cuda"))
-        kw["head_only"] = True
+@pytest.mark.parametrize("mode", MODES8)
+@pytest.mark.parametrize("shape", list(FWD8))
+def test_packed_conv2x2_s8_inline_kernel(gen, shape, o4, mode):
+    args, kw = _s8_site(gen, _acts8(gen, *FWD8[shape]), o4, mode,
+                        act_scale=ACT_S)
     ci.reset_launches()
     _check_s8(ci.packed_conv2x2_s8(*args, **kw),
               ci.packed_conv2x2_s8_plain(*args, **kw))
@@ -434,22 +487,80 @@ def test_packed_conv2x2_s8_inline_kernel(gen, o4, mode):
 
 
 @pytest.mark.parametrize("inline", ["a", "b", "ab"])
-@pytest.mark.parametrize("offset", [(0, 0), (6, 4), (5, 7)])
-def test_packed_conv2x2_dual_s8_inline_kernel(gen, offset, inline):
-    c4, o4 = 256, 256
-    skip = (_acts8(gen, 2, 15, 17, c4) if "a" in inline
-            else _s8(gen, 2, 15, 17, c4))
-    up = (_acts8(gen, 2, 9, 11, c4) if "b" in inline
-          else _s8(gen, 2, 9, 11, c4))
-    cs_a, _ = _requant_vecs(gen, o4, 8 * c4)
-    cs_b, add = _requant_vecs(gen, o4, 8 * c4)
-    args = (skip, up, _s8(gen, 2, 2, c4, o4), _s8(gen, 2, 2, c4, o4), cs_a,
-            cs_b, torch.ones((o4,), device="cuda"), add)
-    kw = {"offset": offset,
-          "act_scale_a": ACT_S if "a" in inline else None,
-          "act_scale_b": ACT_S if "b" in inline else None}
+@pytest.mark.parametrize("offset", [(0, 0), (6, 4), (5, 7), (2, 3)])
+@pytest.mark.parametrize("case", ["4C=256", "4C=128", "4C=64",
+                                  "ragged tiles 4O=256", "N=3"])
+def test_packed_conv2x2_dual_s8_inline_kernel(gen, case, offset, inline):
+    args, kw = _dual8_site(gen, case, offset, inline)
+    ci.reset_launches()
     _check_s8(ci.packed_conv2x2_dual_s8(*args, **kw),
               ci.packed_conv2x2_dual_s8_plain(*args, **kw))
+    assert ci.launches["packed_conv2x2_dual_s8_inline"] == 1
+
+
+@pytest.mark.parametrize("op", ["pool 4O=128", "float head 4O=256",
+                                "inline pool 4O=256", "dual odd 4O=128",
+                                "dual even 4O=256", "dual inline ab"])
+def test_packed_conv2x2_s8_is_deterministic(gen, op):
+    """Two launches on the same inputs give the same bits (no atomics)."""
+    if op.startswith("dual"):
+        case = "ragged tiles 4O=256" if "4O=256" in op else "ragged tiles"
+        offset = (4, 2) if "even" in op else (3, 5)
+        args, kw = _dual8_site(gen, case, offset,
+                               "ab" if "inline" in op else "")
+        fn = ci.packed_conv2x2_dual_s8
+    else:
+        o4 = 256 if "4O=256" in op else 128
+        x = (_acts8 if "inline" in op else _s8)(gen, 2, 41, 57, 128)
+        mode = "float pool head" if "head" in op else "pool"
+        extra = {"act_scale": ACT_S} if "inline" in op else {}
+        args, kw = _s8_site(gen, x, o4, mode, **extra)
+        fn = ci.packed_conv2x2_s8
+    first, second = _outs(fn(*args, **kw)), _outs(fn(*args, **kw))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second, strict=True))
+
+
+def test_s8_wrappers_refuse_bad_operands(gen):
+    """No fallback: a CUDA call the kernels do not take raises."""
+    args, kw = _s8_site(gen, _s8(gen, 1, 5, 5, 128), 128, "requant")
+    x, wq, mul, add = args
+    with pytest.raises(ValueError, match="K-major"):
+        ci.packed_conv2x2_s8(*args, **{**kw, "wk": None})
+    with pytest.raises(ValueError, match="shape"):
+        ci.packed_conv2x2_s8(*args, **{**kw, "wk": kw["wk"][:, :256]})
+    with pytest.raises(TypeError):
+        ci.packed_conv2x2_s8(*args, **{**kw, "wk": kw["wk"].float()})
+    with pytest.raises(ValueError, match="contiguous"):
+        ci.packed_conv2x2_s8(*args, **{**kw, "wk": wq.reshape(512, 128).t()})
+    with pytest.raises(ValueError, match="bad input shape"):
+        xs = _s8(gen, 1, 5, 5, 24)
+        ci.packed_conv2x2_s8(xs, _s8(gen, 2, 2, 24, 128), mul, add,
+                             wk=_s8(gen, 128, 96))
+    with pytest.raises(ValueError, match="16-byte"):
+        ci.packed_conv2x2_s8(_misaligned(x), wq, mul, add, wk=kw["wk"])
+    with pytest.raises(ValueError, match="float site"):
+        ci.packed_conv2x2_s8(*args, wk=kw["wk"],
+                             head=(_wgt(gen, 128, 4),
+                                   torch.zeros((4,), device="cuda")))
+    with pytest.raises(ValueError, match="128 or 256"):
+        ci.packed_conv2x2_s8(x, _s8(gen, 2, 2, 128, 64), mul[:64], add[:64],
+                             wk=_s8(gen, 64, 512))
+    with pytest.raises(TypeError, match="act_scale"):
+        ci.packed_conv2x2_s8(_acts8(gen, 1, 5, 5, 128), wq, mul, add,
+                             wk=kw["wk"])
+    dargs, dkw = _dual8_site(gen, "4C=128", (3, 5))
+    with pytest.raises(ValueError, match="K-major"):
+        ci.packed_conv2x2_dual_s8(*dargs, **{**dkw, "wkb": None})
+    with pytest.raises(ValueError, match="does not cover"):
+        ci.packed_conv2x2_dual_s8(*dargs, **{**dkw, "offset": (13, 0)})
+    with pytest.raises(ValueError, match="bad input shape"):
+        skip, up = _s8(gen, 1, 9, 9, 96), _s8(gen, 1, 5, 5, 96)
+        w = _s8(gen, 2, 2, 96, 128)
+        ci.packed_conv2x2_dual_s8(skip, up, w, w, *dargs[4:], offset=(0, 0),
+                                  wka=ci.k_major(w), wkb=ci.k_major(w))
+    with pytest.raises(ValueError, match="16-byte"):
+        ci.packed_conv2x2_dual_s8(_misaligned(dargs[0]), *dargs[1:], **dkw)
 
 
 def test_strided_conv4x4s2_s8_inline_kernel(gen):
@@ -494,7 +605,8 @@ def test_entry_chain_is_requant_entry_plus_pool(gen):
     wq2 = _s8(gen, 2, 2, 128, 128)
     mul2, add2 = _requant_vecs(gen, 128, 512)
     codes = ci.conv3entry_requant(x, w4, mul1, add1)
-    two = ci.packed_conv2x2_s8(codes, wq2, mul2, add2, pool=True)
+    two = ci.packed_conv2x2_s8(codes, wq2, mul2, add2, pool=True,
+                               wk=ci.k_major(wq2))
     _check_s8(two, ci.entry_chain(x, w4, mul1, add1, wq2, mul2, add2))
 
 

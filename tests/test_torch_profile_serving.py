@@ -18,6 +18,10 @@ from segmentation_tpu_torch import profile_serving as ps
      "segk::FwdTiles<256, 1, 0>)", "H2 packed_conv2x2_dual"),
     ("void segk::packed_conv2x2_fwd_kernel<128, 0, 1>("
      "segk::FwdTiles<128, 0, 1>)", "H1 packed_conv2x2"),
+    ("void segk::packed_conv2x2_dual_fwd_kernel<256, true, 28, true>("
+     "segk::FwdTiles<256, true, 28, true>)", "H2 packed_conv2x2_dual"),
+    ("void segk::packed_conv2x2_fwd_kernel<128, false, 12, false>("
+     "segk::FwdTiles<128, false, 12, false>)", "H1 packed_conv2x2"),
     ("void segk::packed_conv2x2_dgrad_kernel<128, true>("
      "segk::DgradTiles<128, true>)", "H6 packed_conv2x2_dgrad"),
     ("void strided_conv4x4s2_kernel<true>(...)", "H3 strided_conv4x4s2"),
