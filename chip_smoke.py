@@ -322,13 +322,17 @@ def _sites8(n, gen):
     """The int8 paths' kernel sites of one 512² forward, every mode:
     resident s8 activations (post-ReLU codes) or, for the inline-quantize
     modes, bf16 activations whose codes at ACT_SCALE reach past 127; s8
-    weights (with the K-major copies H1 and H2 read, made once as the
-    model's plan makes them), and epilogue vectors that spread the
-    requantized outputs over the code range."""
+    weights (with the K-major copies that s8 wgmma reads, made once as the
+    model's plan makes them: H1's, H2's and H5's ``k_major``, H3's
+    ``strided_k_major``), and epilogue vectors that spread the requantized
+    outputs over the code range."""
     import torch
 
     from segmentation_tpu_torch.models.unet_fast import head_diff
-    from segmentation_tpu_torch.nn.kernels.conv_int8 import k_major
+    from segmentation_tpu_torch.nn.kernels.conv_int8 import (
+        k_major,
+        strided_k_major,
+    )
 
     dev = gen.device
 
@@ -360,6 +364,12 @@ def _sites8(n, gen):
     def h2(args, kw):  # H2's: the copies of wqa, wqb
         return args, {**kw, "wka": k_major(args[2]),
                       "wkb": k_major(args[3])}
+
+    def h3(args, kw):  # H3's int8 modes: the copy of wq4
+        return args, {**kw, "wk4": strided_k_major(args[1])}
+
+    def h5(args, kw):  # H5: conv1_2's copy
+        return args, {**kw, "wk": k_major(args[4])}
 
     x = torch.rand((n, 512, 512, 3), generator=gen, device=dev)
     w4 = torch.randn((4, 4, 3, 128), generator=gen, device=dev) / 48**0.5
@@ -425,9 +435,16 @@ def _sites8(n, gen):
           *vecs(128, 512, 1 / 20)),
          {"requant": False, "head": head, "head_only": True}),
     ]
-    return [(name, label, *(h2 if name.startswith("packed_conv2x2_dual")
-                            else h1 if name.startswith("packed_conv2x2")
-                            else lambda a, k: (a, k))(args, kw))
+    def copies(name):
+        if name.startswith("packed_conv2x2_dual"):
+            return h2
+        if name.startswith("packed_conv2x2"):
+            return h1
+        if name.startswith("strided") or name == "conv3entry_s8":
+            return h3
+        return h5 if name == "entry_chain" else lambda a, k: (a, k)
+
+    return [(name, label, *copies(name)(args, kw))
             for name, label, args, kw in sites]
 
 
@@ -442,9 +459,8 @@ def _entry_modes_agree(n, gen):
     site = _sites8(n, gen)[0]
     x, w4, mul1, add1, wq2, mul2, add2 = site[2]
     codes = ci.conv3entry_requant(x, w4, mul1, add1)
-    two = ci.packed_conv2x2_s8(codes, wq2, mul2, add2, pool=True,
-                               wk=ci.k_major(wq2))
-    one = ci.entry_chain(x, w4, mul1, add1, wq2, mul2, add2)
+    two = ci.packed_conv2x2_s8(codes, wq2, mul2, add2, pool=True, **site[3])
+    one = ci.entry_chain(x, w4, mul1, add1, wq2, mul2, add2, **site[3])
     torch.cuda.synchronize()
     for g, w, what in zip(two, one, ("y", "pooled")):
         _parity(f"N={n} entry_chain vs conv3entry_requant + H1 pool "
@@ -627,28 +643,49 @@ def _library_call(name, args, kw):
 
 
 def _packed_gemm_ops(name, args):
-    """The packed GEMM of a kernel on the Hopper mainloop at a site: 2 ·
-    output pixels · K · columns, 16/9 of the function's operations. H1
-    (every mode): K = 4 taps × 4C, 4O columns; H2: the same for each side;
-    H3: K = 16C
-    (four taps × two row parities × 2C, or one im2col row), 4O columns;
-    H4: K = C, 4O columns per output pixel (no zero taps); H6: K = 4 taps
-    × 4O, 4C columns (8C for the dual) per dx pixel."""
+    """The packed GEMM of a kernel on the Hopper mainloop at a site, by
+    tensor type ({"bf16" or "s8": operations}): 2 · output pixels · K ·
+    columns, 16/9 of the function's operations. H1 (every mode): K = 4
+    taps × 4C, 4O columns; H2: the same for each side; H3 (every mode): K =
+    16C (four taps × two row parities × 2C, or one im2col row), 4O
+    columns; H4: K = C, 4O columns per output pixel (no zero taps); H5:
+    conv1_1 in bf16 (K = 48, 128 columns) over every halo row its tiles
+    compute, recompute included, and conv1_2 in s8 (K = 4 · 128); H6: K = 4
+    taps × 4O, 4C columns (8C for the dual) per dx pixel."""
+    from segmentation_tpu_torch.nn.kernels.tiles import entry_tile_plan
+
+    kind = _peak_kind(name)
     if name.startswith("packed_conv2x2_dgrad"):
         g, *ws = args
         n, hg, wg, o4 = g.shape
-        return 2 * n * (hg + 1) * (wg + 1) * 4 * o4 * ws[0].shape[2] * len(ws)
-    if name == "strided_conv4x4s2":
+        return {kind: 2 * n * (hg + 1) * (wg + 1) * 4 * o4 * ws[0].shape[2]
+                * len(ws)}
+    if name == "entry_chain":
+        n, h, w, _ = args[0].shape
+        plan = entry_tile_plan(n, (h - 2) // 2 - 1, (w - 2) // 2 - 1)
+        rows = plan.count * (plan.th + 1) * (plan.tw + 1)
+        return {"bf16": 2 * rows * 48 * 128,
+                "s8": 2 * n * plan.hx * plan.wx * 4 * 128 * 128}
+    if name.startswith(("strided_conv4x4s2", "conv3entry")):
         x, w4 = args[:2]
         n, h, w, c = x.shape
-        return 2 * n * ((h - 2) // 2) * ((w - 2) // 2) * 16 * c * w4.shape[-1]
+        return {kind: 2 * n * ((h - 2) // 2) * ((w - 2) // 2) * 16 * c
+                * w4.shape[-1]}
     if name == "rows_matmul":
         x, wm = args[:2]
-        return 2 * (x.numel() // wm.shape[0]) * wm.shape[0] * wm.shape[1]
+        return {kind: 2 * (x.numel() // wm.shape[0]) * wm.shape[0]
+                * wm.shape[1]}
     dual = name.startswith("packed_conv2x2_dual")
     x, w = args[1 if dual else 0], args[3 if dual else 1]
     n, hp, wp, c4 = x.shape
-    return 2 * n * (hp - 1) * (wp - 1) * 4 * c4 * w.shape[-1] * (1 + dual)
+    return {kind: 2 * n * (hp - 1) * (wp - 1) * 4 * c4 * w.shape[-1]
+            * (1 + dual)}
+
+
+def _peak_ms(ops):
+    """The time of packed GEMM operations {type: ops} at the tensor peaks,
+    ms."""
+    return sum(v / PEAK_OPS_S[k] for k, v in ops.items()) * 1e3
 
 
 def _tile_plan_of(name, args, kw):
@@ -656,7 +693,10 @@ def _tile_plan_of(name, args, kw):
     from segmentation_tpu_torch.nn.kernels import conv_bwd as cb
     from segmentation_tpu_torch.nn.kernels import conv_flat as cf
     from segmentation_tpu_torch.nn.kernels import conv_int8 as ci
-    from segmentation_tpu_torch.nn.kernels.tiles import tile_plan
+    from segmentation_tpu_torch.nn.kernels.tiles import (
+        entry_tile_plan,
+        tile_plan,
+    )
 
     if name.startswith("packed_conv2x2_dgrad"):
         g, *ws = args
@@ -665,6 +705,11 @@ def _tile_plan_of(name, args, kw):
                          cb.tile_rows(ws[0].shape[2], len(ws) == 2))
     if name == "strided_conv4x4s2":
         return cf.strided_plan(args[0], args[1].shape[-1])
+    if name.startswith(("strided_conv4x4s2_s8", "conv3entry")):
+        return ci.strided_s8_plan(args[0])
+    if name == "entry_chain":
+        n, h, w, _ = args[0].shape
+        return entry_tile_plan(n, (h - 2) // 2 - 1, (w - 2) // 2 - 1)
     if name == "rows_matmul":
         return cf.rows_plan(args[0], args[1].shape[-1], kw.get("scatter"))
     if name.startswith("packed_conv2x2_dual_s8"):
@@ -678,29 +723,44 @@ def _tile_plan_of(name, args, kw):
 
 
 # the kernels on csrc/sm90_igemm.cuh (TMA or gathered A, wgmma): the bf16
-# modes of H1–H4, H6, and the int8 modes of H1 and H2
+# modes of H1–H4, H6, and the int8 modes of H1–H3 and H5 (H4's int8 modes
+# are the last on the WMMA core, igemm.cuh)
 SM90_S8 = ("packed_conv2x2_s8", "packed_conv2x2_s8_pool",
            "packed_conv2x2_s8_inline", "packed_conv2x2_dual_s8",
-           "packed_conv2x2_dual_s8_inline")
+           "packed_conv2x2_dual_s8_inline", "strided_conv4x4s2_s8",
+           "strided_conv4x4s2_s8_inline", "conv3entry_s8")
 SM90 = ("packed_conv2x2", "packed_conv2x2_dual", "strided_conv4x4s2",
-        "rows_matmul", "packed_conv2x2_dgrad",
-        "packed_conv2x2_dgrad_dual") + SM90_S8
+        "rows_matmul", "packed_conv2x2_dgrad", "packed_conv2x2_dgrad_dual",
+        "conv3entry_requant", "entry_chain") + SM90_S8
 
 
 def _peak_kind(name):
-    """The tensor peak a Hopper-mainloop kernel's packed GEMM runs at."""
+    """The tensor peak a Hopper-mainloop kernel's packed GEMM runs at (H5:
+    both, see _packed_gemm_ops)."""
     return "s8" if name in SM90_S8 else "bf16"
+
+
+def _peak_words(ops, ms):
+    """'S of the packed <types> tensor peak(s)' for packed ops at ms."""
+    kinds = " + ".join(sorted(ops))
+    return (f"{_peak_ms(ops) / ms:.3f} of the packed {kinds} tensor "
+            f"peak{'s' if len(ops) > 1 else ''}")
 
 
 def _tile_note(name, args, kw, ms, bound):
     """A Hopper-mainloop kernel's extra words on a site's time line: the
     tile the wrapper's plan picked, the share of the bound, the share of
-    the packed tensor peak (s8's for the int8 modes)."""
+    the packed tensor peak (s8's for the int8 modes; H5: conv1_1's
+    operations at the bf16 peak plus conv1_2's at the s8 peak, and the
+    recompute share of its halos)."""
+    from segmentation_tpu_torch.nn.kernels.tiles import entry_recompute
+
     plan = _tile_plan_of(name, args, kw)
-    kind = _peak_kind(name)
-    peak = _packed_gemm_ops(name, args) / PEAK_OPS_S[kind] * 1e3
-    return (f"; tile {plan.th}x{plan.tw}, {bound / ms:.3f} of the bound, "
-            f"{peak / ms:.3f} of the packed {kind} tensor peak")
+    note = (f"; tile {plan.th}x{plan.tw}, {bound / ms:.3f} of the bound, "
+            f"{_peak_words(_packed_gemm_ops(name, args), ms)}")
+    if name == "entry_chain":
+        note += f", conv1_1 recompute share {entry_recompute(plan):.4f}"
+    return note
 
 
 def _kernel_phase(mod, sites):
@@ -725,7 +785,7 @@ def _kernel_phase(mod, sites):
     bound = dict.fromkeys(mod.NAMES, 0.0)
     bound_parts = {k: {"bytes": 0.0, "operations": 0.0} for k in mod.NAMES}
     library_ms = dict.fromkeys(mod.NAMES)
-    packed = dict.fromkeys(mod.NAMES, 0)
+    packed = {k: {} for k in mod.NAMES}
     for n in (B_PARITY, B_SERVE):
         for name, label, args, kw in sites(n, generator(7 + n, "cuda")):
             got = _outs(wrappers[name](*args, **kw))
@@ -763,7 +823,8 @@ def _kernel_phase(mod, sites):
                 lib_txt = f"{t['library']:.4f} ms"
             note = ""
             if name in SM90:
-                packed[name] += _packed_gemm_ops(name, args)
+                for kind, ops in _packed_gemm_ops(name, args).items():
+                    packed[name][kind] = packed[name].get(kind, 0) + ops
                 note = _tile_note(name, args, kw, t["kernel"], b)
             print(f"[kernels] time B={n} {name} {label}: "
                   f"{t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, "
@@ -1412,14 +1473,13 @@ def main() -> None:
     worst, ms, plain_ms, bound, bound_by, library_ms, packed = tables
     for k in SM90:
         lib = "none" if library_ms[k] is None else f"{library_ms[k]:.4f} ms"
-        kind = _peak_kind(k)
+        gemm = " + ".join(f"{v / 1e9:.1f} G{'OP' if t == 's8' else 'FLOP'}"
+                          for t, v in sorted(packed[k].items()))
         print(f"[kernels] {k} B={B_SERVE} over its sites: {ms[k]:.4f} ms, "
               f"plain {plain_ms[k]:.4f} ms, library {lib}, "
               f"bound {bound[k]:.4f} ms ({bound[k] / ms[k]:.3f} of it "
-              f"reached), packed GEMM {packed[k] / 1e9:.1f} G"
-              f"{'OP' if kind == 's8' else 'FLOP'} "
-              f"({packed[k] / PEAK_OPS_S[kind] * 1e3 / ms[k]:.3f} of the "
-              f"{kind} tensor peak)")
+              f"reached), packed GEMM {gemm} "
+              f"({_peak_words(packed[k], ms[k])})")
     exact = _entry_modes_agree(B_SERVE, generator(99, "cuda"))
     print(f"[kernels] B={B_SERVE} H5 against conv3entry_requant + H1 pool: "
           f"{'equal code for code' if exact else 'within one code'}")

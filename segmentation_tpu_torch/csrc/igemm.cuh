@@ -7,18 +7,14 @@
 // address in the input activation (the conv taps, the skip crop, the slot
 // scatter). The kernels differ only in their Loader and epilogue.
 //
-// Two element types share the core: bf16 x bf16 -> f32 (H3's requant-only
-// entry mode) and s8 x s8 -> s32 (the int8 modes of H3-H5). The bf16 modes
-// of H1-H4 and the int8 modes of H1 and H2 run on the Hopper mainloop
-// (sm90_igemm.cuh), which takes this file's quantize (quant16) and int8
-// epilogue (affine_relu, finish) as they are. K advances in
-// 64-byte chunks (32 bf16 or 64 s8 values); a Loader returns 16 bytes of
-// one pixel's row of A (8 bf16 or 16 s8), so the loaders' address rules do
-// not depend on the element width.
+// Only H4's int8 modes (s8 x s8 -> s32) still run on this core. Every other
+// kernel mode runs on the Hopper mainloop (sm90_igemm.cuh), which takes
+// this file's quantize (quant16) and int8 epilogue (affine_relu, finish) as
+// they are. K advances in 64-byte chunks of 64 s8 values; a Loader returns
+// 16 s8 values of one pixel's row of A (QuantLoader: 16 bf16 quantized).
 //
 // Design, first version: one 256-thread block computes BM pixels x all BN
-// (= 4O, 128 or 256) output channels, so the slot-max pool sees whole
-// pixels inside the block. Each thread prefetches its next
+// (= 4O, 128 or 256) output channels. Each thread prefetches its next
 // A/B chunk into registers (16-byte loads) while the warps run WMMA
 // 16x16x16 products on the current chunk in shared memory. The accumulator
 // tile is then staged in shared memory for the epilogue. No wgmma/TMA yet.
@@ -38,67 +34,46 @@ namespace wmma = nvcuda::wmma;
 constexpr int kThreads = 256;
 constexpr int kChunkBytes = 64;
 
-template <class T>
-struct Elem;
-template <>
-struct Elem<bf16> {
-  using Acc = float;
-};
-template <>
-struct Elem<s8> {
-  using Acc = int;
-};
-
-template <int BN, class T = bf16>
+template <int BN>
 struct TileCfg {
   static_assert(BN == 128 || BN == 256, "BN (= 4O) must be 128 or 256");
-  using Acc = typename Elem<T>::Acc;
-  static constexpr bool S8 = sizeof(T) == 1;
-  static constexpr int VEC = 16 / (int)sizeof(T);  // elements per 16 bytes
-  static constexpr int BK = kChunkBytes / (int)sizeof(T);
+  static constexpr int VEC = 16;  // s8 elements per 16 bytes
+  static constexpr int BK = kChunkBytes;
   static constexpr int BM = BN == 128 ? 128 : 64;
   static constexpr int WARPS_N = BN / 64;
   static constexpr int WARPS_M = 8 / WARPS_N;
   static constexpr int WARP_M = BM / WARPS_M;  // 32
   static constexpr int FM = WARP_M / 16;       // 2
   static constexpr int FN = 64 / 16;           // 4
-  // bf16: row-major A [BM][BK+8] and B [BK][BN+8] (padding spreads banks).
-  // s8: 16-byte column blocks, A [BK/16][BM][16] and B [BN/16][BK][16], so
+  // 16-byte column blocks, A [BK/16][BM][16] and B [BN/16][BK][16], so
   // every WMMA fragment pointer is 32-byte aligned as load_matrix_sync
   // requires (a 16-wide s8 k step is only 16 bytes).
-  static constexpr int LDA = S8 ? 16 : BK + 8;
-  static constexpr int LDB = S8 ? 16 : BN + 8;
+  static constexpr int LDA = 16;
+  static constexpr int LDB = 16;
   static constexpr int LDC = BN + 4;  // 4-byte accumulator elements
   static constexpr int A_VECS = BM * BK / VEC / kThreads;
   static constexpr int B_VECS = BK * BN / VEC / kThreads;
-  static constexpr int A_BYTES = S8 ? BM * BK : BM * LDA * 2;
-  static constexpr int B_BYTES = S8 ? BK * BN : BK * LDB * 2;
+  static constexpr int A_BYTES = BM * BK;
+  static constexpr int B_BYTES = BK * BN;
   static constexpr int C_BYTES = BM * LDC * 4;
   static constexpr int SMEM =
       (A_BYTES + B_BYTES) > C_BYTES ? (A_BYTES + B_BYTES) : C_BYTES;
 
   __device__ static __forceinline__ int a_off(int r, int k) {
-    return S8 ? (k >> 4) * (BM * 16) + r * 16 + (k & 15) : r * LDA + k;
+    return (k >> 4) * (BM * 16) + r * 16 + (k & 15);
   }
   __device__ static __forceinline__ int b_off(int k, int n) {
-    return S8 ? (n >> 4) * (BK * 16) + k * 16 + (n & 15) : k * LDB + n;
+    return (n >> 4) * (BK * 16) + k * 16 + (n & 15);
   }
-  // Row k and first column n of the v-th 16-byte vector of a B chunk. For
-  // s8 a warp fills one column block, so its shared stores do not collide.
+  // Row k and first column n of the v-th 16-byte vector of a B chunk: a
+  // warp fills one column block, so its shared stores do not collide.
   __device__ static __forceinline__ void b_vec(int v, int& k, int& n) {
-    if (S8) {
-      k = v % BK;
-      n = (v / BK) * 16;
-    } else {
-      k = v / (BN / VEC);
-      n = (v % (BN / VEC)) * VEC;
-    }
+    k = v % BK;
+    n = (v / BK) * 16;
   }
 };
 
-template <int BN, class T>
-using AccFrag = wmma::fragment<wmma::accumulator, 16, 16, 16,
-                               typename Elem<T>::Acc>;
+using AccFrag = wmma::fragment<wmma::accumulator, 16, 16, 16, int>;
 
 __device__ __forceinline__ uint4 zero4() { return make_uint4(0u, 0u, 0u, 0u); }
 
@@ -169,32 +144,31 @@ struct QuantLoader {
   }
 };
 
-template <int BN, class T>
+template <int BN>
 __device__ __forceinline__ void zero_acc(
-    AccFrag<BN, T> (&acc)[TileCfg<BN, T>::FM][TileCfg<BN, T>::FN]) {
-  using C = TileCfg<BN, T>;
+    AccFrag (&acc)[TileCfg<BN>::FM][TileCfg<BN>::FN]) {
+  using C = TileCfg<BN>;
 #pragma unroll
   for (int a = 0; a < C::FM; ++a)
 #pragma unroll
     for (int b = 0; b < C::FN; ++b)
-      wmma::fill_fragment(acc[a][b], (typename C::Acc)0);
+      wmma::fill_fragment(acc[a][b], 0);
 }
 
 // acc += A[m0:m0+BM, kbeg:kend] @ W, where w points at W's row kbeg
 // ([kend - kbeg, BN], row-major). Loader:
 //   Row row(long long m, bool ok) const;  // per-pixel context
-//   uint4 load(const Row&, int k) const;   // A[m, k..k+VEC-1], k % VEC == 0
-//                                          // (VEC = 16 / sizeof(T))
+//   uint4 load(const Row&, int k) const;   // A[m, k..k+15], k % 16 == 0
 // load() is only called for ok rows and k < kend (k is absolute, so one
 // Loader can serve several K ranges). smem holds the A/B chunk buffers.
-template <int BN, class T, class Loader>
+template <int BN, class Loader>
 __device__ __forceinline__ void igemm_accumulate(
-    const Loader& ld, const T* __restrict__ w, int kbeg, int kend,
+    const Loader& ld, const s8* __restrict__ w, int kbeg, int kend,
     long long m0, long long M, unsigned char* smem,
-    AccFrag<BN, T> (&acc)[TileCfg<BN, T>::FM][TileCfg<BN, T>::FN]) {
-  using C = TileCfg<BN, T>;
-  T* As = reinterpret_cast<T*>(smem);
-  T* Bs = reinterpret_cast<T*>(smem + C::A_BYTES);
+    AccFrag (&acc)[TileCfg<BN>::FM][TileCfg<BN>::FN]) {
+  using C = TileCfg<BN>;
+  s8* As = reinterpret_cast<s8*>(smem);
+  s8* Bs = reinterpret_cast<s8*>(smem + C::A_BYTES);
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int wm = warp / C::WARPS_N;
@@ -245,9 +219,9 @@ __device__ __forceinline__ void igemm_accumulate(
     if (k0 + C::BK < kend) fetch(k0 + C::BK);  // in flight during products
 #pragma unroll
     for (int kk = 0; kk < C::BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major>
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, s8, wmma::row_major>
           fa[C::FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major>
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, s8, wmma::row_major>
           fb[C::FN];
 #pragma unroll
       for (int a = 0; a < C::FM; ++a)
@@ -269,16 +243,15 @@ __device__ __forceinline__ void igemm_accumulate(
 
 // Stage the accumulator tile in shared memory ([BM][LDC], over the chunk
 // buffers) and return it.
-template <int BN, class T>
-__device__ __forceinline__ typename Elem<T>::Acc* stage_acc(
-    AccFrag<BN, T> (&acc)[TileCfg<BN, T>::FM][TileCfg<BN, T>::FN],
-    unsigned char* smem) {
-  using C = TileCfg<BN, T>;
+template <int BN>
+__device__ __forceinline__ int* stage_acc(
+    AccFrag (&acc)[TileCfg<BN>::FM][TileCfg<BN>::FN], unsigned char* smem) {
+  using C = TileCfg<BN>;
   const int warp = threadIdx.x >> 5;
   const int wm = warp / C::WARPS_N;
   const int wn = warp % C::WARPS_N;
   __syncthreads();  // the chunk buffers become the stage
-  typename C::Acc* Cs = reinterpret_cast<typename C::Acc*>(smem);
+  int* Cs = reinterpret_cast<int*>(smem);
 #pragma unroll
   for (int a = 0; a < C::FM; ++a)
 #pragma unroll
@@ -291,14 +264,15 @@ __device__ __forceinline__ typename Elem<T>::Acc* stage_acc(
 }
 
 // C[m0:m0+BM, 0:BN] = A[:, 0:K] @ W, staged in shared memory.
-template <int BN, class T, class Loader>
-__device__ __forceinline__ typename Elem<T>::Acc* igemm_tile(
-    const Loader& ld, const T* __restrict__ w, int K, long long m0,
-    long long M, unsigned char* smem) {
-  AccFrag<BN, T> acc[TileCfg<BN, T>::FM][TileCfg<BN, T>::FN];
-  zero_acc<BN, T>(acc);
-  igemm_accumulate<BN, T>(ld, w, 0, K, m0, M, smem, acc);
-  return stage_acc<BN, T>(acc, smem);
+template <int BN, class Loader>
+__device__ __forceinline__ int* igemm_tile(const Loader& ld,
+                                           const s8* __restrict__ w, int K,
+                                           long long m0, long long M,
+                                           unsigned char* smem) {
+  AccFrag acc[TileCfg<BN>::FM][TileCfg<BN>::FN];
+  zero_acc<BN>(acc);
+  igemm_accumulate<BN>(ld, w, 0, K, m0, M, smem, acc);
+  return stage_acc<BN>(acc, smem);
 }
 
 // Output rows of a tile: pixel index of stage row r, or -1 past the end.
@@ -336,13 +310,12 @@ __device__ __forceinline__ float finish(float v, s8*) {
 
 __device__ __forceinline__ float finish(float v, bf16*) { return bf_round(v); }
 
-// Apply the affine epilogue to the stage (int or float accumulators) and
-// store whole pixels to out [pixels, BN] when out is set; with keep, write
-// the finished value back into the stage as f32 for the pool / head passes.
-template <int BN, class Out, class AccT, class Rows>
+// Apply the affine epilogue to the stage and store whole pixels to out
+// [pixels, BN], requantized.
+template <int BN, class Rows>
 __device__ __forceinline__ void epilogue_affine(
-    AccT* Cs, const float* __restrict__ mul, const float* __restrict__ add,
-    Out* __restrict__ out, bool keep, const Rows& rows) {
+    const int* Cs, const float* __restrict__ mul,
+    const float* __restrict__ add, s8* __restrict__ out, const Rows& rows) {
   constexpr int LDC = BN + 4;
   for (int idx = threadIdx.x; idx < TileCfg<BN>::BM * (BN / 8);
        idx += kThreads) {
@@ -350,66 +323,28 @@ __device__ __forceinline__ void epilogue_affine(
     const int c = (idx % (BN / 8)) * 8;
     const long long m = rows(r);
     if (m < 0) continue;
-    AccT* crow = Cs + r * LDC + c;
+    const int* crow = Cs + r * LDC + c;
     float v[8];
 #pragma unroll
     for (int t = 0; t < 8; ++t)
       v[t] = finish(affine_relu((float)crow[t], mul[c + t], add[c + t]),
-                    (Out*)nullptr);
-    if (keep) {
-      float* frow = reinterpret_cast<float*>(crow);
-#pragma unroll
-      for (int t = 0; t < 8; ++t) frow[t] = v[t];
-    }
-    if (out != nullptr) store8(out + m * BN + c, v);
+                    (s8*)nullptr);
+    store8(out + m * BN + c, v);
   }
 }
 
-// 2x2/2 max pool in packed space: the max over the 4 slots of each channel
-// of the finished values (the finish is monotone, so this equals finishing
-// the pooled pre-cast value, as the TPU kernel does).
-template <int BN, class Out, class Rows>
-__device__ __forceinline__ void epilogue_pool(const float* Cs,
-                                              Out* __restrict__ pool,
-                                              const Rows& rows) {
-  constexpr int LDC = BN + 4;
-  constexpr int O = BN / 4;
-  for (int idx = threadIdx.x; idx < TileCfg<BN>::BM * (O / 8);
-       idx += kThreads) {
-    const int r = idx / (O / 8);
-    const int c = (idx % (O / 8)) * 8;
-    const long long m = rows(r);
-    if (m < 0) continue;
-    const float* crow = Cs + r * LDC + c;
-    float v[8];
-#pragma unroll
-    for (int t = 0; t < 8; ++t)
-      v[t] = fmaxf(fmaxf(crow[t], crow[O + t]),
-                   fmaxf(crow[2 * O + t], crow[3 * O + t]));
-    store8(pool + m * O + c, v);
-  }
-}
-
-// Set the dynamic shared-memory limit and launch; returns the CUDA error.
-template <class Kernel, class... Args>
-int launch_grid(Kernel kernel, dim3 grid, int smem, cudaStream_t stream,
-                Args... args) {
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  kernel<<<grid, kThreads, smem, stream>>>(args...);
-  return (int)cudaGetLastError();
-}
-
-// One block per BM output pixels, with the core's shared memory plus
-// extra bytes.
-template <int BN, class T = bf16, class Kernel, class... Args>
-int launch(Kernel kernel, long long M, cudaStream_t stream, int extra,
-           Args... args) {
-  using C = TileCfg<BN, T>;
+// One block per BM output pixels with the core's shared memory (its
+// dynamic limit set first); returns the CUDA error.
+template <int BN, class Kernel, class... Args>
+int launch(Kernel kernel, long long M, cudaStream_t stream, Args... args) {
+  using C = TileCfg<BN>;
   if (M <= 0) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (e != cudaSuccess) return (int)e;
   const unsigned grid = (unsigned)((M + C::BM - 1) / C::BM);
-  return launch_grid(kernel, dim3(grid), C::SMEM + extra, stream, args...);
+  kernel<<<grid, kThreads, C::SMEM, stream>>>(args...);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace segk

@@ -1,8 +1,8 @@
 // The forward of the packed 2x2 convs (H1 packed_conv2x2, H2
 // packed_conv2x2_dual), bf16 and int8, as a problem of the Hopper mainloop
 // sm90_igemm.cuh, and the output side (FwdOut: the tile walk and the
-// epilogue) that it shares with the bf16 problems of H3
-// (strided_conv4x4s2.cu) and H4 (rows_matmul.cu).
+// epilogue) that it shares with the problems of H3 (strided_conv4x4s2.cu,
+// every mode), H4's bf16 (rows_matmul.cu) and H5 (entry_chain.cu).
 //
 //   y[n, i, j, :] = relu(bias + sum over taps (u, v) and sides of
 //                        x_side[n, i + u, j + v, :] w_side[u, v])
@@ -92,7 +92,9 @@ using bf16 = __nv_bfloat16;
 // EPI, the epilogue's options: kPool and kHead (compiled in only where
 // asked: the head's sums beside 128 accumulators would spill); the int8
 // modes: kInt8 (s8 operands, s32 accumulation, the int8 epilogue),
-// kRequant (s8 out), kTwoAcc (one accumulator per side, H2).
+// kRequant (s8 out; without kInt8: the int8 epilogue on the f32
+// accumulators of a bf16 product, H3's requant-only entry), kTwoAcc (one
+// accumulator per side, H2).
 constexpr int kPool = 1, kHead = 2, kInt8 = 4, kRequant = 8, kTwoAcc = 16;
 
 // The output side of a forward problem: 4O = O4 columns, tiles of th x tw
@@ -106,7 +108,7 @@ struct FwdOut {
   static constexpr int SIDES = (EPI & kTwoAcc) != 0 ? 2 : 1;
   using Acc = std::conditional_t<INT8, int, float>;
   using OutT = std::conditional_t<(EPI & kRequant) != 0, s8, bf16>;
-  static_assert(INT8 || (EPI & (kRequant | kTwoAcc)) == 0, "int8 options");
+  static_assert(INT8 || (EPI & kTwoAcc) == 0, "int8 options");
   static_assert((EPI & kHead) == 0 || std::is_same_v<OutT, bf16>,
                 "the head reads the bf16 value");
   static constexpr int NB = O4;
@@ -231,10 +233,31 @@ struct FwdOut {
     }
   }
 
-  // bf16: relu(acc + bias) rounded to bf16, in place
+  // bf16: relu(acc + bias) rounded to bf16, in place; kRequant: the int8
+  // epilogue relu(acc * mul + add) requantized, in place
   __device__ void store(int t, int cg, float (&acc)[MI][NI / 2],
                         uint8_t* scratch, uint8_t* stage) const {
     const int q = threadIdx.x & 3;
+    if constexpr ((EPI & kRequant) != 0) {
+#pragma unroll
+      for (int jn = 0; jn < NI / 8; ++jn) {
+        const float2 m2 = __ldg(reinterpret_cast<const float2*>(mul) +
+                                4 * jn + q);
+        const float2 a2 = __ldg(reinterpret_cast<const float2*>(add) +
+                                4 * jn + q);
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float& d = acc[mi][4 * jn + e];
+            d = finish(affine_relu(d, e & 1 ? m2.y : m2.x,
+                                   e & 1 ? a2.y : a2.x),
+                       (OutT*)nullptr);
+          }
+      }
+      emit(t, cg, acc, scratch, stage);
+      return;
+    }
     // fragment: acc[mi][4 jn + 2 h + e] is row m0 + 64 mi + lane / 4 + 8 h,
     // column 8 jn + 2 q + e
 #pragma unroll

@@ -169,8 +169,8 @@ __global__ void __launch_bounds__(kThreads)
                           long long M) {
   extern __shared__ __align__(128) unsigned char seg_smem[];
   const long long m0 = (long long)blockIdx.x * TileCfg<BN>::BM;
-  int* Cs = igemm_tile<BN, s8>(ld, w, K, m0, M, seg_smem);
-  epilogue_affine<BN, s8>(Cs, mul, add, y, false, Linear{m0, M});
+  const int* Cs = igemm_tile<BN>(ld, w, K, m0, M, seg_smem);
+  epilogue_affine<BN>(Cs, mul, add, y, Linear{m0, M});
 }
 
 template <class Loader>
@@ -178,13 +178,13 @@ int run_rows_s8(const Loader& ld, int K, int o4, const void* w,
                 const void* mul, const void* add, void* y, long long M,
                 cudaStream_t s) {
   if (o4 == 128)
-    return launch<128, s8>(rows_matmul_s8_kernel<128, Loader>, M, s, 0, ld,
-                           K, (const s8*)w, (const float*)mul,
-                           (const float*)add, (s8*)y, M);
+    return launch<128>(rows_matmul_s8_kernel<128, Loader>, M, s, ld, K,
+                       (const s8*)w, (const float*)mul, (const float*)add,
+                       (s8*)y, M);
   if (o4 == 256)
-    return launch<256, s8>(rows_matmul_s8_kernel<256, Loader>, M, s, 0, ld,
-                           K, (const s8*)w, (const float*)mul,
-                           (const float*)add, (s8*)y, M);
+    return launch<256>(rows_matmul_s8_kernel<256, Loader>, M, s, ld, K,
+                       (const s8*)w, (const float*)mul, (const float*)add,
+                       (s8*)y, M);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -46,6 +46,8 @@
 //             false: each takes 64 MI rows of all NI = NB columns),
 //             A_ROWS (rows of an A slot), A_STAGES, B_STAGES, B_MN (B is
 //             MN-major), GATHER (some A slots are gathered: see gather),
+//             optionally KSTEPS (the k-steps of a K block that hold data,
+//             4 without it: a gathered block whose tail is zeros),
 //             PINGPONG (the consumers take alternate tiles of BM = 64 MI
 //             rows, so that one's epilogue overlaps the other's wgmma),
 //             PRODUCER_REGS (the producer warpgroup's registers:
@@ -69,6 +71,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace sm90 {
 
@@ -612,6 +616,16 @@ struct Pos {
   }
 };
 
+// A problem's k-steps per K block: P::KSTEPS where it has one, else 4.
+template <class P, class = void>
+struct KSteps {
+  static constexpr int value = 4;
+};
+template <class P>
+struct KSteps<P, std::void_t<decltype(P::KSTEPS)>> {
+  static constexpr int value = P::KSTEPS;
+};
+
 template <class P>
 struct Ring {
   static constexpr int A_BYTES = P::A_ROWS * 128;
@@ -735,7 +749,7 @@ __device__ __forceinline__ void consume(const P& p, const Ring<P>& r,
         // the K blocks of one side into d; `more`: d already holds a sum
         auto mma = [&](Acc (&d)[P::MI][P::NI / 2], bool more) {
 #pragma unroll
-          for (int ks = 0; ks < 4; ++ks)
+          for (int ks = 0; ks < KSteps<P>::value; ++ks)
 #pragma unroll
             for (int mi = 0; mi < P::MI; ++mi)
               wgmma_step<P::NI, P::B_MN>(d[mi], da + 512 * mi + 2 * ks,

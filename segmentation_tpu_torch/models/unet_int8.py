@@ -64,6 +64,7 @@ from segmentation_tpu_torch.nn.kernels.conv_int8 import (
     Int8Ops,
     conv3x3_s8,
     k_major,
+    strided_k_major,
 )
 from segmentation_tpu_torch.nn.packing import crop_packed
 
@@ -332,14 +333,17 @@ class UNetS2DInt8(UNetS2DInference):
         """Add the hand-kernel sites' epilogue vectors to a calibrated
         ``p`` and return it: ``qmul``/``qadd`` (and the duals'
         ``qcs_a``/``qcs_b``), computed once from the activation scales, and
-        the K-major copies of the H1 and H2 sites' s8 weights (``wk``,
-        ``wk_a``/``wk_b``: conv_int8.k_major, which their s8 wgmma reads;
-        made here once, never per request). The int8 route runs on a
-        planned dict only (``_PLANNED`` in it)."""
+        the K-major copies of the s8 weights that s8 wgmma reads (H1's and
+        H5's conv1_2 ``wk`` and H2's ``wk_a``/``wk_b``: conv_int8.k_major;
+        H3's ``wk4``: conv_int8.strided_k_major; made here once, never per
+        request). The int8 route runs on a planned dict only
+        (``_PLANNED`` in it)."""
         entry, packed, dual, _ = self._site_names()
         q = {}
         for name in packed:
             q[f"{name}/wk"] = k_major(p[f"{name}/wq"])
+        for name in entry[1:]:
+            q[f"{name}/wk4"] = strided_k_major(p[f"{name}/wq4"])
         for name in dual:
             for side in "ab":
                 q[f"{name}/wk_{side}"] = k_major(p[f"{name}/wq_{side}"])
@@ -386,7 +390,8 @@ class UNetS2DInt8(UNetS2DInference):
             c1, c2 = "conv1_1", "conv1_2"
             return self.ops8.entry_chain(
                 h, p[f"{c1}/w4"], p[f"{c1}/qmul"], p[f"{c1}/qadd"],
-                p[f"{c2}/wq"], p[f"{c2}/qmul"], p[f"{c2}/qadd"])
+                p[f"{c2}/wq"], p[f"{c2}/qmul"], p[f"{c2}/qadd"],
+                wk=p[f"{c2}/wk"])
         return super()._encode_packed(p, lvl, h)
 
     def _strided(self, p, name, h):
@@ -397,7 +402,8 @@ class UNetS2DInt8(UNetS2DInference):
             # kernel needs C >= 16)
             return super()._strided(p, name, h)
         return self.ops8.strided_conv4x4s2(
-            h, p[f"{name}/wq4"], p[f"{name}/qmul"], p[f"{name}/qadd"])
+            h, p[f"{name}/wq4"], p[f"{name}/qmul"], p[f"{name}/qadd"],
+            wk4=p[f"{name}/wk4"])
 
     def _conv_pool(self, p, name, h4):
         if self._calibrating is not None:

@@ -22,14 +22,18 @@ the dual's ``act_scale_a`` / ``act_scale_b``): the inline-quantize modes,
 ``quant_inline``, bit-equal to nn/pallas/conv.py _quant_rows. A bf16
 operand without its scale raises.
 
-H1's and H2's int8 modes run on the Hopper mainloop (csrc/sm90_igemm.cuh
-with csrc/packed_conv2x2_fwd.cuh: TMA halo boxes, s8 wgmma). s8 wgmma
-reads B K-major only, so their wrappers take the K-major copy of each s8
-weight beside it (``wk``; the dual's ``wka`` / ``wkb``: ``k_major(wq)``,
-made once where the int8 weights are planned, models/unet_int8.py
+The int8 modes of H1–H3 and H5 run on the Hopper mainloop
+(csrc/sm90_igemm.cuh with csrc/packed_conv2x2_fwd.cuh: TMA halo boxes or
+operands gathered by the producer warpgroup, s8 wgmma); H4's int8 modes
+are the last on the first-version WMMA core (csrc/igemm.cuh). s8 wgmma
+reads B K-major only, so the wrappers take the K-major copy of each s8
+weight beside it (``wk``: ``k_major(wq)``, the dual's ``wka`` / ``wkb``,
+H5's conv1_2 ``wk``; H3's ``wk4``: ``strided_k_major(wq4)``), made once
+where the int8 weights are planned (models/unet_int8.py
 ``UNetS2DInt8.plan``); a CUDA call without it raises. The plain versions
 take the same arguments and ignore the copy, so ``Int8Ops`` swaps the two
-paths whole. Their output tiles are planned here (``tiles.tile_plan``).
+paths whole. Their output tiles are planned here (``tiles.tile_plan``;
+H5's ``tiles.entry_tile_plan``).
 
 They replace the int8 modes of the Pallas kernels of
 segmentation_tpu/nn/pallas/conv_flat.py (entry_chain_pf2 :1644,
@@ -76,7 +80,11 @@ from segmentation_tpu_torch.nn.kernels.conv_flat import (
     _head_mask,
     _o4_ok,
 )
-from segmentation_tpu_torch.nn.kernels.tiles import aligned, tile_plan
+from segmentation_tpu_torch.nn.kernels.tiles import (
+    aligned,
+    entry_tile_plan,
+    tile_plan,
+)
 from segmentation_tpu_torch.nn.packing import crop_packed, unpack2
 
 # the kernel modes, each with its launch count: resident s8 operands, the
@@ -158,6 +166,34 @@ def k_major(wq: torch.Tensor) -> torch.Tensor:
     return wq.reshape(-1, wq.shape[-1]).t().contiguous()
 
 
+def strided_k_width(c: int) -> int:
+    """K of H3's s8 product for x with C channels (the width of
+    ``strided_k_major``): four taps of ceil(2C / 64) K blocks of 128 bytes
+    (C % 16 == 0), or one im2col row of 16C values (the C = 3 entry)."""
+    if c % 16 == 0:
+        return 4 * -(-2 * c // 64) * 128
+    return 16 * c
+
+
+def strided_k_major(wq4: torch.Tensor) -> torch.Tensor:
+    """The K-major copy [4O, strided_k_width(C)] of H3's s8 weight wq4 [4,
+    4, C, 4O] in the order its kernel gathers A (csrc/strided_conv4x4s2.cu).
+    C % 16 == 0: one 128-byte row per space-to-depth pixel, row parity a
+    major, then bc = b·C + c of the pixel pair; a K block holds 64 of the
+    2C values bc of both parities, so row o holds, at (tap · kps + kb) ·
+    128 + 64 a + r, w4[2u + a, 2v + b, c, o] for bc = 64 kb + r < 2C (tap
+    = 2u + v, kps = ceil(2C / 64)) and 0 past 2C. Else (the C = 3 entry's
+    im2col rows) ``wq4.reshape(16C, 4O).T``."""
+    _, _, c, o4 = wq4.shape
+    if c % 16:
+        return wq4.reshape(16 * c, o4).t().contiguous()
+    kps = -(-2 * c // 64)
+    w = wq4.reshape(2, 2, 2, 2 * c, o4).permute(0, 2, 1, 3, 4)  # u v a bc
+    w = torch.nn.functional.pad(w, (0, 0, 0, 64 * kps - 2 * c))
+    w = w.reshape(2, 2, 2, kps, 64, o4).permute(0, 1, 3, 2, 4, 5)
+    return w.reshape(-1, o4).t().contiguous()
+
+
 def dual_tile_rows(o4: int) -> int:
     """GEMM rows of an output tile of H2's s8 mode (FwdOut::BM): its two
     s32 accumulators fit as m64n128 a side, the tile's rows split between
@@ -193,7 +229,9 @@ def packed_conv2x2_dual_s8_plain(skip, up, wqa, wqb, cs_a, cs_b, mul, add,
     return _finish(acc_a * cs_a + acc_b * cs_b, mul, add, True)
 
 
-def strided_conv4x4s2_s8_plain(x, wq4, mul, add, *, act_scale=None):
+def strided_conv4x4s2_s8_plain(x, wq4, mul, add, *, act_scale=None,
+                               wk4=None):
+    """H3 int8's plain version (``wk4``: not read)."""
     x = _codes(x, act_scale, "strided_conv4x4s2_s8")
     return _finish(_int_conv(x, wq4, 2), mul, add, True)
 
@@ -204,7 +242,7 @@ def conv3entry_requant_plain(x, w4, mul, add):
     return _finish(_int_conv(x, w4, 2), mul, add, True)
 
 
-def conv3entry_s8_plain(x, wq4, mul, add):
+def conv3entry_s8_plain(x, wq4, mul, add, *, wk4=None):
     return strided_conv4x4s2_s8_plain(x, wq4, mul, add)
 
 
@@ -216,7 +254,8 @@ def rows_matmul_s8_plain(x, wqm, mul, add, *, scatter=False, act_scale=None):
     return _finish(x.double() @ wqm.double(), mul, add, True)
 
 
-def entry_chain_plain(x, w4, mul1, add1, wq2, mul2, add2):
+def entry_chain_plain(x, w4, mul1, add1, wq2, mul2, add2, *, wk=None):
+    """H5's plain version (``wk``: not read)."""
     q1 = _finish(_int_conv(x, w4, 2), mul1, add1, True)
     y = _finish(_int_conv(q1, wq2), mul2, add2, True)
     return y, _slot_max(y)
@@ -368,8 +407,18 @@ def packed_conv2x2_dual_s8(skip, up, wqa, wqb, cs_a, cs_b, mul, add, *,
     return y
 
 
-def _strided_s8(x, wq4, mul, add, act_scale, mode):
-    """Launch H3's s8 mode (codes, or bf16 quantized inline)."""
+def strided_s8_plan(x):
+    """H3 int8's output tiles for x [N, H, W, C]: four taps over the tile's
+    halo of gathered space-to-depth pixels (C % 16 == 0), one tap over the
+    tile's im2col rows (the C = 3 entry's modes)."""
+    n, h, w, c = x.shape
+    return tile_plan(n, (h - 2) // 2, (w - 2) // 2, FWD_TILE_ROWS,
+                     halo=int(c % 16 == 0))
+
+
+def _strided_s8(x, wq4, mul, add, act_scale, mode, wk4):
+    """Launch H3's s8 mode (codes, bf16 quantized inline, or the entry's
+    C = 3 codes) with the K-major copy ``wk4``."""
     n, h, w, c = x.shape
     o4 = wq4.shape[-1]
     dev = x.device
@@ -378,24 +427,31 @@ def _strided_s8(x, wq4, mul, add, act_scale, mode):
         raise ValueError(f"{mode}: input {tuple(x.shape)} < 4x4")
     inv = _operand(x, "x", x.shape, act_scale, dev)
     _require(wq4, "wq4", S8, (4, 4, c, o4), dev)
+    if wk4 is None:
+        raise ValueError(f"{mode}: a CUDA call needs the K-major weight copy "
+                         f"(strided_k_major(wq4), [{o4}, "
+                         f"{strided_k_width(c)}] s8)")
+    _require(wk4, "wk4", S8, (o4, strided_k_width(c)), dev)
     _vec(mul, "mul", o4, dev)
     _vec(add, "add", o4, dev)
+    aligned(mode, wk4, mul, add, *([x] if c % 16 == 0 else []))
     y = torch.empty((n, (h - 2) // 2, (w - 2) // 2, o4), dtype=S8,
                     device=dev)
+    plan = strided_s8_plan(x)
     with torch.cuda.device(dev):
         err = _build.library().seg_strided_conv4x4s2_s8(
-            _ptr(x), _ptr(wq4), _ptr(mul), _ptr(add), _ptr(y), n, h, w, c,
-            o4, inv, _stream(x),
+            _ptr(x), _ptr(wk4), _ptr(mul), _ptr(add), _ptr(y), n, h, w, c,
+            o4, inv, plan.th, plan.tw, _stream(x),
         )
     _build.check(err, mode)
     launches[mode] += 1
     return y
 
 
-def strided_conv4x4s2_s8(x, wq4, mul, add, *, act_scale=None):
+def strided_conv4x4s2_s8(x, wq4, mul, add, *, act_scale=None, wk4=None):
     """H3 int8: x [N,H,W,C] (C % 16 == 0) s8 codes, or bf16 quantized
-    inline at ``act_scale``; wq4 s8 [4,4,C,4O] → s8 packed
-    [N,(H-2)//2,(W-2)//2,4O]."""
+    inline at ``act_scale``; wq4 s8 [4,4,C,4O] and its K-major copy
+    ``wk4`` (CUDA) → s8 packed [N,(H-2)//2,(W-2)//2,4O]."""
     _check_operand(x, act_scale, "strided_conv4x4s2_s8")
     if _on_cpu(x):
         return strided_conv4x4s2_s8_plain(x, wq4, mul, add,
@@ -404,19 +460,20 @@ def strided_conv4x4s2_s8(x, wq4, mul, add, *, act_scale=None):
         raise ValueError(f"strided_conv4x4s2_s8: C = {x.shape[-1]}, not a "
                          "multiple of 16")
     return _strided_s8(x, wq4, mul, add, act_scale,
-                       _mode("strided_conv4x4s2_s8", act_scale))
+                       _mode("strided_conv4x4s2_s8", act_scale), wk4)
 
 
-def conv3entry_s8(x, wq4, mul, add):
+def conv3entry_s8(x, wq4, mul, add, *, wk4=None):
     """H3's s8-input entry (conv3entry_pf2's int8-in mode, u8-native image
     serving): x s8 image codes [N,H,W,3], wq4 s8 [4,4,3,4O] (the
-    s2d-folded taps), mul = chan_scale/out_scale, add = bias/out_scale →
-    s8 packed [N,(H-2)//2,(W-2)//2,4O]; the 3-byte pixels are gathered."""
+    s2d-folded taps) and its K-major copy ``wk4`` (CUDA), mul =
+    chan_scale/out_scale, add = bias/out_scale → s8 packed
+    [N,(H-2)//2,(W-2)//2,4O]; the 3-byte pixels are gathered."""
     if _on_cpu(x):
         return conv3entry_s8_plain(x, wq4, mul, add)
     if x.shape[-1] != 3:
         raise ValueError(f"conv3entry_s8: C = {x.shape[-1]}, not 3")
-    return _strided_s8(x, wq4, mul, add, None, "conv3entry_s8")
+    return _strided_s8(x, wq4, mul, add, None, "conv3entry_s8", wk4)
 
 
 def conv3entry_requant(x, w4, mul, add):
@@ -437,12 +494,14 @@ def conv3entry_requant(x, w4, mul, add):
     _require(w4, "w4", BF16, (4, 4, c, o4), dev)
     _vec(mul, "mul", o4, dev)
     _vec(add, "add", o4, dev)
+    aligned("conv3entry_requant", w4, mul, add)
     y = torch.empty((n, (h - 2) // 2, (w - 2) // 2, o4), dtype=S8,
                     device=dev)
+    plan = strided_s8_plan(x)  # one tap over the tile: gathered
     with torch.cuda.device(dev):
         err = _build.library().seg_strided_conv4x4s2_requant(
             _ptr(x), _ptr(w4), _ptr(mul), _ptr(add), _ptr(y), n, h, w, c,
-            o4, _stream(x),
+            o4, plan.th, plan.tw, _stream(x),
         )
     _build.check(err, "conv3entry_requant")
     launches["conv3entry_requant"] += 1
@@ -480,11 +539,13 @@ def rows_matmul_s8(x, wqm, mul, add, *, scatter=False, act_scale=None):
     return y
 
 
-def entry_chain(x, w4, mul1, add1, wq2, mul2, add2):
+def entry_chain(x, w4, mul1, add1, wq2, mul2, add2, *, wk=None):
     """H5: x bf16 [N,H,W,3] → (y s8 [N,h1-1,w1-1,128], pooled s8
     [N,h1-1,w1-1,32]), h1 = (H-2)//2: conv1_1 (w4 bf16 [4,4,3,128], f32
-    accumulation, requant by mul1/add1), conv1_2 (wq2 s8 [2,2,128,128],
-    requant by mul2/add2) and the slot-max pool in one launch."""
+    accumulation, requant by mul1/add1), conv1_2 (wq2 s8 [2,2,128,128]
+    and, on CUDA, its K-major copy ``wk = k_major(wq2)``, requant by
+    mul2/add2) and the slot-max pool in one launch, tiled by
+    ``tiles.entry_tile_plan``."""
     if _on_cpu(x):
         return entry_chain_plain(x, w4, mul1, add1, wq2, mul2, add2)
     n, h, w, c = x.shape
@@ -495,16 +556,19 @@ def entry_chain(x, w4, mul1, add1, wq2, mul2, add2):
     _require(x, "x", BF16, x.shape, dev)
     _require(w4, "w4", BF16, (4, 4, 3, 128), dev)
     _require(wq2, "wq2", S8, (2, 2, 128, 128), dev)
+    _k_major_operand(wk, "wk", 128, 128, dev)
     for t, name in ((mul1, "mul1"), (add1, "add1"), (mul2, "mul2"),
                     (add2, "add2")):
         _vec(t, name, 128, dev)
+    aligned("entry_chain", w4, wk, mul1, add1, mul2, add2)
     y = torch.empty((n, h1 - 1, w1 - 1, 128), dtype=S8, device=dev)
     pooled = torch.empty((n, h1 - 1, w1 - 1, 32), dtype=S8, device=dev)
+    plan = entry_tile_plan(n, h1 - 1, w1 - 1)
     with torch.cuda.device(dev):
         err = _build.library().seg_entry_chain(
-            _ptr(x), _ptr(w4), _ptr(mul1), _ptr(add1), _ptr(wq2),
+            _ptr(x), _ptr(w4), _ptr(mul1), _ptr(add1), _ptr(wk),
             _ptr(mul2), _ptr(add2), _ptr(y), _ptr(pooled), n, h, w,
-            _stream(x),
+            plan.th, plan.tw, _stream(x),
         )
     _build.check(err, "entry_chain")
     launches["entry_chain"] += 1

@@ -1,5 +1,6 @@
 """The output tiles of the Hopper kernels on ``csrc/sm90_igemm.cuh`` (the
-bf16 forward of H1–H4, H6 dgrad), and TMA's rule on what it can box.
+forward of H1–H3, H4's bf16, H5, H6 dgrad), and TMA's rule on what it can
+box.
 
 Each kernel walks th × tw pixel rectangles of one image of its output
 grid and reads its A operand per K block as one TMA halo box (the four
@@ -70,6 +71,54 @@ def tile_plan(n: int, hx: int, wx: int, rows: int, halo: int = 1,
     nh, nw = best
     tw = -(-(-(-wx // nw)) // step) * step
     return TilePlan(n, hx, wx, -(-hx // nh), tw)
+
+
+# H5 (csrc/entry_chain.cu): a tile's GEMM rows (conv1_2's two m64 groups),
+# the rows of its shared-memory slot (the halo's conv1_1 pixels in m64
+# chunks), and the wgmma k-steps of conv1_2 a tile (4 taps x 4 k32 steps
+# per m64 group) and of conv1_1 an m64 chunk (3 k16 steps)
+ENTRY_TILE_ROWS, ENTRY_SLOT_ROWS = 128, 256
+ENTRY_CONV1_2_STEPS, ENTRY_CONV1_1_STEPS = 32, 3
+
+
+def entry_halo_chunks(th: int, tw: int) -> int:
+    """The m64 chunks of conv1_1 rows that H5 computes for one tile."""
+    return -(-(th + 1) * (tw + 1) // 64)
+
+
+@functools.lru_cache(maxsize=64)
+def entry_tile_plan(n: int, ho: int, wo: int) -> TilePlan:
+    """H5's tiles of its [n, ho, wo] output (conv1_2's): th · (tw + 1) <=
+    ENTRY_TILE_ROWS GEMM rows, the (th + 1) × (tw + 1) halo of conv1_1
+    pixels within the slot, and the largest tap shift too (tw + 130 <=
+    ENTRY_SLOT_ROWS). Each tile recomputes its halo, which its neighbours
+    compute as well, so the plan weighs both products: the fewest wgmma
+    k-steps over the tiles (conv1_2's fixed 32, conv1_1's 3 per m64 chunk
+    of halo rows), ties to the fewer halo rows; then th and tw shrink to
+    the least that keeps the tile counts. At 512² (254 × 254 outputs): 8 ×
+    15, 144 halo rows for 120 outputs."""
+    best = None
+    for tw in range(1, min(wo, ENTRY_SLOT_ROWS - ENTRY_TILE_ROWS - 2) + 1):
+        for th in range(1, min(ho, ENTRY_TILE_ROWS // (tw + 1)) + 1):
+            if (th + 1) * (tw + 1) > ENTRY_SLOT_ROWS:
+                break
+            nh, nw = -(-ho // th), -(-wo // tw)
+            steps = ENTRY_CONV1_2_STEPS + ENTRY_CONV1_1_STEPS * \
+                entry_halo_chunks(th, tw)
+            key = (nh * nw * steps, nh * nw * (th + 1) * (tw + 1))
+            if best is None or key < best[0]:
+                best = (key, nh, nw)
+    _, nh, nw = best
+    return TilePlan(n, ho, wo, -(-ho // nh), -(-wo // nw))
+
+
+def entry_recompute(plan: TilePlan) -> float:
+    """H5's recompute share: the conv1_1 rows its tiles compute (each
+    tile's (th + 1) × (tw + 1) halo, ragged tiles' rows past the grid
+    included) over the conv1_1 pixels the level reads ((ho + 1) × (wo +
+    1) an image), less one."""
+    rows = plan.count * (plan.th + 1) * (plan.tw + 1)
+    return rows / (plan.n * (plan.hx + 1) * (plan.wx + 1)) - 1.0
 
 
 def strided_boxable(x: torch.Tensor) -> bool:

@@ -1,5 +1,5 @@
 """Time source variants of the kernels on the Hopper mainloop (the bf16
-forward of H1–H4, H6, and the int8 modes of H1 and H2) in turns on one
+forward of H1–H4, H6, and the int8 modes of H1–H3 and H5) in turns on one
 GPU.
 
     python -m segmentation_tpu_torch.profile_variants \
@@ -10,8 +10,8 @@ Each variant is a copy of this package with named source patches
 (``VARIANTS``), made under ``csrc/build/variants/<name>/`` and built
 there by its own process (all at once). The copies then time the ten
 packed sites of the 512² forward (B = 8, chip_smoke.py's phase-3 shapes),
-H6's six training sites and the int8 sites of H1 and H2 (phase 3b's
-shapes; the K-major weight copies made here, outside the timing, and
+H6's six training sites and the int8 sites of H1, H2, H3 and H5 (phase
+3b's shapes; the K-major weight copies made here, outside the timing, and
 passed only to a package whose wrappers take them), each the least of 3
 runs of 20 launches by CUDA events, in turns: the variants in order, then
 in reverse, --rounds times. Before timing, each variant but the cut-outs
@@ -42,7 +42,11 @@ them, loading nothing); the int8 gather of H1 and H2 (the inline-quantize
 modes, the skip at an odd offset): ``s8_gather_chunks_8`` (eight chunks a
 thread in flight instead of four, its warpgroup at 96 registers) and the
 cut-out ``s8_gather_no_quant`` (the loads and stores without the
-quantize).
+quantize); H5's cut-outs ``entry_no_gather`` (its producer warps gather
+nothing: conv1_1 runs on whatever the slots hold) and ``entry_no_conv1_1``
+(no conv1_1 and no requant into the slot: conv1_2 reads the gathered bf16
+rows as codes); and H5's tiles ``entry_tile_wide`` (tile_plan's fewest
+tiles of 127 rows, 1 × 126 at 512², for entry_tile_plan's 8 × 15).
 """
 
 from __future__ import annotations
@@ -59,6 +63,9 @@ PKG = Path(__file__).resolve().parent
 FWD = "csrc/packed_conv2x2_fwd.cuh"
 SM90 = "csrc/sm90_igemm.cuh"
 STRIDED = "csrc/strided_conv4x4s2.cu"
+ENTRY = "csrc/entry_chain.cu"
+IM2COL = "csrc/im2col.cuh"
+TILES = "nn/kernels/tiles.py"
 FLAT = "nn/kernels/conv_flat.py"
 
 # (file in the package, text, replacement, occurrences)
@@ -79,7 +86,7 @@ _NO_LOAD: List[Patch] = [
            "        p.load_b(kb, tap, r.b(b.stage), r.b_full(b.stage));",
      "        mbar_expect_tx(r.b_full(b.stage), 0u);", 1)]
 CUTS = ("no_store", "no_store_no_load", "gather_no_load",
-        "s8_gather_no_quant")
+        "s8_gather_no_quant", "entry_no_gather", "entry_no_conv1_1")
 PARENT = "parent"  # another checkout's package (--parent), unpatched
 VARIANTS: Dict[str, List[Patch]] = {
     "base": [],
@@ -114,7 +121,7 @@ VARIANTS: Dict[str, List[Patch]] = {
         (STRIDED, "GATHER_TASKS = MODE == kHalves ? 2 : 4;",
          "GATHER_TASKS = 2;", 1)],
     "gather_no_load": [
-        (STRIDED, "return __ldg(reinterpret_cast<const unsigned int*>(p));",
+        (IM2COL, "return __ldg(reinterpret_cast<const unsigned int*>(p));",
          "return (uint32_t)(uintptr_t)p;", 1)],
     "no_l2_prefetch": [
         (STRIDED, "      if (kb == 0) prefetch_rows(t + gridDim.x, tid, "
@@ -127,6 +134,16 @@ VARIANTS: Dict[str, List[Patch]] = {
     "s8_gather_no_quant": [
         (FWD, "? quant16(lo[u], hi[u], inv) : lo[u];",
          "? make_uint4(lo[u].x ^ hi[u].x, 0, 0, 0) : lo[u];", 1)],
+    "entry_no_gather": [
+        (ENTRY, "    p.img.template gather<P::GATHER_TASKS>(s.a(a.stage), 0, "
+                "n, i0, j0, eh,\n", "    if (eh < 0)\n"
+                "    p.img.template gather<P::GATHER_TASKS>(s.a(a.stage), 0, "
+                "n, i0, j0, eh,\n", 1)],
+    "entry_no_conv1_1": [
+        (ENTRY, "    entry_conv1_1(p, slot, d_w4);\n", "", 1)],
+    "entry_tile_wide": [
+        (TILES, "    return TilePlan(n, ho, wo, -(-ho // nh), -(-wo // nw))\n",
+         "    return tile_plan(n, ho, wo, ENTRY_TILE_ROWS - 1)\n", 1)],
 }
 
 
@@ -230,11 +247,11 @@ def _sites(gen):
 
 
 def _sites8(gen, n):
-    """The int8 sites of H1 and H2 (chip_smoke.py's phase 3b): s8 codes,
-    bf16 operands at act_scale 1/16 for the inline modes, s8 weights with
-    their K-major copies (``wk``, ``wka``, ``wkb``), epilogue vectors that
-    spread the codes over their range. The op is the kernel mode
-    (conv_int8.NAMES)."""
+    """The int8 sites of H5, H3, H1 and H2 (chip_smoke.py's phase 3b): s8
+    codes, bf16 operands at act_scale 1/16 for the inline modes, s8 weights
+    with their K-major copies (``wk``, ``wka``, ``wkb``, ``wk4``), epilogue
+    vectors that spread the codes over their range. The op is the kernel
+    mode (conv_int8.NAMES)."""
     import torch
 
     dev = gen.device
@@ -253,6 +270,14 @@ def _sites8(gen, n):
 
     def kmaj(w):
         return w.reshape(-1, w.shape[-1]).t().contiguous()
+
+    from segmentation_tpu_torch.nn.kernels import conv_int8 as ci
+
+    def h3(op, label, x, c, o4, kw):
+        w = wq(4, 4, c, o4)
+        if hasattr(ci, "strided_k_major"):  # a package that reads wk4
+            kw = {**kw, "wk4": ci.strided_k_major(w)}
+        return (op, label, (x, w, *vecs(o4, 16 * c)), kw)
 
     def vecs(o4, k, scale=1.0):
         mul = (torch.rand((o4,), generator=gen, device=dev) + 0.5) \
@@ -276,7 +301,24 @@ def _sites8(gen, n):
 
     head = ((torch.randn((128, 4), generator=gen, device=dev) / 128**0.5)
             .to(torch.bfloat16), torch.randn((4,), generator=gen, device=dev))
+    img = torch.rand((n, 512, 512, 3), generator=gen, device=dev).to(
+        torch.bfloat16)
+    w4 = (torch.randn((4, 4, 3, 128), generator=gen, device=dev)
+          / 48**0.5).to(torch.bfloat16)
+    mul1 = torch.full((128,), 100.0, device=dev)
+    add1 = torch.randn((128,), generator=gen, device=dev) * 10
+    wq2 = wq(2, 2, 128, 128)
     return [
+        ("entry_chain", "level 1", (img, w4, mul1, add1, wq2,
+                                    *vecs(128, 512)), {"wk": kmaj(wq2)}),
+        ("conv3entry_requant", "conv1_1 bf16 -> s8",
+         (img, w4, mul1, add1), {}),
+        h3("conv3entry_s8", "conv1_1 s8 image codes", codes(n, 512, 512, 3),
+           3, 128, {}),
+        h3("strided_conv4x4s2_s8", "conv2_1 C=32", codes(n, 254, 254, 32),
+           32, 256, {}),
+        h3("strided_conv4x4s2_s8_inline", "conv2_1 C=32 bf16 in",
+           acts(n, 254, 254, 32), 32, 256, {"act_scale": 1 / 16}),
         h1("packed_conv2x2_s8_pool", "conv1_2 +pool (4-D route)",
            codes(n, 255, 255, 128), 128, {"pool": True}),
         h1("packed_conv2x2_s8_pool", "conv2_2 +pool",

@@ -435,12 +435,33 @@ def test_packed_conv2x2_dual_s8_kernel(gen, case, offset):
     assert ci.launches["packed_conv2x2_dual_s8"] == 1
 
 
-@pytest.mark.parametrize("c,o4", [(32, 256), (16, 128)])
-def test_strided_conv4x4s2_s8_kernel(gen, c, o4):
-    args = (_s8(gen, 2, 22, 19, c), _s8(gen, 4, 4, c, o4),
-            *_requant_vecs(gen, o4, 16 * c))
-    _check_s8(ci.strided_conv4x4s2_s8(*args),
-              ci.strided_conv4x4s2_s8_plain(*args))
+# H3 int8's cases, x [N, H, W] (C channels): conv2_1's 512² shape (N = 1),
+# N = 3, a tile ragged in both directions (odd H and W: the VALID conv never
+# reads the last row and column); each at C = 16 (2C = 32: half of each
+# parity's 64 box bytes are TMA's zeros), 32 (conv2_1) and 48 (a second,
+# partial K block), 4O = 128 (ping-pong, TMA stores) and 256 (split tiles)
+STRIDED8 = {"conv2_1": (1, 254, 254), "N=3": (3, 22, 19),
+            "ragged tiles": (1, 61, 83)}
+
+
+def _strided8_site(gen, shape, c, o4, inline=False):
+    x = (_acts8 if inline else _s8)(gen, *STRIDED8[shape], c)
+    wq4 = _s8(gen, 4, 4, c, o4)
+    kw = {"wk4": ci.strided_k_major(wq4)}
+    if inline:
+        kw["act_scale"] = ACT_S
+    return (x, wq4, *_requant_vecs(gen, o4, 16 * c)), kw
+
+
+@pytest.mark.parametrize("o4", [128, 256])
+@pytest.mark.parametrize("c", [16, 32, 48])
+@pytest.mark.parametrize("shape", list(STRIDED8))
+def test_strided_conv4x4s2_s8_kernel(gen, shape, c, o4):
+    args, kw = _strided8_site(gen, shape, c, o4)
+    ci.reset_launches()
+    _check_s8(ci.strided_conv4x4s2_s8(*args, **kw),
+              ci.strided_conv4x4s2_s8_plain(*args, **kw))
+    assert ci.launches["strided_conv4x4s2_s8"] == 1
 
 
 @pytest.mark.parametrize("scatter", [False, True])
@@ -452,16 +473,31 @@ def test_rows_matmul_s8_kernel(gen, scatter):
               ci.rows_matmul_s8_plain(*args, scatter=scatter))
 
 
-def test_entry_chain_kernel(gen):
-    """Partial tiles in both directions (17 × 33 outputs)."""
-    x = _act(gen, 2, 38, 70, 3)
+# H5's cases, the image [N, H, W]: 512² (N = 1; 254² outputs, ragged 8 ×
+# 15 tiles), 516 × 384 (which the model's fusion gate admits; tiles that
+# divide neither side), N = 3 at an odd width (two-load pairs), small
+# images with a few tiles and one tile
+ENTRY = {"512": (1, 512, 512), "516x384": (1, 516, 384),
+         "N=3 odd W": (3, 38, 71), "partial tiles": (2, 38, 70),
+         "one tile": (1, 8, 14)}
+
+
+def _entry_site(gen, shape):
+    x = _act(gen, *ENTRY[shape], 3)
     w4 = _wgt(gen, 4, 4, 3, 128)
-    oi1 = 1.0 / 0.02
-    mul1 = torch.full((128,), oi1, device="cuda")
-    add1 = _bias(gen, 128) * oi1
-    args = (x, w4, mul1, add1, _s8(gen, 2, 2, 128, 128),
-            *_requant_vecs(gen, 128, 512))
-    _check_s8(ci.entry_chain(*args), ci.entry_chain_plain(*args))
+    mul1 = torch.full((128,), 1.0 / 0.02, device="cuda")
+    add1 = _bias(gen, 128) / 0.02
+    wq2 = _s8(gen, 2, 2, 128, 128)
+    return (x, w4, mul1, add1, wq2, *_requant_vecs(gen, 128, 512)), {
+        "wk": ci.k_major(wq2)}
+
+
+@pytest.mark.parametrize("shape", list(ENTRY))
+def test_entry_chain_kernel(gen, shape):
+    args, kw = _entry_site(gen, shape)
+    ci.reset_launches()
+    _check_s8(ci.entry_chain(*args, **kw), ci.entry_chain_plain(*args, **kw))
+    assert ci.launches["entry_chain"] == 1
 
 
 # the inline-quantize modes: bf16 operands whose codes at ACT_S reach past
@@ -563,11 +599,15 @@ def test_s8_wrappers_refuse_bad_operands(gen):
         ci.packed_conv2x2_dual_s8(_misaligned(dargs[0]), *dargs[1:], **dkw)
 
 
-def test_strided_conv4x4s2_s8_inline_kernel(gen):
-    args = (_acts8(gen, 2, 22, 19, 32), _s8(gen, 4, 4, 32, 256),
-            *_requant_vecs(gen, 256, 512))
-    _check_s8(ci.strided_conv4x4s2_s8(*args, act_scale=ACT_S),
-              ci.strided_conv4x4s2_s8_plain(*args, act_scale=ACT_S))
+@pytest.mark.parametrize("o4", [128, 256])
+@pytest.mark.parametrize("c", [16, 32, 48])
+@pytest.mark.parametrize("shape", list(STRIDED8))
+def test_strided_conv4x4s2_s8_inline_kernel(gen, shape, c, o4):
+    args, kw = _strided8_site(gen, shape, c, o4, inline=True)
+    ci.reset_launches()
+    _check_s8(ci.strided_conv4x4s2_s8(*args, **kw),
+              ci.strided_conv4x4s2_s8_plain(*args, **kw))
+    assert ci.launches["strided_conv4x4s2_s8_inline"] == 1
 
 
 @pytest.mark.parametrize("scatter", [False, True])
@@ -581,33 +621,106 @@ def test_rows_matmul_s8_inline_kernel(gen, scatter):
 
 
 @pytest.mark.parametrize("o4", [128, 256])
-def test_conv3entry_kernels(gen, o4):
+@pytest.mark.parametrize("shape", [(2, 38, 71), (1, 38, 70), (3, 21, 40),
+                                   (1, 512, 512)])
+def test_conv3entry_kernels(gen, shape, o4):
     """The image entry's requant-only mode (bf16) and s8-input mode (the
-    3-byte pixels gathered), odd and even widths."""
+    3-byte pixels gathered): odd widths (pairs in two loads) and even,
+    ragged tiles, N = 3, the 512² image."""
     mul = torch.full((o4,), 100.0, device="cuda")
     add = _bias(gen, o4) * 100
-    x = _act(gen, 2, 38, 71, 3)
+    x = _act(gen, *shape, 3)
     args = (x, _wgt(gen, 4, 4, 3, o4), mul, add)
+    ci.reset_launches()
     _check_s8(ci.conv3entry_requant(*args),
               ci.conv3entry_requant_plain(*args))
-    args8 = (_s8(gen, 2, 38, 70, 3), _s8(gen, 4, 4, 3, o4),
-             *_requant_vecs(gen, o4, 27))
-    _check_s8(ci.conv3entry_s8(*args8), ci.conv3entry_s8_plain(*args8))
+    wq4 = _s8(gen, 4, 4, 3, o4)
+    args8 = (_s8(gen, *shape, 3), wq4, *_requant_vecs(gen, o4, 27))
+    kw8 = {"wk4": ci.strided_k_major(wq4)}
+    _check_s8(ci.conv3entry_s8(*args8, **kw8),
+              ci.conv3entry_s8_plain(*args8, **kw8))
+    assert ci.launches["conv3entry_requant"] == 1
+    assert ci.launches["conv3entry_s8"] == 1
 
 
-def test_entry_chain_is_requant_entry_plus_pool(gen):
-    """H5 against its two-kernel form on the card: the same requant
-    point, so the same codes."""
-    x = _act(gen, 2, 38, 70, 3)
-    w4 = _wgt(gen, 4, 4, 3, 128)
-    mul1 = torch.full((128,), 1.0 / 0.02, device="cuda")
-    add1 = _bias(gen, 128) / 0.02
-    wq2 = _s8(gen, 2, 2, 128, 128)
-    mul2, add2 = _requant_vecs(gen, 128, 512)
+@pytest.mark.parametrize("shape", list(ENTRY))
+def test_entry_chain_is_requant_entry_plus_pool(gen, shape):
+    """H5 against its two-kernel form on the card: the same im2col rows,
+    wgmma steps and requant point for conv1_1, so the same codes, bit for
+    bit."""
+    (x, w4, mul1, add1, wq2, mul2, add2), kw = _entry_site(gen, shape)
     codes = ci.conv3entry_requant(x, w4, mul1, add1)
-    two = ci.packed_conv2x2_s8(codes, wq2, mul2, add2, pool=True,
-                               wk=ci.k_major(wq2))
-    _check_s8(two, ci.entry_chain(x, w4, mul1, add1, wq2, mul2, add2))
+    two = ci.packed_conv2x2_s8(codes, wq2, mul2, add2, pool=True, **kw)
+    one = ci.entry_chain(x, w4, mul1, add1, wq2, mul2, add2, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(two, one, strict=True))
+
+
+@pytest.mark.parametrize("op", ["entry_chain 512", "s8 C=32 4O=256",
+                                "s8 C=48 4O=128", "inline C=32 4O=256",
+                                "conv3entry_s8", "conv3entry_requant"])
+def test_strided_entry_s8_is_deterministic(gen, op):
+    """Two launches on the same inputs give the same bits."""
+    if op.startswith("entry_chain"):
+        args, kw = _entry_site(gen, "512")
+        fn = ci.entry_chain
+    elif op.startswith("conv3entry"):
+        fn = getattr(ci, op)
+        x = (_s8 if op.endswith("s8") else _act)(gen, 2, 38, 71, 3)
+        w = (_s8 if op.endswith("s8") else _wgt)(gen, 4, 4, 3, 128)
+        args = (x, w, *_requant_vecs(gen, 128, 27))
+        kw = {"wk4": ci.strided_k_major(w)} if op.endswith("s8") else {}
+    else:
+        c, o4 = (32, 256) if "C=32" in op else (48, 128)
+        args, kw = _strided8_site(gen, "ragged tiles", c, o4,
+                                  inline=op.startswith("inline"))
+        fn = ci.strided_conv4x4s2_s8
+    first, second = _outs(fn(*args, **kw)), _outs(fn(*args, **kw))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second, strict=True))
+
+
+def test_strided_entry_s8_wrappers_refuse_bad_operands(gen):
+    """No fallback: H3's int8 modes and H5 raise on a CUDA call their
+    kernels do not take, the K-major copy missing included."""
+    args, kw = _strided8_site(gen, "N=3", 32, 256)
+    x, wq4, mul, add = args
+    with pytest.raises(ValueError, match="K-major"):
+        ci.strided_conv4x4s2_s8(*args)
+    with pytest.raises(ValueError, match="shape"):
+        ci.strided_conv4x4s2_s8(*args, wk4=kw["wk4"][:, :256])
+    with pytest.raises(ValueError, match="shape"):  # bf16 H3's layout
+        ci.strided_conv4x4s2_s8(*args, wk4=wq4.reshape(512, 256))
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ci.strided_conv4x4s2_s8(_s8(gen, 1, 22, 19, 24),
+                                _s8(gen, 4, 4, 24, 256), mul, add,
+                                wk4=_s8(gen, 256, 384))
+    with pytest.raises(ValueError, match="16-byte"):
+        ci.strided_conv4x4s2_s8(_misaligned(x), *args[1:], **kw)
+    with pytest.raises(TypeError, match="act_scale"):
+        ci.strided_conv4x4s2_s8(_acts8(gen, 3, 22, 19, 32), *args[1:], **kw)
+    with pytest.raises(ValueError, match="128 or 256"):
+        ci.strided_conv4x4s2_s8(x, _s8(gen, 4, 4, 32, 64), mul[:64],
+                                add[:64], wk4=_s8(gen, 64, 512))
+    xe, we = _s8(gen, 1, 20, 20, 3), _s8(gen, 4, 4, 3, 128)
+    ve = _requant_vecs(gen, 128, 27)
+    with pytest.raises(ValueError, match="K-major"):
+        ci.conv3entry_s8(xe, we, *ve)
+    with pytest.raises(ValueError, match="not 3"):
+        ci.conv3entry_s8(_s8(gen, 1, 20, 20, 4), _s8(gen, 4, 4, 4, 128), *ve,
+                         wk4=_s8(gen, 128, 64))
+    with pytest.raises(ValueError, match="bad input shape"):
+        ci.conv3entry_requant(_act(gen, 1, 20, 20, 4),
+                              _wgt(gen, 4, 4, 4, 128), *ve)
+    eargs, ekw = _entry_site(gen, "one tile")
+    with pytest.raises(ValueError, match="K-major"):
+        ci.entry_chain(*eargs)
+    with pytest.raises(ValueError, match="shape"):
+        ci.entry_chain(*eargs, wk=eargs[4].reshape(512, 128))
+    with pytest.raises(ValueError, match="bad input shape"):
+        ci.entry_chain(_act(gen, 1, 5, 14, 3), *eargs[1:], **ekw)
+    with pytest.raises(ValueError, match="bad input shape"):
+        ci.entry_chain(_act(gen, 1, 8, 14, 4), *eargs[1:], **ekw)
 
 
 def test_conv3x3_s8_int_mm(gen):
