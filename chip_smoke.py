@@ -26,13 +26,15 @@ Phases (each prints its lines; any failure raises and exits non-zero):
   3b.        — the same for the int8 path: H5 and the int8 modes of H1–H4
                at every int8 site of the three int8 configurations (s8
                codes, the inline-quantize modes on bf16 operands, H1's
-               pool at conv1_2 of the 4-D route), and the image entry's
+               pool at conv1_2 of the 4-D route), the image entry's
                requant-only and s8-input modes (whose requant-only codes
-               through H1's pool must equal H5's outputs); the lines of
-               H1's and H2's int8 modes (on the Hopper mainloop, s8 wgmma)
-               add the tile, the share of the bound and the share of the
-               packed form's s8 tensor peak (1979 TOP/s), and each mode's
-               sums follow;
+               through H1's pool must equal H5's outputs), and H8's dual
+               on two s8 sides (a mode no route runs); the lines of the
+               int8 modes on the Hopper mainloop (s8 wgmma) add the tile,
+               the share of the bound and the share of the packed form's
+               s8 tensor peak (1979 TOP/s), and each mode's sums follow;
+               H4 int8's and H8's library column is torch._int_mm of the
+               same product (s32 out);
   3c.        — the same for H6 (the packed-conv input grad), single and
                dual, at its six training sites, each line with the tile
                (th × tw) the wrapper's plan picked, the share of the bound
@@ -47,12 +49,16 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                seeded B = 8 batch, then the same 4 requests; H5 and every
                int8 mode must have launched and no bf16 kernel, the masks
                must agree with the int8 forward on the plain versions and
-               with the f32 plain U-Net; the standard levels' s8 3×3 conv
-               (im2col + cuBLASLt) timed at each of its calls;
+               with the f32 plain U-Net; H8 (the standard levels' s8 3×3
+               conv, single and dual) recorded at each of its launches in
+               one request, each equal to its plain version code for code
+               and timed in turns against it and against the GEMM alone
+               (torch._int_mm on its im2col matrix), beside its bound;
   4c.        — the other two int8 configurations, UNetS2DInt8(padflat=
                False) and UNetS2DInt8(quant_deconvs=False), calibrated on
                4b's batch, the same 4 requests each: exactly the expected
-               launches of every kernel mode, masks against the same
+               launches of every kernel mode, every H8 launch of one
+               request equal to its plain version, masks against the same
                configuration on the plain versions and against the f32
                plain U-Net, latency and peak memory;
   5. the B = 8 latency of every slice;
@@ -147,6 +153,11 @@ SOURCES["entry_chain"] = "segmentation_tpu_torch/csrc/entry_chain.cu"
 SOURCES["packed_conv2x2_dgrad"] = SOURCES["packed_conv2x2_dgrad_dual"] = \
     "segmentation_tpu_torch/csrc/packed_conv2x2_dgrad.cu"
 SOURCES["crop_normalize"] = "segmentation_tpu_torch/csrc/crop_normalize.cu"
+# H8: the std levels' int8 conv, which the JAX package leaves to XLA
+STD8 = ("std_conv3x3_s8", "std_conv3x3_dual_s8", "std_conv3x3_dual_s8_inline")
+_UI8 = "segmentation_tpu/models/unet_int8.py"
+for k in STD8:
+    SOURCES[k] = "segmentation_tpu_torch/csrc/std_conv3x3_s8.cu"
 _CF, _CONV = ("segmentation_tpu/nn/pallas/conv_flat.py",
               "segmentation_tpu/nn/pallas/conv.py")
 # the padded-flat kernels each kernel replaces, then the 4-D kernels of the
@@ -187,22 +198,29 @@ REPLACES["packed_conv2x2_dgrad"] = \
 REPLACES["packed_conv2x2_dgrad_dual"] = \
     "segmentation_tpu/nn/pallas/conv_flat_bwd.py:217"
 REPLACES["crop_normalize"] = "segmentation_tpu/nn/pallas/augment.py:65"
+REPLACES["std_conv3x3_s8"] = f"{_UI8}:72 int8_conv (XLA)"
+REPLACES["std_conv3x3_dual_s8"] = REPLACES["std_conv3x3_dual_s8_inline"] = \
+    f"{_UI8}:104 int8_std_dual_conv (XLA)"
 # each int8 configuration's launches per request (models/unet_int8.py),
 # bf16 and int8 kernel modes alike: the flagship padded-flat route, the
 # 4-D route and the padded-flat route with bf16 deconvs
+# H8 in every int8 configuration: the eight single std convs (conv3_x to
+# conv7_2) and the two duals, whose up side is a bf16 deconv's output
+_H8_LAUNCHES = {"std_conv3x3_s8": 8, "std_conv3x3_dual_s8_inline": 2}
 ROUTE_LAUNCHES = {
     "serve_int8": {"entry_chain": 1, "strided_conv4x4s2_s8": 1,
                    "packed_conv2x2_s8_pool": 1, "rows_matmul_s8": 2,
-                   "packed_conv2x2_dual_s8": 2, "packed_conv2x2_s8": 2},
+                   "packed_conv2x2_dual_s8": 2, "packed_conv2x2_s8": 2,
+                   **_H8_LAUNCHES},
     "serve_int8_4d": {"strided_conv4x4s2": 1, "rows_matmul": 2,
                       "packed_conv2x2_s8_pool": 2, "strided_conv4x4s2_s8": 1,
                       "packed_conv2x2_dual_s8_inline": 2,
-                      "packed_conv2x2_s8": 2},
+                      "packed_conv2x2_s8": 2, **_H8_LAUNCHES},
     "serve_int8_fdeconv": {"entry_chain": 1, "rows_matmul": 2,
                            "packed_conv2x2_s8_pool": 1,
                            "strided_conv4x4s2_s8": 1,
                            "packed_conv2x2_dual_s8_inline": 2,
-                           "packed_conv2x2_s8": 2},
+                           "packed_conv2x2_s8": 2, **_H8_LAUNCHES},
 }
 
 
@@ -323,9 +341,11 @@ def _sites8(n, gen):
     resident s8 activations (post-ReLU codes) or, for the inline-quantize
     modes, bf16 activations whose codes at ACT_SCALE reach past 127; s8
     weights (with the K-major copies that s8 wgmma reads, made once as the
-    model's plan makes them: H1's, H2's and H5's ``k_major``, H3's
-    ``strided_k_major``), and epilogue vectors that spread the requantized
-    outputs over the code range."""
+    model's plan makes them: H1's, H2's, H4's, H5's and H8's ``k_major``,
+    H3's ``strided_k_major``), and epilogue vectors that spread the
+    requantized outputs over the code range. H8's path modes are timed on
+    a request's own operands (_std_conv_phase); its dual on two s8 sides,
+    which no route runs, at conv7_1's shape here."""
     import torch
 
     from segmentation_tpu_torch.models.unet_fast import head_diff
@@ -370,6 +390,13 @@ def _sites8(n, gen):
 
     def h5(args, kw):  # H5: conv1_2's copy
         return args, {**kw, "wk": k_major(args[4])}
+
+    def h4(args, kw):  # H4's int8 modes: the copy of wqm
+        return args, {**kw, "wkm": k_major(args[1])}
+
+    def h8(args, kw):  # H8's dual: the copies of wqa, wqb
+        return args, {**kw, "wka": k_major(args[2]),
+                      "wkb": k_major(args[3])}
 
     x = torch.rand((n, 512, 512, 3), generator=gen, device=dev)
     w4 = torch.randn((4, 4, 3, 128), generator=gen, device=dev) / 48**0.5
@@ -434,7 +461,12 @@ def _sites8(n, gen):
          (codes(n, 163, 163, 128), wq(2, 2, 128, 128),
           *vecs(128, 512, 1 / 20)),
          {"requant": False, "head": head, "head_only": True}),
+        ("std_conv3x3_dual_s8", "conv7_1 (16,16) s8 up",
+         (codes(n, 121, 121, 128), codes(n, 88, 88, 128),
+          wq(3, 3, 128, 128), wq(3, 3, 128, 128), vecs(128, 2304)[0],
+          *vecs(128, 2304)), {"offset": (16, 16), "out_scale": 1.0}),
     ]
+
     def copies(name):
         if name.startswith("packed_conv2x2_dual"):
             return h2
@@ -442,6 +474,10 @@ def _sites8(n, gen):
             return h1
         if name.startswith("strided") or name == "conv3entry_s8":
             return h3
+        if name.startswith("rows_matmul_s8"):
+            return h4
+        if name.startswith("std_conv3x3_dual"):
+            return h8
         return h5 if name == "entry_chain" else lambda a, k: (a, k)
 
     return [(name, label, *copies(name)(args, kw))
@@ -546,7 +582,7 @@ def _site_work(name, args, kw, outs):
     def conv3x3(pixels, c, o):
         return 2 * pixels * 9 * c * o
 
-    if base == "packed_conv2x2_dual":
+    if base in ("packed_conv2x2_dual", "std_conv3x3_dual"):
         skip, up = args[:2]
         nbytes -= (skip.numel() - up.numel()) * skip.element_size()
     if name == "entry_chain":
@@ -575,6 +611,11 @@ def _site_work(name, args, kw, outs):
     elif base == "rows_matmul":
         x, wm = args[:2]
         ops = 2 * (x.numel() // wm.shape[0]) * wm.shape[0] * wm.shape[1]
+    elif base.startswith("std_conv3x3"):  # H8: the single, or both sides
+        x, w = (args[1], args[2]) if base.endswith("dual") else args[:2]
+        n, h, wd, c = x.shape
+        ops = conv3x3(n * (h - 2) * (wd - 2), c, w.shape[-1]) * (
+            2 if base.endswith("dual") else 1)
     else:  # the dgrads: g [n, hg, wg, 4O] against one or two weights
         g, *ws = args
         n, hg, wg, o4 = g.shape
@@ -588,14 +629,18 @@ def _library_call(name, args, kw):
     dual's cropped skip and up concatenated along channels),
     F.conv_transpose2d 2×2/2 for H4 and the 3×3 conv's input grad for H6,
     with random weights of the unpacked shapes (values do not change a
-    conv's time). None where PyTorch has none (the int8 modes, H5)."""
+    conv's time); H4 int8's and H8's integer product by torch._int_mm
+    (_int_mm_call). None where PyTorch has none (the other int8 modes,
+    H5)."""
     import torch
     import torch.nn.functional as F
 
     from segmentation_tpu_torch.nn.packing import crop_packed, unpack2
 
+    if name.startswith(("rows_matmul_s8", "std_conv3x3")):
+        return _int_mm_call(name, args, kw)
     if name not in _BF16 and not name.startswith("packed_conv2x2_dgrad"):
-        return None  # the int8 modes, H5
+        return None  # the other int8 modes, H5
     cl, dev = torch.channels_last, args[0].device
 
     def nchw(x):
@@ -642,6 +687,42 @@ def _library_call(name, args, kw):
     return lambda: F.conv_transpose2d(gu, w)
 
 
+def _int_mm_call(name, args, kw):
+    """The library column of H4's and H8's int8 modes: torch._int_mm (s32
+    out) of the same integer product on the same codes, H8's on the
+    im2col matrix of its input (the dual: both sides' GEMMs); a bf16
+    operand quantized first, outside the call."""
+    import torch
+
+    from segmentation_tpu_torch.nn.kernels import conv_int8 as ci
+
+    def codes(x, act, div):
+        if act is None:
+            return x
+        return ci.quant_act(x, act) if div else ci.quant_inline(x, act)
+
+    def im2col(x):
+        n, h, w, c = x.shape
+        cols = x.unfold(1, 3, 1).unfold(2, 3, 1)  # [N, H-2, W-2, C, 3, 3]
+        return cols.permute(0, 1, 2, 4, 5, 3).reshape(-1, 9 * c).contiguous()
+
+    if name.startswith("rows_matmul_s8"):
+        x, wqm = args[:2]
+        a = codes(x, kw.get("act_scale"), False).reshape(-1, wqm.shape[0])
+        return lambda: torch._int_mm(a, wqm)
+    if name == "std_conv3x3_s8":
+        x, wq = args[:2]
+        a, b = im2col(x), wq.reshape(-1, wq.shape[-1])
+        return lambda: torch._int_mm(a, b)
+    sk, up, wqa, wqb = args[:4]
+    oh, ow = kw.get("offset", (0, 0))
+    crop = sk[:, oh:oh + up.shape[1], ow:ow + up.shape[2]]
+    aa = im2col(codes(crop, kw.get("act_scale_a"), True))
+    ab = im2col(codes(up, kw.get("act_scale_b"), True))
+    ba, bb = wqa.reshape(-1, wqa.shape[-1]), wqb.reshape(-1, wqb.shape[-1])
+    return lambda: (torch._int_mm(aa, ba), torch._int_mm(ab, bb))
+
+
 def _packed_gemm_ops(name, args):
     """The packed GEMM of a kernel on the Hopper mainloop at a site, by
     tensor type ({"bf16" or "s8": operations}): 2 · output pixels · K ·
@@ -671,10 +752,12 @@ def _packed_gemm_ops(name, args):
         n, h, w, c = x.shape
         return {kind: 2 * n * ((h - 2) // 2) * ((w - 2) // 2) * 16 * c
                 * w4.shape[-1]}
-    if name == "rows_matmul":
+    if name.startswith("rows_matmul"):
         x, wm = args[:2]
         return {kind: 2 * (x.numel() // wm.shape[0]) * wm.shape[0]
                 * wm.shape[1]}
+    if name.startswith("std_conv3x3"):  # H8 has no packed form
+        return {kind: _site_work(name, args, {}, ())[1]["s8"]}
     dual = name.startswith("packed_conv2x2_dual")
     x, w = args[1 if dual else 0], args[3 if dual else 1]
     n, hp, wp, c4 = x.shape
@@ -712,6 +795,15 @@ def _tile_plan_of(name, args, kw):
         return entry_tile_plan(n, (h - 2) // 2 - 1, (w - 2) // 2 - 1)
     if name == "rows_matmul":
         return cf.rows_plan(args[0], args[1].shape[-1], kw.get("scatter"))
+    if name.startswith("rows_matmul_s8"):
+        n, h, w, _ = args[0].shape
+        s = 2 if kw.get("scatter") else 1
+        return ci.rows_s8_plan(n, s * h, s * w)
+    if name.startswith("std_conv3x3"):
+        dual = "dual" in name
+        n, h, w, _ = args[1 if dual else 0].shape
+        return ci.std_plan(n, h - 2, w - 2, args[2 if dual else 1].shape[-1],
+                           dual)
     if name.startswith("packed_conv2x2_dual_s8"):
         up, wqa = args[1], args[2]
         n, hp, wp, _ = up.shape
@@ -722,13 +814,13 @@ def _tile_plan_of(name, args, kw):
     return tile_plan(n, hp - 1, wp - 1, cf.FWD_TILE_ROWS)
 
 
-# the kernels on csrc/sm90_igemm.cuh (TMA or gathered A, wgmma): the bf16
-# modes of H1–H4, H6, and the int8 modes of H1–H3 and H5 (H4's int8 modes
-# are the last on the WMMA core, igemm.cuh)
+# the kernels on csrc/sm90_igemm.cuh (TMA or gathered A, wgmma): every
+# mode of H1–H6 and H8
 SM90_S8 = ("packed_conv2x2_s8", "packed_conv2x2_s8_pool",
            "packed_conv2x2_s8_inline", "packed_conv2x2_dual_s8",
            "packed_conv2x2_dual_s8_inline", "strided_conv4x4s2_s8",
-           "strided_conv4x4s2_s8_inline", "conv3entry_s8")
+           "strided_conv4x4s2_s8_inline", "conv3entry_s8", "rows_matmul_s8",
+           "rows_matmul_s8_inline") + STD8
 SM90 = ("packed_conv2x2", "packed_conv2x2_dual", "strided_conv4x4s2",
         "rows_matmul", "packed_conv2x2_dgrad", "packed_conv2x2_dgrad_dual",
         "conv3entry_requant", "entry_chain") + SM90_S8
@@ -1316,60 +1408,90 @@ def _check_route(tag, counts, requests):
         raise AssertionError(f"{tag}: launches {got}, expected {want}")
 
 
-def _std_conv_phase(server, x):
-    """The standard levels' s8 3×3 conv (ops8.conv3x3: im2col and
-    cuBLASLt's s8 GEMM, which the JAX package leaves to XLA; no hand
-    kernel): each of its calls in one B = 8 request, timed in turns
-    against its plain version (the float64 conv) and against the GEMM
-    alone (torch._int_mm, its library column), beside its bound. Returns
-    (calls per request, ms, plain ms, library ms, bound ms, binds)."""
+def _std_conv_phase(tag, server, x, timed=True):
+    """H8, the standard levels' s8 3×3 conv (ops8.std_conv3x3 and
+    std_conv3x3_dual, which the JAX package leaves to XLA): each of its
+    launches in one B = 8 request of ``server``, recorded with its
+    operands, is held against its plain version code for code (bf16 values
+    bit for bit); with ``timed`` each is timed in turns against the plain
+    version and against the GEMM alone (torch._int_mm on its im2col
+    matrix, s32 out: the library column; PyTorch has no s8 conv on CUDA),
+    beside its bound (the fused function: each operand read once, y
+    written once, no s32 store; 2·9·C·O operations per output pixel and
+    side). Returns {mode: {"calls", "worst", "ms", "plain_ms",
+    "library_ms", "bound_ms", "parts"}} over the request's launches."""
     import torch
 
     from segmentation_tpu_torch.nn.kernels import conv_int8 as ci
 
     calls, ops8 = [], server.model.ops8
 
-    def recorded(xq, wq):
-        calls.append((xq, wq))
-        return ci.conv3x3_s8(xq, wq)
+    def single(*a, **k):
+        calls.append(("std_conv3x3_s8", a, k))
+        return ci.std_conv3x3_s8(*a, **k)
 
-    server.model.ops8 = ops8._replace(conv3x3=recorded)
+    def dual(*a, **k):
+        inline = k.get("act_scale_a") is not None or \
+            k.get("act_scale_b") is not None
+        calls.append(("std_conv3x3_dual_s8" + ("_inline" if inline else ""),
+                      a, k))
+        return ci.std_conv3x3_dual_s8(*a, **k)
+
+    server.model.ops8 = ops8._replace(std_conv3x3=single,
+                                      std_conv3x3_dual=dual)
     try:
         server(x)
     finally:
         server.model.ops8 = ops8
-    tot = {"kernel": 0.0, "plain": 0.0, "library": 0.0, "bound": 0.0}
-    parts = {"bytes": 0.0, "operations": 0.0}
-    for xq, wq in calls:
-        n, h, w, c = xq.shape
-        o = wq.shape[-1]
-        cols = xq.unfold(1, 3, 1).unfold(2, 3, 1)
-        a = cols.permute(0, 1, 2, 4, 5, 3).reshape(-1, 9 * c)
-        b = wq.reshape(9 * c, o)
-        fns = {"plain": lambda: ci.conv3x3_s8_plain(xq, wq),
-               "kernel": lambda: ci.conv3x3_s8(xq, wq),
-               "library": lambda: torch._int_mm(a, b)}
-        t = dict.fromkeys(fns, 0.0)
-        for k in list(fns) + list(fns)[::-1]:  # in turns
-            t[k] += _time_ms(fns[k], iters=5) / 2
-        pixels = n * (h - 2) * (w - 2)
-        bnd, by = _bound_ms(_bytes(xq, wq) + 4 * pixels * o,
-                            {"s8": 2 * pixels * 9 * c * o})
-        for k in fns:
-            tot[k] += t[k]
-        tot["bound"] += bnd
-        parts[by] += bnd
-        print(f"[int8] std-level s8 conv {tuple(xq.shape)} -> {o}: "
-              f"{t['kernel']:.4f} ms, GEMM alone {t['library']:.4f} ms, "
-              f"plain {t['plain']:.4f} ms, bound {bnd:.4f} ms ({by})")
-        del fns, a, b, cols
-    by = max(parts, key=parts.get)
-    print(f"[int8] std-level s8 conv: {len(calls)} calls a request, "
-          f"{tot['kernel']:.4f} ms (GEMM alone {tot['library']:.4f} ms, "
-          f"plain {tot['plain']:.4f} ms), bound {tot['bound']:.4f} ms "
-          f"({by})")
-    return (len(calls), tot["kernel"], tot["plain"], tot["library"],
-            tot["bound"], by)
+    out = {}
+    for mode, a, k in calls:
+        wrapper, plain = ((ci.std_conv3x3_s8, ci.std_conv3x3_s8_plain)
+                          if mode == "std_conv3x3_s8" else
+                          (ci.std_conv3x3_dual_s8,
+                           ci.std_conv3x3_dual_s8_plain))
+        got, want = wrapper(*a, **k), plain(*a, **k)
+        torch.cuda.synchronize()
+        shape = tuple((a[1] if "dual" in mode else a[0]).shape)
+        label = f"{tag} {mode} {shape} -> {a[2].shape[-1]} {got.dtype}"
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            _parity(label, got, want)  # prints the difference
+            raise AssertionError(f"{label}: not equal to its plain version")
+        s = out.setdefault(mode, {"calls": 0, "worst": 0.0, "ms": 0.0,
+                                  "plain_ms": 0.0, "library_ms": 0.0,
+                                  "bound_ms": 0.0,
+                                  "parts": {"bytes": 0.0,
+                                            "operations": 0.0}})
+        s["calls"] += 1
+        if not timed:
+            print(f"[int8] {label}: equal to its plain version")
+            continue
+        fns = {"plain": lambda: plain(*a, **k),
+               "kernel": lambda: wrapper(*a, **k),
+               "library": _int_mm_call(mode, a, k)}
+        for f in fns.values():
+            f()
+        tm = dict.fromkeys(fns, 0.0)
+        for key in list(fns) + list(fns)[::-1]:  # in turns
+            tm[key] += _time_ms(fns[key], iters=5) / 2
+        b, by = _bound_ms(*_site_work(mode, a, k, (got,)))
+        for key in fns:
+            s["ms" if key == "kernel" else f"{key}_ms"] += tm[key]
+        s["bound_ms"] += b
+        s["parts"][by] += b
+        print(f"[int8] {label}: equal to its plain version; "
+              f"{tm['kernel']:.4f} ms, plain {tm['plain']:.4f} ms, GEMM "
+              f"alone {tm['library']:.4f} ms, bound {b:.4f} ms ({by})"
+              f"{_tile_note(mode, a, k, tm['kernel'], b)}")
+        del fns
+    for mode, s in out.items():
+        line = f"[int8] {tag} {mode}: {s['calls']} launches a request"
+        if timed:
+            line += (f", {s['ms']:.4f} ms (GEMM alone {s['library_ms']:.4f}"
+                     f" ms, plain {s['plain_ms']:.4f} ms), bound "
+                     f"{s['bound_ms']:.4f} ms ({s['bound_ms'] / s['ms']:.3f}"
+                     f" of it reached)")
+        print(line)
+    return out
 
 
 def _int8_config_phase(tag, kw, reqs, calib, want, out_hw, reset):
@@ -1393,6 +1515,7 @@ def _int8_config_phase(tag, kw, reqs, calib, want, out_hw, reset):
     masks, lat, peak = _serve(server, reqs, reset)
     counts = {**cf.launches, **ci.launches}
     _check_route(tag, counts, len(reqs))
+    _std_conv_phase(tag, server, reqs[0], timed=False)
     logits = server.logits(reqs[0])
     torch.cuda.synchronize()
     _check_masks(masks, (B_SERVE, *out_hw))
@@ -1472,6 +1595,8 @@ def main() -> None:
             table.update(part)
     worst, ms, plain_ms, bound, bound_by, library_ms, packed = tables
     for k in SM90:
+        if not ms[k]:  # H8's path modes: timed on a request (phase 4b)
+            continue
         lib = "none" if library_ms[k] is None else f"{library_ms[k]:.4f} ms"
         gemm = " + ".join(f"{v / 1e9:.1f} G{'OP' if t == 's8' else 'FLOP'}"
                           for t, v in sorted(packed[k].items()))
@@ -1577,7 +1702,7 @@ def main() -> None:
         raise AssertionError(f"int8 vs f32: agreement {ref_agree8}, "
                              f"correlation {corr8}")
     e2e = {"bf16": bf16_e2e, "int8": _latency_line("int8", lat8, peak8)}
-    std8 = _std_conv_phase(server8, reqs[0])
+    std8 = _std_conv_phase("serve_int8", server8, reqs[0])
     del server8, plain8
     torch.cuda.empty_cache()
 
@@ -1593,10 +1718,12 @@ def main() -> None:
     for tag, (mean, ips, mib) in e2e.items():
         print(f"[summary] {smi}: {tag} B={B_SERVE} latency {mean:.3f} ms, "
               f"{ips:.1f} img/s, peak {mib:.1f} MiB")
-    n_std, *std_t, std_by = std8
-    print(f"[summary] {smi}: std-level s8 conv {n_std} calls a request, "
-          f"{std_t[0]:.4f} ms (GEMM alone {std_t[2]:.4f} ms, plain "
-          f"{std_t[1]:.4f} ms), bound {std_t[3]:.4f} ms ({std_by})")
+    h8 = {k: sum(s[k] for s in std8.values())
+          for k in ("calls", "ms", "plain_ms", "library_ms", "bound_ms")}
+    print(f"[summary] {smi}: H8 std-level s8 conv {h8['calls']} launches a "
+          f"request, {h8['ms']:.4f} ms (GEMM alone {h8['library_ms']:.4f} "
+          f"ms, plain {h8['plain_ms']:.4f} ms), bound {h8['bound_ms']:.4f} "
+          f"ms ({h8['bound_ms'] / h8['ms']:.3f} of it reached)")
 
     # ---- 6. the training slice -------------------------------------------
     train_counts, (k_ms, k_peak, p_ms, p_peak, busy) = _train_phase(cf, cb)
@@ -1631,6 +1758,10 @@ def main() -> None:
     ms["crop_normalize"], plain_ms["crop_normalize"] = h7_ms, h7_plain_ms
     bound["crop_normalize"], bound_by["crop_normalize"] = h7_bound_ms, h7_by
     library_ms["crop_normalize"] = None  # no one PyTorch call computes it
+    for k, s in std8.items():  # H8's path modes: a request's own launches
+        worst[k], ms[k], plain_ms[k] = s["worst"], s["ms"], s["plain_ms"]
+        bound[k], library_ms[k] = s["bound_ms"], s["library_ms"]
+        bound_by[k] = max(s["parts"], key=s["parts"].get)
     kernels = []
     for k in cf.NAMES + ci.NAMES + cb.NAMES + aug.NAMES:
         paths = {tag: c[k] for tag, c in by_path.items() if k in c}

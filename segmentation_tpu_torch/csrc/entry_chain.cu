@@ -118,7 +118,7 @@ struct EntrySmem {
 // to even and clipped to 127 (finish's codes: the ReLU leaves nothing
 // below 0), as 16 bits, the lower column first. The clip goes first, then
 // adding 1.5 * 2^23 rounds the f32 sum to the nearest integer, ties to
-// even, and leaves the code in its low byte (igemm.cuh quant_byte's rule).
+// even, and leaves the code in its low byte (int8_epilogue.cuh code_byte).
 __device__ __forceinline__ uint32_t requant_pair(float a0, float a1,
                                                  float2 m, float2 b) {
   const float t0 = fminf(affine_relu(a0, m.x, b.x), 127.0f);

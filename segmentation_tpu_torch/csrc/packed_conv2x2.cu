@@ -7,8 +7,8 @@
 //         int8 epilogue relu(acc * mul + add), stored requantized to s8 or
 //         as bf16; x is s8 codes (TMA boxes of 128 channels), or bf16
 //         gathered by the producer warpgroup's idle warps and quantized as
-//         they store it (act_inv, the inline-quantize mode: QuantLoader's
-//         rule, once per K block).
+//         they store it (act_inv, the inline-quantize mode: the Pallas
+//         multiply rule, once per K block).
 // Options: the fused 2x2/2 max pool (slot-max, [N, hp-1, wp-1, O], in the
 // output's type) and the fused binary mask head (u8 [N, hp-1, wp-1, 4],
 // on the stored bf16 value) with or without the store.

@@ -106,7 +106,8 @@ struct DgradTiles {
     sm90::tma_load_4d(a, &gmap, bar, 64 * k, j0 - 1, i0 - 1, n);
   }
   // the B rows [wa | wb] of (K block, tap), one box per weight
-  __device__ void load_b(int k, int tap, uint8_t* b, uint64_t* bar) const {
+  __device__ void load_b(int, int k, int tap, uint8_t* b,
+                         uint64_t* bar) const {
     sm90::tma_load_2d(b, &wamap, bar, 64 * k, tap * C4);
     if (DUAL) sm90::tma_load_2d(b + C4 * 128, &wbmap, bar, 64 * k, tap * C4);
   }

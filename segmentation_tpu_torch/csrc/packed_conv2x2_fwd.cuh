@@ -10,7 +10,7 @@
 // H1 has one side, x. H2 has two: the center crop of the skip at the
 // unpacked offset (oh, ow) against wa, then up against wb; one f32
 // accumulator holds both. The int8 modes (kInt8) multiply s8 codes in s32
-// and end in the int8 epilogue relu(acc * mul + add) (igemm.cuh
+// and end in the int8 epilogue relu(acc * mul + add) (int8_epilogue.cuh
 // affine_relu; kRequant: requantized to s8, else bf16); H2's sides are
 // quantized at different scales, so each has its own s32 accumulator
 // (kTwoAcc), mixed in f32 as acc_a * cs_a + acc_b * cs_b before the
@@ -40,9 +40,9 @@
 //    gather), zero outside the skip.
 //  - The inline-quantize modes (int8, a side in bf16 with its inverse
 //    scale): the same warps gather the side's K blocks, 16 channels at a
-//    time (two 16-byte loads), quantize them by QuantLoader's rule
-//    (igemm.cuh quant16) once per K block, not once per tap, and store the
-//    s8 codes in the swizzle TMA would have written.
+//    time (two 16-byte loads), quantize them by the Pallas multiply rule
+//    (int8_epilogue.cuh quant16) once per K block, not once per tap, and
+//    store the s8 codes in the swizzle TMA would have written.
 //  - B, bf16: the packed weight itself, MN-major: w [2, 2, 4C, 4O] viewed as
 //    [4 * 4C, 4O] has the rows t 4C + c of tap t, 4O columns each; one 2-D
 //    box [64 rows, 64 columns] per 64 columns of a K block and tap (wgmma
@@ -82,7 +82,7 @@
 
 #include <type_traits>
 
-#include "igemm.cuh"
+#include "int8_epilogue.cuh"
 #include "sm90_igemm.cuh"
 
 namespace segk {
@@ -560,16 +560,13 @@ struct FwdTiles : FwdOut<O4, EPI, 1> {
     }
     sm90::tma_load_4d(a, &xmap, bar, KC * (DUAL ? kb - kps : kb), j0, i0, n);
   }
-  // A gathered K block, stored where TMA's 128-byte swizzle would put it.
-  // Thread tid takes 16-byte chunk tid % 8 of box rows tid / 8, tid / 8 +
-  // nthreads / 8, ... (nthreads % 8 == 0), walked pixel by pixel: its
-  // channels k .. (8 bf16, or 16 s8 channels) lie in one slot of the skip
+  // A gathered K block (sm90::gather_rows): thread tid's chunk tid % 8
+  // holds channels k .. (8 bf16, or 16 s8 channels) of one slot of the skip
   // (C % 8 == 0 for bf16, C % 16 == 0 for s8), so box row (bi, bj) reads
   // the source pixel (r0 + bi, c0 + bj) at one channel offset: the skip's
   // packed pixel under the crop, or x's. Zero outside the source and past
   // 4C. int8: s8 codes, or bf16 (two loads) quantized at the side's inverse
-  // scale (QuantLoader's rule, igemm.cuh quant16); GATHER_CHUNKS chunks a
-  // thread are loaded before any is stored.
+  // scale (the multiply rule, int8_epilogue.cuh quant16).
   __device__ void gather_a(int t, int kb, uint8_t* a, int tid,
                            int nthreads) const {
     if (!gathered(kb)) return;
@@ -578,8 +575,7 @@ struct FwdTiles : FwdOut<O4, EPI, 1> {
     const bool sk = DUAL && kb < kps;
     const float inv = INT8 ? (sk ? inv_a : inv_b) : 0.0f;
     const int es = INT8 && inv == 0.0f ? 1 : 2;  // the source's bytes
-    const int chunk = tid & 7, rstep = nthreads >> 3;
-    const int k = KC * (DUAL && !sk ? kb - kps : kb) + KC / 8 * chunk;
+    const int k = KC * (DUAL && !sk ? kb - kps : kb) + KC / 8 * (tid & 7);
     int hh = hx, ww = wx, r0 = i0, c0 = j0, ch = k;
     if (sk) {
       const int s = k / cs;  // the output slot (d, e) = (s >> 1, s & 1)
@@ -594,41 +590,20 @@ struct FwdTiles : FwdOut<O4, EPI, 1> {
     const uint8_t* img =
         (sk ? skip : xs) + (long long)n * hh * ww * pix + (long long)ch * es;
     const bool live = k < c4;
-    const uint32_t base = sm90::smem_u32(a);
-    const int w = tw + 1, rows = (th + 1) * w;
-    int row = tid >> 3;
-    int bi = row / w, bj = row - bi * w;
-    constexpr int U = GATHER_CHUNKS;
-    while (row < rows) {
-      uint4 lo[U], hi[U];
-      int at[U];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        at[u] = row;
-        const bool ok = live && row < rows && r0 + bi < hh && c0 + bj < ww;
-        const uint4* p = reinterpret_cast<const uint4*>(
-            img + ((long long)(r0 + bi) * ww + c0 + bj) * pix);
-        lo[u] = ok ? __ldg(p) : make_uint4(0, 0, 0, 0);
-        hi[u] = ok && INT8 && es == 2 ? __ldg(p + 1) : make_uint4(0, 0, 0, 0);
-        row += rstep;
-        for (bj += rstep; bj >= w; bj -= w) ++bi;
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int r = at[u];
-        if (r >= rows) break;
-        const uint4 v = INT8 && es == 2 ? quant16(lo[u], hi[u], inv) : lo[u];
-        asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(
-                         base + r * 128 + ((chunk ^ (r & 7)) << 4)),
-                     "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
-                     : "memory");
-      }
-    }
+    sm90::gather_rows<GATHER_CHUNKS>(
+        a, tid, nthreads, (th + 1) * (tw + 1), tw + 1, INT8 && es == 2,
+        [&](int bi, int bj) {
+          return reinterpret_cast<const uint4*>(
+              img + ((long long)(r0 + bi) * ww + c0 + bj) * pix);
+        },
+        [&](int bi, int bj) { return live && r0 + bi < hh && c0 + bj < ww; },
+        [&](uint4 lo, uint4 hi) { return quant16(lo, hi, inv); });
   }
   // the B rows of (K block, tap): bf16, 64 rows of w viewed as [4 * 4C,
   // 4O], one box per 64 columns; s8, the 128 K bytes of every column of
   // the K-major wk [4O, 4 * 4C]
-  __device__ void load_b(int kb, int tap, uint8_t* b, uint64_t* bar) const {
+  __device__ void load_b(int, int kb, int tap, uint8_t* b,
+                         uint64_t* bar) const {
     const bool skip_side = DUAL && kb < kps;
     const CUtensorMap* m = skip_side ? &wsmap : &wmap;
     const int row = tap * c4 + KC * (DUAL && !skip_side ? kb - kps : kb);

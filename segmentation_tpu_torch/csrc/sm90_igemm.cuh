@@ -55,7 +55,7 @@
 //   n_tiles, tiles(), k_blocks()        the walk;
 //   a_tx(kb), load_a(tile, kb, a, bar)  an A slot's TMA bytes and loads;
 //   gather_a(tile, kb, a, thread, nthreads)  (GATHER) its plain loads;
-//   load_b(kb, tap, b, bar)             a B stage;
+//   load_b(tile, kb, tap, b, bar)       a B stage;
 //   a_row(tap)                          the first row of tap's A view;
 //   STAGE_BYTES                         staging for TMA stores (or 0);
 //   store(tile, consumer, acc, [acc_2,] scratch, stage)  the consumers'
@@ -676,7 +676,7 @@ __device__ __forceinline__ void produce(const P& p, const Ring<P>& r) {
       for (int tap = 0; tap < P::TAPS; ++tap) {
         mbar_wait(r.b_empty(b.stage), b.phase ^ 1);
         mbar_expect_tx(r.b_full(b.stage), Ring<P>::B_BYTES);
-        p.load_b(kb, tap, r.b(b.stage), r.b_full(b.stage));
+        p.load_b(t, kb, tap, r.b(b.stage), r.b_full(b.stage));
         b.next();
       }
     }
@@ -700,6 +700,49 @@ __device__ __forceinline__ void gather(const P& p, const Ring<P>& r) {
       __syncwarp();
       if ((threadIdx.x & 31) == 0) mbar_arrive(r.a_full(a.stage));
       a.next();
+    }
+  }
+}
+
+// A gathered K block of `rows` A-slot rows, stored where TMA's 128-byte
+// swizzle would put it (the problems' gather_a): thread tid takes 16-byte
+// chunk tid % 8 of rows tid / 8, tid / 8 + nthreads / 8, ... (nthreads % 8
+// == 0), row r = bi w + bj walked pixel by pixel; src(bi, bj) is the
+// chunk's source, read where ok(bi, bj) holds (else zeros; the address is
+// formed either way, so that the loads stay predicated, not branched).
+// With `quantize` the source is 16 bf16 values (two 16-byte loads) that
+// quant(lo, hi) turns into 16 s8 codes. U chunks a thread are loaded
+// before any is stored.
+template <int U, class Src, class Ok, class Quant>
+__device__ __forceinline__ void gather_rows(uint8_t* a, int tid, int nthreads,
+                                            int rows, int w, bool quantize,
+                                            Src src, Ok ok, Quant quant) {
+  const int chunk = tid & 7, rstep = nthreads >> 3;
+  const uint32_t base = smem_u32(a);
+  int row = tid >> 3;
+  int bi = row / w, bj = row - bi * w;
+  while (row < rows) {
+    uint4 lo[U], hi[U];
+    int at[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      at[u] = row;
+      const bool in = row < rows && ok(bi, bj);
+      const uint4* p = src(bi, bj);
+      lo[u] = in ? __ldg(p) : make_uint4(0, 0, 0, 0);
+      hi[u] = in && quantize ? __ldg(p + 1) : make_uint4(0, 0, 0, 0);
+      row += rstep;
+      for (bj += rstep; bj >= w; bj -= w) ++bi;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int r = at[u];
+      if (r >= rows) break;
+      const uint4 v = quantize ? quant(lo[u], hi[u]) : lo[u];
+      asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(
+                       base + r * 128 + ((chunk ^ (r & 7)) << 4)),
+                   "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+                   : "memory");
     }
   }
 }

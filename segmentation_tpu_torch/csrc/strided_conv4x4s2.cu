@@ -64,7 +64,8 @@
 // shifts, one K block a tap: H1 s8's problem, kps = ceil(2C / 64) blocks.
 // The producer warpgroup's three idle warps gather the rows 16 channels (a
 // 16-byte chunk) at a time, s8 codes or bf16 quantized once per K block by
-// QuantLoader's rule (igemm.cuh quant16; two 16-byte loads a chunk), and
+// the Pallas multiply rule (int8_epilogue.cuh quant16; two 16-byte loads
+// a chunk), and
 // store them where TMA's 128-byte swizzle would. (A TMA box of a 5-D view
 // with the dims reordered, (2C, 2, W/2, H/2, N), box [64, 2, tw + 1, th +
 // 1, 1], does not land one 128-byte row per pixel on the H100: its 64-byte
@@ -163,7 +164,8 @@ struct StridedTiles : FwdOut<O4, EPI, MODE == kBox ? 1 : 0> {
   }
   // the B rows of (K block, tap): 64 rows of w4 viewed as [16C, 4O], one
   // box per 64 columns
-  __device__ void load_b(int kb, int tap, uint8_t* b, uint64_t* bar) const {
+  __device__ void load_b(int, int kb, int tap, uint8_t* b,
+                         uint64_t* bar) const {
     int row = 64 * kb;
     if (BOX) {
       const int par = kb / kps;
@@ -303,64 +305,45 @@ struct StridedS8Tiles : FwdOut<O4, kInt8 | kRequant, MODE <= kS8Quant> {
   }
   __device__ void prefetch() const { sm90::prefetch_map(&wmap); }
   __device__ void load_a(int, int, uint8_t*, uint64_t*) const {}
-  // The gathered A slot of K block kb. TAPS4: thread tid takes chunk tid %
-  // 8 (row parity a = chunk / 4, channels bc = 64 kb + 16 (chunk % 4) of
-  // (b, c)) of halo rows tid / 8, tid / 8 + nthreads / 8, ... (nthreads % 8
-  // == 0), walked pixel by pixel: the 16 values of x[n, 2i + a, 2j .. 2j +
-  // 1, :] from bc on (2C % 16 == 0: one run of the pair), zero past 2C and
-  // outside the space-to-depth grid [h / 2, w / 2]; quantized where x is
-  // bf16 (kS8Quant). The entry: im2col rows (an L2 prefetch of the next
-  // tile's rows, as the bf16 entry asks, bought nothing here).
+  // The gathered A slot of K block kb. TAPS4 (sm90::gather_rows): thread
+  // tid's chunk tid % 8 (row parity a = chunk / 4, channels bc = 64 kb +
+  // 16 (chunk % 4) of (b, c)) of each halo row is the 16 values of x[n, 2i
+  // + a, 2j .. 2j + 1, :] from bc on (2C % 16 == 0: one run of the pair),
+  // zero past 2C and outside the space-to-depth grid [h / 2, w / 2];
+  // quantized where x is bf16 (kS8Quant). The entry: im2col rows (an L2
+  // prefetch of the next tile's rows, as the bf16 entry asks, bought
+  // nothing here).
   __device__ void gather_a(int t, int kb, uint8_t* a, int tid,
                            int nthreads) const {
     int n, i0, j0;
     origin(t, n, i0, j0);
     if constexpr (TAPS4) {
       constexpr int es = MODE == kS8Quant ? 2 : 1;  // the source's bytes
-      const int chunk = tid & 7, rstep = nthreads >> 3;
+      const int chunk = tid & 7;
       const int par = chunk >> 2, bc = 64 * kb + 16 * (chunk & 3);
       const bool live = bc < 2 * c;
       const int hs = h / 2, ws = w / 2;
       const uint8_t* xn =
           xs + ((long long)n * h * w * c + (long long)par * w * c + bc) * es;
-      const uint32_t base = sm90::smem_u32(a);
-      const int wrow = tw + 1, rows = (th + 1) * wrow;
-      int row = tid >> 3;
-      int bi = row / wrow, bj = row - bi * wrow;
-      constexpr int U = GATHER_CHUNKS;
-      while (row < rows) {
-        uint4 lo[U], hi[U];
-        int at[U];
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          at[u] = row;
-          const int i = i0 + bi, j = j0 + bj;
-          const bool ok = live && row < rows && i < hs && j < ws;
-          const uint4* p = reinterpret_cast<const uint4*>(
-              xn + (2LL * i * w + 2 * j) * c * es);
-          lo[u] = ok ? __ldg(p) : make_uint4(0, 0, 0, 0);
-          hi[u] = ok && es == 2 ? __ldg(p + 1) : make_uint4(0, 0, 0, 0);
-          row += rstep;
-          for (bj += rstep; bj >= wrow; bj -= wrow) ++bi;
-        }
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const int r = at[u];
-          if (r >= rows) break;
-          const uint4 v = es == 2 ? quant16(lo[u], hi[u], inv) : lo[u];
-          asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(
-                           base + r * 128 + ((chunk ^ (r & 7)) << 4)),
-                       "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
-                       : "memory");
-        }
-      }
+      sm90::gather_rows<GATHER_CHUNKS>(
+          a, tid, nthreads, (th + 1) * (tw + 1), tw + 1, es == 2,
+          [&](int bi, int bj) {
+            const int i = i0 + bi, j = j0 + bj;
+            return reinterpret_cast<const uint4*>(
+                xn + (2LL * i * w + 2 * j) * c * es);
+          },
+          [&](int bi, int bj) {
+            return live && i0 + bi < hs && j0 + bj < ws;
+          },
+          [&](uint4 lo, uint4 hi) { return quant16(lo, hi, inv); });
     } else if constexpr (MODE >= kS8Entry) {
       img.template gather<4>(a, 0, n, i0, j0, th, tw, tid, nthreads);
     }
   }
   // the B rows of (K block, tap): the 128 K bytes (tap kps + kb) 128 .. of
   // every column of wk4 [4O, K]
-  __device__ void load_b(int kb, int tap, uint8_t* b, uint64_t* bar) const {
+  __device__ void load_b(int, int kb, int tap, uint8_t* b,
+                         uint64_t* bar) const {
     sm90::tma_load_2d(b, &wmap, bar, 128 * (tap * kps + kb), 0);
   }
 };

@@ -174,6 +174,19 @@ def tile_bias4(b: torch.Tensor) -> torch.Tensor:
     return b.repeat(4)
 
 
+def std_crop_offset(skip: torch.Tensor, h: torch.Tensor):
+    """The origin (oh, ow) of the center crop of a std level's skip [N, Hs,
+    Ws, C] to h's [N, H, W, .]: ((Hs - H) // 2, (Ws - W) // 2)."""
+    return ((skip.shape[1] - h.shape[1]) // 2,
+            (skip.shape[2] - h.shape[2]) // 2)
+
+
+def std_crop(skip: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """The center crop of a std level's skip to h's grid (a view)."""
+    oh, ow = std_crop_offset(skip, h)
+    return skip[:, oh : oh + h.shape[1], ow : ow + h.shape[2]]
+
+
 def head_diff(output_w: torch.Tensor, output_b: torch.Tensor):
     """Block-diagonal per-slot difference head for n_classes = 2:
     wd [4C, 4], bd [4] with mask = (y_flat @ wd + bd > 0), the argmax of
@@ -313,9 +326,10 @@ class UNetS2DInference:
     def _std_conv(self, p, name, h):
         return conv2d(h, p[f"{name}/w"], p[f"{name}/b"])
 
-    def _std_dual_conv(self, p, name, sk, h):
+    def _std_dual_conv(self, p, name, skip, h):
         # concat-free: conv(concat(sk, h), w) =
-        #              conv(sk, w[:C]) + conv(h, w[C:])
+        #              conv(sk, w[:C]) + conv(h, w[C:]), sk the crop of skip
+        sk = std_crop(skip, h)
         w, ci = p[f"{name}/w"], sk.shape[-1]
         y = conv2d(sk, w[:, :, :ci], activation=None) \
             + conv2d(h, w[:, :, ci:], activation=None)
@@ -371,10 +385,7 @@ class UNetS2DInference:
                 packed = True
             else:
                 h = conv2d_transpose(h, p[f"{up}/w"], p[f"{up}/b"], 2)
-                dh, dw = skip.shape[1] - h.shape[1], skip.shape[2] - h.shape[2]
-                sk = skip[:, dh // 2 : dh // 2 + h.shape[1],
-                          dw // 2 : dw // 2 + h.shape[2]]
-                h = self._std_dual_conv(p, c1, sk, h)
+                h = self._std_dual_conv(p, c1, skip, h)
                 h = self._std_conv(p, c2, h)
 
         if packed_out:

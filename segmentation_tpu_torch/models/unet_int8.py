@@ -17,9 +17,11 @@ is the padded-flat route (_apply_padflat with the UNetS2DInt8 hooks):
                   the JAX route's fusion gate declines (``_fused_level1``)
                   the unfused level 1 below
   level 2         H3 s8 conv2_1, H1 s8 conv2_2 + pool
-  levels 3–5      int8_conv (s8 3×3 conv, requant epilogue; the encoder
-                  pool runs on the codes), conv5_2 emits bf16
-  std decoder     bf16 deconv, int8_std_dual_conv, int8_conv (conv6_2
+  levels 3–5      H8 int8_conv (s8 3×3 conv, fused requant epilogue; the
+                  encoder pool runs on the codes), conv5_2 emits bf16
+  std decoder     bf16 deconv, H8 int8_std_dual_conv (the skip's crop
+                  folded into its loads, the bf16 up side quantized by
+                  the division as it is gathered), H8 int8_conv (conv6_2
                   emits bf16, conv7_2 s8 at upconv3's scale)
   packed decoder  H4 s8 upconv3/upconv4, H2 s8 duals, H1 s8 conv8_2 and
                   conv9_2 (bf16 value + mask head, or bf16 logits path)
@@ -58,12 +60,18 @@ from segmentation_tpu_torch.models.unet_fast import (
     UNetS2DInference,
     pack_conv3_weight,
     pack_conv3_weight_s2,
+    std_crop,
+    std_crop_offset,
 )
 from segmentation_tpu_torch.nn.kernels import conv_int8
 from segmentation_tpu_torch.nn.kernels.conv_int8 import (
     Int8Ops,
-    conv3x3_s8,
     k_major,
+    quant_act,
+    std_affine,
+    std_conv3x3_dual_s8,
+    std_conv3x3_s8,
+    std_dual_scales,
     strided_k_major,
 )
 from segmentation_tpu_torch.nn.packing import crop_packed
@@ -93,56 +101,44 @@ def quantize_matrix(w: np.ndarray):
     return wq, s.astype(np.float32)
 
 
-def quant_act(x: torch.Tensor, scale: float) -> torch.Tensor:
-    """round(x / scale) clipped to ±127, int8 (the XLA-side quantize)."""
-    return torch.clamp(torch.round(x.float() / scale), -127, 127).to(S8)
-
-
-def _requant(y: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(torch.round(y), -127.0, 127.0).to(S8)
-
-
-def int8_conv(x, wq, w_scale, act_scale: float, b, relu=True,
-              out_scale: Optional[float] = None, conv=conv3x3_s8):
-    """Standard-layout int8 3×3 VALID conv with a float rescale epilogue.
-    ``x`` s8 (resident, stored at ``act_scale``) or float (quantized here).
-    With ``out_scale`` the site requantizes (relu as max, then round half
-    to even and ±127 clip) and emits s8; else it emits bf16 (or x's float
-    type). ``conv`` computes the exact s32 product."""
+def int8_conv(x, wq, w_scale, act_scale: float, b,
+              out_scale: Optional[float] = None, conv=std_conv3x3_s8,
+              wk=None, affine=None):
+    """Standard-layout int8 3×3 VALID conv with a float rescale epilogue
+    and ReLU (as every site of the model). ``x`` s8 (resident, stored at
+    ``act_scale``) or float (quantized here, ``quant_act``). With
+    ``out_scale`` the site requantizes (round half to even, ±127 clip) and
+    emits s8; else it emits bf16. ``conv`` is H8 (conv_int8.std_conv3x3_s8)
+    or its plain version, run on the epilogue's vectors ``affine`` = (mul,
+    add) (``std_affine`` on the host where not given; UNetS2DInt8.plan
+    makes them once) with the K-major copy ``wk`` of wq."""
     xq = x if x.dtype == S8 else quant_act(x, act_scale)
-    y = conv(xq, wq).float()
-    if out_scale is not None:
-        mult = (w_scale * act_scale) / out_scale
-        y = y * mult + b.float() / out_scale
-        if relu:
-            y = torch.relu(y)
-        return _requant(y)
-    y = y * (w_scale * act_scale) + b.float()
-    if relu:
-        y = torch.relu(y)
-    return y.to(torch.bfloat16 if x.dtype == S8 else x.dtype)
+    if affine is None:
+        affine = [v.to(x.device)
+                  for v in std_affine(w_scale, act_scale, b, out_scale)]
+    return conv(xq, wq, *affine, requant=out_scale is not None, wk=wk)
 
 
 def int8_std_dual_conv(sk, up, wqa, wsa, sk_scale: float, wqb, wsb,
-                       asb: float, b, relu=True,
-                       out_scale: Optional[float] = None, conv=conv3x3_s8):
+                       asb: float, b, out_scale: Optional[float] = None,
+                       conv=std_conv3x3_dual_s8, offset=(0, 0), wka=None,
+                       wkb=None, cs=None):
     """Decoder std conv with the concat weight split per operand (skip
-    half at the skip's stored scale, upsampled half quantized at ``asb``).
+    half at the skip's stored scale, upsampled half quantized at ``asb``),
+    with ReLU; the skip cropped at ``offset`` (its origin) to up's grid.
     The skip-side partial is rounded to bf16 before the sum, as the JAX
-    function does."""
-    ska = sk if sk.dtype == S8 else quant_act(sk, sk_scale)
-    upq = up if up.dtype == S8 else quant_act(up, asb)
-    ya = (conv(ska, wqa).float() * (wsa * sk_scale)).to(torch.bfloat16)
-    yb = conv(upq, wqb).float() * (wsb * asb)
-    y = ya.float() + yb + b.float()
-    if out_scale is not None:
-        yq = y / out_scale
-        if relu:
-            yq = torch.relu(yq)
-        return _requant(yq)
-    if relu:
-        y = torch.relu(y)
-    return y.to(torch.bfloat16)
+    function does. ``conv`` is H8's dual (conv_int8.std_conv3x3_dual_s8)
+    or its plain version, on the sides' scales ``cs`` = (cs_a, cs_b)
+    (``std_dual_scales`` on the host where not given) and the K-major
+    copies ``wka``, ``wkb``."""
+    if cs is None:
+        cs = [v.to(up.device)
+              for v in std_dual_scales(wsa, sk_scale, wsb, asb)]
+    return conv(sk, up, wqa, wqb, *cs, b.float(), out_scale=out_scale,
+                offset=offset,
+                act_scale_a=None if sk.dtype == S8 else sk_scale,
+                act_scale_b=None if up.dtype == S8 else asb, wka=wka,
+                wkb=wkb)
 
 
 def _affine(cs: torch.Tensor, b4: torch.Tensor, out_s: Optional[float]):
@@ -337,9 +333,30 @@ class UNetS2DInt8(UNetS2DInference):
         H5's conv1_2 ``wk`` and H2's ``wk_a``/``wk_b``: conv_int8.k_major;
         H3's ``wk4``: conv_int8.strided_k_major; made here once, never per
         request). The int8 route runs on a planned dict only
-        (``_PLANNED`` in it)."""
+        (``_PLANNED`` in it). The std levels' H8 sites get theirs too:
+        ``wk`` (the duals' ``wk_a``/``wk_b``), ``qmul``/``qadd``
+        (``std_affine``) and the duals' ``qcs_a``/``qcs_b`` for the
+        resident skip (``std_dual_scales``), each computed in f32 on the
+        host, then moved to the weights' device."""
         entry, packed, dual, _ = self._site_names()
+        std_dual = self._std_dual_names()
         q = {}
+        for name in self._std_conv_names():
+            if name in std_dual:
+                for side in "ab":
+                    q[f"{name}/wk_{side}"] = k_major(p[f"{name}/wq_{side}"])
+                vecs = std_dual_scales(
+                    p[f"{name}/wscale_a"], self._skip_scale_of(p, name),
+                    p[f"{name}/wscale_b"], self._in_scale_of(p, name, "b"))
+                keys = (f"{name}/qcs_a", f"{name}/qcs_b")
+            else:
+                q[f"{name}/wk"] = k_major(p[f"{name}/wq"])
+                vecs = std_affine(p[f"{name}/wscale"],
+                                  self._in_scale_of(p, name), p[f"{name}/b"],
+                                  self._out_scale_of(p, name))
+                keys = (f"{name}/qmul", f"{name}/qadd")
+            dev = p[f"{name}/wq"].device
+            q.update(zip(keys, (v.to(dev) for v in vecs)))
         for name in packed:
             q[f"{name}/wk"] = k_major(p[f"{name}/wq"])
         for name in entry[1:]:
@@ -351,6 +368,8 @@ class UNetS2DInt8(UNetS2DInference):
         b4 = p[f"{c1}/b4"]
         q[f"{c1}/qmul"], q[f"{c1}/qadd"] = _affine(
             torch.ones_like(b4), b4, self._out_scale_of(p, c1))
+        for name in self._deconv_names():
+            q[f"{name}/wkm"] = k_major(p[f"{name}/wqm"])
         for name in entry[1:] + packed + self._deconv_names():
             ws = p[f"{name}/wscale4" if name in entry else f"{name}/wscale"]
             q[f"{name}/qmul"], q[f"{name}/qadd"] = _affine(
@@ -446,7 +465,8 @@ class UNetS2DInt8(UNetS2DInference):
         if quantized and self.padflat:
             return self.ops8.rows_matmul(h.contiguous(), p[f"{up}/wqm"],
                                          p[f"{up}/qmul"], p[f"{up}/qadd"],
-                                         scatter=scatter)
+                                         scatter=scatter,
+                                         wkm=p[f"{up}/wkm"])
         if h.dtype == S8:
             # a resident input to a bf16 deconv, dequantized as JAX does
             # (h.astype(bf16) * in_s: the scale rounds to bf16 first)
@@ -477,21 +497,28 @@ class UNetS2DInt8(UNetS2DInference):
         return int8_conv(h, p[f"{name}/wq"], p[f"{name}/wscale"],
                          self._in_scale_of(p, name), p[f"{name}/b"],
                          out_scale=self._out_scale_of(p, name),
-                         conv=self.ops8.conv3x3)
+                         conv=self.ops8.std_conv3x3, wk=p[f"{name}/wk"],
+                         affine=(p[f"{name}/qmul"], p[f"{name}/qadd"]))
 
-    def _std_dual_conv(self, p, name, sk, h):
+    def _std_dual_conv(self, p, name, skip, h):
         if self._calibrating is not None:
-            self._record(name, sk)
+            self._record(name, std_crop(skip, h))
             self._record(f"{name}@b", h)
         if not self._q(p):
-            return super()._std_dual_conv(p, name, sk, h)
-        sk_s = (self._skip_scale_of(p, name) if sk.dtype == S8
+            return super()._std_dual_conv(p, name, skip, h)
+        resident = skip.dtype == S8
+        sk_s = (self._skip_scale_of(p, name) if resident
                 else self._in_scale_of(p, name, "a"))
         return int8_std_dual_conv(
-            sk, h, p[f"{name}/wq_a"], p[f"{name}/wscale_a"], sk_s,
+            skip, h, p[f"{name}/wq_a"], p[f"{name}/wscale_a"], sk_s,
             p[f"{name}/wq_b"], p[f"{name}/wscale_b"],
             self._in_scale_of(p, name, "b"), p[f"{name}/b"],
-            out_scale=self._out_scale_of(p, name), conv=self.ops8.conv3x3)
+            out_scale=self._out_scale_of(p, name),
+            conv=self.ops8.std_conv3x3_dual,
+            offset=std_crop_offset(skip, h), wka=p[f"{name}/wk_a"],
+            wkb=p[f"{name}/wk_b"],
+            cs=(p[f"{name}/qcs_a"], p[f"{name}/qcs_b"]) if resident
+            else None)
 
     def _pool(self, h):
         if h.dtype != S8:

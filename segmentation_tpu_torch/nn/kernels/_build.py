@@ -46,7 +46,10 @@ _SIGNATURES = {
     "seg_packed_conv2x2_dual_s8": [_P] * 9 + [_I] * 9 + [_F, _F, _I, _I,
                                                          _P],
     "seg_strided_conv4x4s2_s8": [_P] * 5 + [_I] * 5 + [_F, _I, _I, _P],
-    "seg_rows_matmul_s8": [_P] * 5 + [_I] * 6 + [_F, _P],
+    "seg_rows_matmul_s8": [_P] * 5 + [_I] * 6 + [_F, _I, _I, _P],
+    "seg_std_conv3x3_s8": [_P] * 5 + [_I] * 8 + [_P],
+    "seg_std_conv3x3_dual_s8": [_P] * 8 + [_I] * 9 + [_F] * 3 + [_I] * 2
+    + [_P],
     "seg_entry_chain": [_P] * 9 + [_I] * 5 + [_P],
     "seg_packed_conv2x2_dgrad": [_P] * 5 + [_I] * 7 + [_P],
     "seg_crop_normalize": [_P] * 5 + [_I] * 6 + [_P],

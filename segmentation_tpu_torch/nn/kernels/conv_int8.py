@@ -1,6 +1,6 @@
 """The int8 path's kernels: int8 modes of H1–H4, the fused level-1 chain H5,
-the image entry's two int8 modes, and the int8 3×3 conv of the standard
-levels.
+the image entry's two int8 modes, and H8, the int8 3×3 conv of the
+standard levels (single and dual).
 
 As in conv_flat.py, each op has a wrapper and a plain PyTorch version of
 the same function; the wrapper launches its CUDA kernel for a CUDA tensor,
@@ -15,25 +15,33 @@ adds one to ``launches[<mode>]``, the count of its kernel mode (``NAMES``).
                             in shared memory, s8 conv1_2, slot-max pool
   H3 conv3entry_requant     the C = 3 image entry, bf16 product, s8 out
   H3 conv3entry_s8          the C = 3 image entry on s8 image codes
+  H8 std_conv3x3_s8         s8 3×3 VALID conv of the standard levels, its
+                            epilogue fused (requant to s8, or bf16)
+  H8 std_conv3x3_dual_s8    the standard decoder's concat-free dual conv
+                            (skip cropped in its loads; a bf16 side
+                            quantized by the division as it is gathered)
 
 Every s8 operand of H1–H4 is s8 codes (int8-resident), or a bf16 tensor
 that the kernel quantizes as it loads it, given its scale (``act_scale``;
 the dual's ``act_scale_a`` / ``act_scale_b``): the inline-quantize modes,
-``quant_inline``, bit-equal to nn/pallas/conv.py _quant_rows. A bf16
-operand without its scale raises.
+``quant_inline``, bit-equal to nn/pallas/conv.py _quant_rows (a multiply
+by f32(1/act_scale)). H8's bf16 sides are quantized by ``quant_act``, the
+XLA-side rule of the JAX package's std levels (a true division by
+f32(act_scale)): another function. A bf16 operand without its scale
+raises.
 
-The int8 modes of H1–H3 and H5 run on the Hopper mainloop
-(csrc/sm90_igemm.cuh with csrc/packed_conv2x2_fwd.cuh: TMA halo boxes or
-operands gathered by the producer warpgroup, s8 wgmma); H4's int8 modes
-are the last on the first-version WMMA core (csrc/igemm.cuh). s8 wgmma
-reads B K-major only, so the wrappers take the K-major copy of each s8
-weight beside it (``wk``: ``k_major(wq)``, the dual's ``wka`` / ``wkb``,
-H5's conv1_2 ``wk``; H3's ``wk4``: ``strided_k_major(wq4)``), made once
-where the int8 weights are planned (models/unet_int8.py
+Every kernel mode runs on the Hopper mainloop (csrc/sm90_igemm.cuh with
+csrc/packed_conv2x2_fwd.cuh's output side, or H8's own in
+csrc/std_conv3x3_s8.cu: TMA halo boxes or operands gathered by the
+producer warpgroup, s8 wgmma). s8 wgmma reads B K-major only, so the
+wrappers take the K-major copy of each s8 weight beside it (``wk``:
+``k_major(wq)``, the duals' ``wka`` / ``wkb``, H5's conv1_2 ``wk``; H3's
+``wk4``: ``strided_k_major(wq4)``; H4's ``wkm``: ``k_major(wqm)``), made
+once where the int8 weights are planned (models/unet_int8.py
 ``UNetS2DInt8.plan``); a CUDA call without it raises. The plain versions
 take the same arguments and ignore the copy, so ``Int8Ops`` swaps the two
 paths whole. Their output tiles are planned here (``tiles.tile_plan``;
-H5's ``tiles.entry_tile_plan``).
+H5's ``tiles.entry_tile_plan``; H8's ``std_plan``).
 
 They replace the int8 modes of the Pallas kernels of
 segmentation_tpu/nn/pallas/conv_flat.py (entry_chain_pf2 :1644,
@@ -54,10 +62,16 @@ from the calibrated scales.
 The plain versions compute the integer products in float64 (exact) and
 the epilogue in f32 torch ops in the same order.
 
-``conv3x3_s8`` is the standard levels' int8 VALID 3×3 conv, which the JAX
-package leaves to XLA: on a CUDA tensor it runs im2col and cuBLASLt's s8
-GEMM (``torch._int_mm``, s32 out), not a hand kernel; its plain version is
-the float64 conv.
+H8 replaces no Pallas kernel: the JAX package leaves the standard levels'
+int8 3×3 conv to XLA (segmentation_tpu/models/unet_int8.py int8_conv :72,
+int8_std_dual_conv :104), and PyTorch has no s8 conv on CUDA. Its plain
+versions are those functions' arithmetic (models/unet_int8.py calls them
+through ``Int8Ops``): the single's epilogue is the one above with ``mul =
+f32(f32(w_scale · act_scale) / out_scale)``, ``add = f32(bias /
+out_scale)`` (``mul = w_scale · act_scale``, ``add = bias`` at a float
+site), computed on the host (``std_affine``); the dual rounds the skip's
+partial to bf16, adds the up side's and the bias, and divides by
+out_scale.
 """
 
 from __future__ import annotations
@@ -93,7 +107,9 @@ NAMES = ("entry_chain", "packed_conv2x2_s8", "packed_conv2x2_s8_pool",
          "packed_conv2x2_s8_inline", "packed_conv2x2_dual_s8",
          "packed_conv2x2_dual_s8_inline", "strided_conv4x4s2_s8",
          "strided_conv4x4s2_s8_inline", "rows_matmul_s8",
-         "rows_matmul_s8_inline", "conv3entry_requant", "conv3entry_s8")
+         "rows_matmul_s8_inline", "conv3entry_requant", "conv3entry_s8",
+         "std_conv3x3_s8", "std_conv3x3_dual_s8",
+         "std_conv3x3_dual_s8_inline")
 launches = dict.fromkeys(NAMES, 0)
 S8, BF16, F32 = torch.int8, torch.bfloat16, torch.float32
 
@@ -124,6 +140,44 @@ def quant_inline(x: torch.Tensor, act_scale) -> torch.Tensor:
     return torch.clamp(q, -127, 127).to(S8)
 
 
+def f32_scale(scale) -> torch.Tensor:
+    """A scale as a 0-d f32 host tensor (f32(scale))."""
+    return torch.tensor(np.float32(float(scale)))
+
+
+def quant_act(x: torch.Tensor, scale) -> torch.Tensor:
+    """The XLA-side quantize of the JAX package's std levels
+    (segmentation_tpu/models/unet_int8.py _quant_act): clip(round(f32(x) /
+    f32(scale)), ±127) s8, round half to even. The division is by a tensor
+    on x's device: ATen's CUDA division by a Python float multiplies by its
+    reciprocal, which rounds some quotients to another integer."""
+    q = torch.round(x.float() / f32_scale(scale).to(x.device))
+    return torch.clamp(q, -127, 127).to(S8)
+
+
+def std_affine(w_scale, act_scale, b, out_scale=None):
+    """(mul, add) of the std single conv's epilogue relu(acc · mul + add),
+    computed on the host in f32 as segmentation_tpu/models/unet_int8.py
+    int8_conv computes them: mul = f32(w_scale · act_scale) / out_scale,
+    add = b / out_scale (true f32 divisions) at a requantizing site; mul =
+    w_scale · act_scale, add = b at a float site. f32 host tensors."""
+    ws = w_scale.detach().to("cpu", F32)
+    bias = b.detach().to("cpu", F32)
+    cs = ws * f32_scale(act_scale)
+    if out_scale is None:
+        return cs, bias
+    out = f32_scale(out_scale)
+    return cs / out, bias / out
+
+
+def std_dual_scales(wsa, sk_scale, wsb, asb):
+    """(cs_a, cs_b) of the std dual conv: each side's weight scales times
+    its activation scale, f32 host tensors (int8_std_dual_conv's sk_scale ·
+    wsa and asb · wsb)."""
+    return (wsa.detach().to("cpu", F32) * f32_scale(sk_scale),
+            wsb.detach().to("cpu", F32) * f32_scale(asb))
+
+
 def _check_operand(x, act_scale, name):
     """An s8 site's operand is s8 codes, or a float tensor with its
     act_scale."""
@@ -146,12 +200,15 @@ def _int_conv(x, w_hwio, stride=1):
     return _conv_nhwc(x.double(), w_hwio.double(), stride)
 
 
+def _requant(y):
+    """Round half to even, clip to ±127, s8."""
+    return torch.clamp(torch.round(y), -127.0, 127.0).to(S8)
+
+
 def _finish(acc, mul, add, requant):
     """The int8 epilogue on an f32-convertible accumulator."""
     v = torch.relu(acc.float() * mul + add)
-    if requant:
-        return torch.clamp(torch.round(v), -127, 127).to(S8)
-    return v.to(BF16)
+    return _requant(v) if requant else v.to(BF16)
 
 
 def _slot_max(y):
@@ -162,7 +219,9 @@ def _slot_max(y):
 def k_major(wq: torch.Tensor) -> torch.Tensor:
     """The K-major copy [4O, 4·4C] of a packed s8 weight wq [2, 2, 4C, 4O]
     (row o holds column o's K = tap · 4C + c values), which H1's and H2's
-    s8 wgmma reads: ``wq.reshape(4·4C, 4O).T``, contiguous."""
+    s8 wgmma reads: ``wq.reshape(4·4C, 4O).T``, contiguous. The same of
+    H8's [3, 3, C, O] ([O, 9C], tap = 3u + v) and of H4's wqm [C, 4O]
+    ([4O, C])."""
     return wq.reshape(-1, wq.shape[-1]).t().contiguous()
 
 
@@ -246,7 +305,9 @@ def conv3entry_s8_plain(x, wq4, mul, add, *, wk4=None):
     return strided_conv4x4s2_s8_plain(x, wq4, mul, add)
 
 
-def rows_matmul_s8_plain(x, wqm, mul, add, *, scatter=False, act_scale=None):
+def rows_matmul_s8_plain(x, wqm, mul, add, *, scatter=False, act_scale=None,
+                         wkm=None):
+    """H4 int8's plain version (``wkm``: not read)."""
     x = _codes(x, act_scale, "rows_matmul_s8")
     if scatter:
         n, i, j, c4 = x.shape
@@ -266,6 +327,33 @@ def conv3x3_s8_plain(x, wq):
     return _int_conv(x, wq).to(torch.int32)
 
 
+def std_conv3x3_s8_plain(x, wq, mul, add, *, requant=True, wk=None):
+    """H8's plain version: int8_conv's arithmetic (``wk``: not read)."""
+    if x.dtype != S8:
+        raise TypeError(f"std_conv3x3_s8: x is {x.dtype}, not s8 codes")
+    return _finish(_int_conv(x, wq), mul, add, requant)
+
+
+def std_conv3x3_dual_s8_plain(sk, up, wqa, wqb, cs_a, cs_b, b, *,
+                              out_scale=None, offset=(0, 0),
+                              act_scale_a=None, act_scale_b=None, wka=None,
+                              wkb=None):
+    """H8 dual's plain version: int8_std_dual_conv's arithmetic on the skip
+    cropped at ``offset`` (``wka``, ``wkb``: not read). A bf16 side is
+    quantized by ``quant_act`` at its act_scale."""
+    _check_operand(sk, act_scale_a, "std_conv3x3_dual_s8 skip")
+    _check_operand(up, act_scale_b, "std_conv3x3_dual_s8 up")
+    oh, ow = offset
+    sk = sk[:, oh : oh + up.shape[1], ow : ow + up.shape[2]]
+    ska = sk if act_scale_a is None else quant_act(sk, act_scale_a)
+    upq = up if act_scale_b is None else quant_act(up, act_scale_b)
+    ya = (_int_conv(ska, wqa).float() * cs_a).to(BF16)
+    y = ya.float() + _int_conv(upq, wqb).float() * cs_b + b.float()
+    if out_scale is None:
+        return torch.relu(y).to(BF16)
+    return _requant(torch.relu(y / f32_scale(out_scale).to(y.device)))
+
+
 # ------------------------------------------------------------ kernel wrappers
 def _vec(t, name, o4, dev):
     _require(t, name, F32, (o4,), dev)
@@ -278,12 +366,12 @@ def _operand(t, name, shape, act_scale, dev):
     return 0.0 if act_scale is None else act_inverse(act_scale)
 
 
-def _k_major_operand(wk, name, c4, o4, dev):
-    """Check the K-major copy an s8 wgmma kernel reads."""
+def _k_major_operand(wk, name, k, o4, dev):
+    """Check the K-major copy [O, K] an s8 wgmma kernel reads."""
     if wk is None:
         raise ValueError(f"{name}: a CUDA call needs the K-major weight "
-                         f"copy (k_major(wq), [{o4}, {4 * c4}] s8)")
-    _require(wk, name, S8, (o4, 4 * c4), dev)
+                         f"copy (k_major, [{o4}, {k}] s8)")
+    _require(wk, name, S8, (o4, k), dev)
 
 
 def _mode(name, act_scale):
@@ -321,7 +409,7 @@ def packed_conv2x2_s8(x, wq, mul, add, *, requant=True, pool=False,
                          f"{tuple(x.shape)}")
     inv = _operand(x, "x", x.shape, act_scale, dev)
     _require(wq, "wq", S8, (2, 2, c4, o4), dev)
-    _k_major_operand(wk, "wk", c4, o4, dev)
+    _k_major_operand(wk, "wk", 4 * c4, o4, dev)
     _vec(mul, "mul", o4, dev)
     _vec(add, "add", o4, dev)
     aligned("packed_conv2x2_s8", x, wk, mul, add)
@@ -385,8 +473,8 @@ def packed_conv2x2_dual_s8(skip, up, wqa, wqb, cs_a, cs_b, mul, add, *,
     inv_a = _operand(skip, "skip", (n, hpa, wpa, c4), act_scale_a, dev)
     _require(wqa, "wqa", S8, (2, 2, c4, o4), dev)
     _require(wqb, "wqb", S8, (2, 2, c4, o4), dev)
-    _k_major_operand(wka, "wka", c4, o4, dev)
-    _k_major_operand(wkb, "wkb", c4, o4, dev)
+    _k_major_operand(wka, "wka", 4 * c4, o4, dev)
+    _k_major_operand(wkb, "wkb", 4 * c4, o4, dev)
     for t, name in ((cs_a, "cs_a"), (cs_b, "cs_b"), (mul, "mul"),
                     (add, "add")):
         _vec(t, name, o4, dev)
@@ -508,10 +596,18 @@ def conv3entry_requant(x, w4, mul, add):
     return y
 
 
-def rows_matmul_s8(x, wqm, mul, add, *, scatter=False, act_scale=None):
+def rows_s8_plan(n, ho, wo):
+    """H4 int8's output tiles: one tap over the tile (its rows boxed, or
+    gathered for the scatter and the inline modes)."""
+    return tile_plan(n, ho, wo, FWD_TILE_ROWS, halo=0)
+
+
+def rows_matmul_s8(x, wqm, mul, add, *, scatter=False, act_scale=None,
+                   wkm=None):
     """H4 int8: per-pixel x @ wqm [C, 4O], s8 out; x s8 codes, or bf16
-    quantized inline at ``act_scale``. Identity: x [N,H,W,C] →
-    [N,H,W,4O]. Scatter: x packed [N,i,j,4C] → [N,2i,2j,4O]."""
+    quantized inline at ``act_scale``; on CUDA with the K-major copy
+    ``wkm = k_major(wqm)`` [4O, C]. Identity: x [N,H,W,C] → [N,H,W,4O].
+    Scatter: x packed [N,i,j,4C] → [N,2i,2j,4O]."""
     _check_operand(x, act_scale, "rows_matmul_s8")
     if _on_cpu(x):
         return rows_matmul_s8_plain(x, wqm, mul, add, scatter=scatter,
@@ -526,13 +622,16 @@ def rows_matmul_s8(x, wqm, mul, add, *, scatter=False, act_scale=None):
                          f"{tuple(wqm.shape)} (scatter={scatter})")
     inv = _operand(x, "x", x.shape, act_scale, dev)
     _require(wqm, "wqm", S8, (c, o4), dev)
+    _k_major_operand(wkm, "wkm", c, o4, dev)
     _vec(mul, "mul", o4, dev)
     _vec(add, "add", o4, dev)
+    aligned("rows_matmul_s8", x, wkm, mul, add)
     y = torch.empty((n, ho, wo, o4), dtype=S8, device=dev)
+    plan = rows_s8_plan(n, ho, wo)
     with torch.cuda.device(dev):
         err = _build.library().seg_rows_matmul_s8(
-            _ptr(x), _ptr(wqm), _ptr(mul), _ptr(add), _ptr(y), n, ho, wo, c,
-            o4, int(scatter), inv, _stream(x),
+            _ptr(x), _ptr(wkm), _ptr(mul), _ptr(add), _ptr(y), n, ho, wo, c,
+            o4, int(scatter), inv, plan.th, plan.tw, _stream(x),
         )
     _build.check(err, "rows_matmul_s8")
     launches[_mode("rows_matmul_s8", act_scale)] += 1
@@ -556,7 +655,7 @@ def entry_chain(x, w4, mul1, add1, wq2, mul2, add2, *, wk=None):
     _require(x, "x", BF16, x.shape, dev)
     _require(w4, "w4", BF16, (4, 4, 3, 128), dev)
     _require(wq2, "wq2", S8, (2, 2, 128, 128), dev)
-    _k_major_operand(wk, "wk", 128, 128, dev)
+    _k_major_operand(wk, "wk", 4 * 128, 128, dev)
     for t, name in ((mul1, "mul1"), (add1, "add1"), (mul2, "mul2"),
                     (add2, "add2")):
         _vec(t, name, 128, dev)
@@ -575,21 +674,118 @@ def entry_chain(x, w4, mul1, add1, wq2, mul2, add2, *, wk=None):
     return y, pooled
 
 
-def conv3x3_s8(x, wq):
-    """The standard levels' s8 3×3 VALID conv → s32. CUDA: im2col +
-    cuBLASLt s8 GEMM (torch._int_mm; K = 9C and O must be multiples of 8,
-    more than 16 output pixels)."""
+def std_tile(o: int, dual: bool):
+    """(NB, BM, W_MAX) of H8's tiles for O output channels
+    (csrc/std_conv3x3_s8.cu StdTiles): column tiles of NB = 256 where that
+    divides O (O = 512: two a pixel tile), else 128; BM GEMM rows a tile
+    (single: 256 at NB = 128, two m64n128 a consumer, 128 at NB = 256; the
+    dual, one accumulator a side: 128 at NB = 128, 64 at NB = 256 with
+    the columns split); rows of the tile's halo box at most W_MAX wide."""
+    nb = 256 if o % 256 == 0 else 128
+    if dual:
+        bm = 64 if nb == 256 else 128
+    else:
+        bm = 256 if nb == 128 else 128
+    return nb, bm, 128 if bm >= 128 else 64
+
+
+def std_plan(n, ho, wo, o, dual=False):
+    """H8's output tiles: th · (tw + 2) <= BM GEMM rows (two junk columns a
+    row: the nine taps are row shifts of one halo box), tw + 2 <= W_MAX."""
+    _, bm, w_max = std_tile(o, dual)
+    return tile_plan(n, ho, wo, bm, halo=2, max_w=w_max)
+
+
+def _std_shape_ok(name, x, c, o):
+    n, h, w, cx = x.shape
+    if cx != c or c % 16 or o % 128 or h < 3 or w < 3:
+        raise ValueError(f"{name}: bad input shape {tuple(x.shape)} "
+                         f"(C % 16 == 0) for O = {o} (O % 128 == 0)")
+
+
+def std_conv3x3_s8(x, wq, mul, add, *, requant=True, wk=None):
+    """H8: the std levels' s8 3×3 VALID conv, x s8 codes [N,H,W,C], wq s8
+    [3,3,C,O] and, on CUDA, its K-major copy ``wk = k_major(wq)`` [O, 9C];
+    mul/add f32 [O] (``std_affine``) → relu(acc·mul + add) [N,H-2,W-2,O]
+    requantized to s8 (``requant``) or bf16."""
     if _on_cpu(x):
-        return conv3x3_s8_plain(x, wq)
+        return std_conv3x3_s8_plain(x, wq, mul, add, requant=requant)
     n, h, w, c = x.shape
     o = wq.shape[-1]
-    if x.dtype != S8 or wq.dtype != S8 or tuple(wq.shape) != (3, 3, c, o):
-        raise TypeError(f"conv3x3_s8: x {x.dtype} {tuple(x.shape)}, wq "
-                        f"{wq.dtype} {tuple(wq.shape)}")
-    cols = x.unfold(1, 3, 1).unfold(2, 3, 1)  # [N, H-2, W-2, C, 3, 3]
-    a = cols.permute(0, 1, 2, 4, 5, 3).reshape(-1, 9 * c)
-    acc = torch._int_mm(a, wq.reshape(9 * c, o))
-    return acc.reshape(n, h - 2, w - 2, o)
+    dev = x.device
+    _std_shape_ok("std_conv3x3_s8", x, c, o)
+    _require(x, "x", S8, x.shape, dev)
+    _require(wq, "wq", S8, (3, 3, c, o), dev)
+    _k_major_operand(wk, "wk", 9 * c, o, dev)
+    _vec(mul, "mul", o, dev)
+    _vec(add, "add", o, dev)
+    aligned("std_conv3x3_s8", x, wk, mul, add)
+    y = torch.empty((n, h - 2, w - 2, o), dtype=S8 if requant else BF16,
+                    device=dev)
+    plan = std_plan(n, h - 2, w - 2, o)
+    with torch.cuda.device(dev):
+        err = _build.library().seg_std_conv3x3_s8(
+            _ptr(x), _ptr(wk), _ptr(mul), _ptr(add), _ptr(y), n, h, w, c, o,
+            int(requant), plan.th, plan.tw, _stream(x),
+        )
+    _build.check(err, "std_conv3x3_s8")
+    launches["std_conv3x3_s8"] += 1
+    return y
+
+
+def std_conv3x3_dual_s8(sk, up, wqa, wqb, cs_a, cs_b, b, *, out_scale=None,
+                        offset=(0, 0), act_scale_a=None, act_scale_b=None,
+                        wka=None, wkb=None):
+    """H8 dual: the std decoder's first conv on concat(crop(sk), up)
+    without the concat. sk [N,hs,ws,C] cropped at ``offset`` (its origin)
+    to up's [N,H,W,C]; each side s8 codes or bf16 quantized at
+    ``act_scale_a`` / ``act_scale_b`` by the division (``quant_act``); wqa,
+    wqb s8 [3,3,C,O] and, on CUDA, their K-major copies ``wka``, ``wkb``;
+    cs_a, cs_b, b f32 [O] → [N,H-2,W-2,O], s8 requantized at
+    ``out_scale``, or bf16 without it."""
+    _check_operand(sk, act_scale_a, "std_conv3x3_dual_s8 skip")
+    _check_operand(up, act_scale_b, "std_conv3x3_dual_s8 up")
+    if _on_cpu(up):
+        return std_conv3x3_dual_s8_plain(
+            sk, up, wqa, wqb, cs_a, cs_b, b, out_scale=out_scale,
+            offset=offset, act_scale_a=act_scale_a, act_scale_b=act_scale_b)
+    n, h, w, c = up.shape
+    _, hs, ws, _ = sk.shape
+    o = wqa.shape[-1]
+    oh, ow = (int(v) for v in offset)
+    dev = up.device
+    _std_shape_ok("std_conv3x3_dual_s8", up, c, o)
+    if oh < 0 or ow < 0 or oh + h > hs or ow + w > ws:
+        raise ValueError(f"std_conv3x3_dual_s8: crop {offset} of "
+                         f"{tuple(sk.shape)} does not cover "
+                         f"{tuple(up.shape)}")
+    scale_a = 0.0 if act_scale_a is None else float(f32_scale(act_scale_a))
+    scale_b = 0.0 if act_scale_b is None else float(f32_scale(act_scale_b))
+    _require(sk, "skip", S8 if act_scale_a is None else BF16,
+             (n, hs, ws, c), dev)
+    _require(up, "up", S8 if act_scale_b is None else BF16, up.shape, dev)
+    _require(wqa, "wqa", S8, (3, 3, c, o), dev)
+    _require(wqb, "wqb", S8, (3, 3, c, o), dev)
+    _k_major_operand(wka, "wka", 9 * c, o, dev)
+    _k_major_operand(wkb, "wkb", 9 * c, o, dev)
+    for t, name in ((cs_a, "cs_a"), (cs_b, "cs_b"), (b, "b")):
+        _vec(t, name, o, dev)
+    aligned("std_conv3x3_dual_s8", sk, up, wka, wkb, cs_a, cs_b, b)
+    out = 0.0 if out_scale is None else float(f32_scale(out_scale))
+    y = torch.empty((n, h - 2, w - 2, o),
+                    dtype=BF16 if out_scale is None else S8, device=dev)
+    plan = std_plan(n, h - 2, w - 2, o, dual=True)
+    with torch.cuda.device(dev):
+        err = _build.library().seg_std_conv3x3_dual_s8(
+            _ptr(sk), _ptr(up), _ptr(wka), _ptr(wkb), _ptr(cs_a),
+            _ptr(cs_b), _ptr(b), _ptr(y), n, hs, ws, h, w, c, o, oh, ow,
+            scale_a, scale_b, out, plan.th, plan.tw, _stream(up),
+        )
+    _build.check(err, "std_conv3x3_dual_s8")
+    inline = act_scale_a is not None or act_scale_b is not None
+    launches["std_conv3x3_dual_s8_inline" if inline
+             else "std_conv3x3_dual_s8"] += 1
+    return y
 
 
 class Int8Ops(NamedTuple):
@@ -600,12 +796,15 @@ class Int8Ops(NamedTuple):
     packed_conv2x2_dual: Callable
     strided_conv4x4s2: Callable
     rows_matmul: Callable
-    conv3x3: Callable
+    std_conv3x3: Callable
+    std_conv3x3_dual: Callable
 
 
 KERNEL_OPS = Int8Ops(entry_chain, packed_conv2x2_s8, packed_conv2x2_dual_s8,
-                     strided_conv4x4s2_s8, rows_matmul_s8, conv3x3_s8)
+                     strided_conv4x4s2_s8, rows_matmul_s8, std_conv3x3_s8,
+                     std_conv3x3_dual_s8)
 PLAIN_OPS = Int8Ops(entry_chain_plain, packed_conv2x2_s8_plain,
                     packed_conv2x2_dual_s8_plain, strided_conv4x4s2_s8_plain,
-                    rows_matmul_s8_plain, conv3x3_s8_plain)
+                    rows_matmul_s8_plain, std_conv3x3_s8_plain,
+                    std_conv3x3_dual_s8_plain)
 

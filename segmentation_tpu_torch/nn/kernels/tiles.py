@@ -1,10 +1,10 @@
 """The output tiles of the Hopper kernels on ``csrc/sm90_igemm.cuh`` (the
-forward of H1–H3, H4's bf16, H5, H6 dgrad), and TMA's rule on what it can
-box.
+forward of H1–H4, H5, H6 dgrad, H8), and TMA's rule on what it can box.
 
 Each kernel walks th × tw pixel rectangles of one image of its output
 grid and reads its A operand per K block as one TMA halo box (the four
-taps' kernels), as boxes of the tile itself (H4) or gathered (H3's entry).
+taps of H1–H3 and H6, H8's nine), as boxes of the tile itself (H4) or
+gathered (H3's entry).
 The plan is made here, once per shape, and handed to the kernel as (th,
 tw).
 """
@@ -53,17 +53,19 @@ class TilePlan:
 
 @functools.lru_cache(maxsize=64)
 def tile_plan(n: int, hx: int, wx: int, rows: int, halo: int = 1,
-              step: int = 1) -> TilePlan:
+              step: int = 1, max_w: int = 256) -> TilePlan:
     """The tiles of an [n, hx, wx] output for a kernel tile of ``rows``
     GEMM rows: th · (tw + halo) <= rows, tw a multiple of ``step``, and a
     box of th + halo rows and tw + halo columns at most 256 a side (TMA's
-    limit). The fewest tiles (each costs ``rows`` wgmma rows however many
-    it fills), ties to the wider tile; then th and tw shrink to the least
-    that keeps the count, so the tiles split the image evenly."""
+    limit), its rows at most ``max_w`` wide (tw + halo; the kernel's A slot
+    holds the largest tap shift of such a row). The fewest tiles (each
+    costs ``rows`` wgmma rows however many it fills), ties to the wider
+    tile; then th and tw shrink to the least that keeps the count, so the
+    tiles split the image evenly."""
     best = None
     for tw in range(step, min(wx, 255) + step, step):
         th = min(rows // (tw + halo), hx, 256 - halo)
-        if th == 0 or tw + halo > 256:
+        if th == 0 or tw + halo > min(256, max_w):
             break
         nh, nw = -(-hx // th), -(-wx // tw)
         if best is None or nh * nw <= best[0] * best[1]:

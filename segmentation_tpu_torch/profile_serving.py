@@ -18,7 +18,7 @@ reads the trace's device activities (kernels, copies, sets) only:
   of one request at a time sees, and the host's time to return from the
   call (its dispatch of the request's launches), medians over
   ``--requests`` x 3 requests;
-- the summed activity time per group: the hand kernels (H1–H7, by kernel
+- the summed activity time per group: the hand kernels (H1–H8, by kernel
   name), library GEMMs, library convs, copies and the other (elementwise)
   kernels.
 
@@ -41,7 +41,8 @@ HAND = (("entry_chain", "H5 entry_chain"),
         ("packed_conv2x2", "H1 packed_conv2x2"),
         ("strided_conv4x4s2", "H3 strided_conv4x4s2"),
         ("rows_matmul", "H4 rows_matmul"),
-        ("crop_normalize", "H7 crop_normalize"))
+        ("crop_normalize", "H7 crop_normalize"),
+        ("std_conv3x3", "H8 std_conv3x3_s8"))
 
 
 def group_of(name: str) -> str:

@@ -1,5 +1,5 @@
 """Time source variants of the kernels on the Hopper mainloop (the bf16
-forward of H1–H4, H6, and the int8 modes of H1–H3 and H5) in turns on one
+forward of H1–H4, H6, the int8 modes of H1–H5 and H8) in turns on one
 GPU.
 
     python -m segmentation_tpu_torch.profile_variants \
@@ -10,9 +10,11 @@ Each variant is a copy of this package with named source patches
 (``VARIANTS``), made under ``csrc/build/variants/<name>/`` and built
 there by its own process (all at once). The copies then time the ten
 packed sites of the 512² forward (B = 8, chip_smoke.py's phase-3 shapes),
-H6's six training sites and the int8 sites of H1, H2, H3 and H5 (phase
-3b's shapes; the K-major weight copies made here, outside the timing, and
-passed only to a package whose wrappers take them), each the least of 3
+H6's six training sites, the int8 sites of H1–H5 (phase 3b's shapes) and
+H8's ten sites of an int8 request (its launches' shapes in phase 4b; a
+package without H8 skips them) — the K-major weight copies made here,
+outside the timing, and passed only to a package whose wrappers take
+them — each the least of 3
 runs of 20 launches by CUDA events, in turns: the variants in order, then
 in reverse, --rounds times. Before timing, each variant but the cut-outs
 (``CUTS``, which compute garbage) is held against the plain versions at
@@ -45,8 +47,14 @@ cut-out ``s8_gather_no_quant`` (the loads and stores without the
 quantize); H5's cut-outs ``entry_no_gather`` (its producer warps gather
 nothing: conv1_1 runs on whatever the slots hold) and ``entry_no_conv1_1``
 (no conv1_1 and no requant into the slot: conv1_2 reads the gathered bf16
-rows as codes); and H5's tiles ``entry_tile_wide`` (tile_plan's fewest
-tiles of 127 rows, 1 × 126 at 512², for entry_tile_plan's 8 × 15).
+rows as codes); H5's tiles ``entry_tile_wide`` (tile_plan's fewest
+tiles of 127 rows, 1 × 126 at 512², for entry_tile_plan's 8 × 15); and
+H8's gather of a bf16 side: the cut-outs ``std_quant_mul`` (the Pallas
+multiply by f32(1/scale) in place of the division) and ``std_no_quant``
+(the loads and stores without the quantize), ``std_chunks_8`` (eight
+chunks a thread in flight, its warpgroup at 96 registers) and
+``std_cols_128`` (column tiles of 128 at every O: tiles of 256 rows for
+the single, 128 for the dual, where 256 columns take 128 and 64).
 """
 
 from __future__ import annotations
@@ -65,6 +73,8 @@ SM90 = "csrc/sm90_igemm.cuh"
 STRIDED = "csrc/strided_conv4x4s2.cu"
 ENTRY = "csrc/entry_chain.cu"
 IM2COL = "csrc/im2col.cuh"
+STD = "csrc/std_conv3x3_s8.cu"
+INT8 = "nn/kernels/conv_int8.py"
 TILES = "nn/kernels/tiles.py"
 FLAT = "nn/kernels/conv_flat.py"
 
@@ -83,10 +93,11 @@ _NO_LOAD: List[Patch] = [
            "      p.load_a(t, kb, r.a(a.stage), r.a_full(a.stage));",
      "      mbar_expect_tx(r.a_full(a.stage), 0u);", 1),
     (SM90, "        mbar_expect_tx(r.b_full(b.stage), Ring<P>::B_BYTES);\n"
-           "        p.load_b(kb, tap, r.b(b.stage), r.b_full(b.stage));",
+           "        p.load_b(t, kb, tap, r.b(b.stage), r.b_full(b.stage));",
      "        mbar_expect_tx(r.b_full(b.stage), 0u);", 1)]
 CUTS = ("no_store", "no_store_no_load", "gather_no_load",
-        "s8_gather_no_quant", "entry_no_gather", "entry_no_conv1_1")
+        "s8_gather_no_quant", "entry_no_gather", "entry_no_conv1_1",
+        "std_quant_mul", "std_no_quant")
 PARENT = "parent"  # another checkout's package (--parent), unpatched
 VARIANTS: Dict[str, List[Patch]] = {
     "base": [],
@@ -132,8 +143,8 @@ VARIANTS: Dict[str, List[Patch]] = {
         (FWD, "PRODUCER_REGS = GATHER ? 80 : sm90::kProducerRegs;",
          "PRODUCER_REGS = GATHER ? 96 : sm90::kProducerRegs;", 1)],
     "s8_gather_no_quant": [
-        (FWD, "? quant16(lo[u], hi[u], inv) : lo[u];",
-         "? make_uint4(lo[u].x ^ hi[u].x, 0, 0, 0) : lo[u];", 1)],
+        (FWD, "{ return quant16(lo, hi, inv); }",
+         "{ return make_uint4(lo.x ^ hi.x, 0, 0, 0); }", 1)],
     "entry_no_gather": [
         (ENTRY, "    p.img.template gather<P::GATHER_TASKS>(s.a(a.stage), 0, "
                 "n, i0, j0, eh,\n", "    if (eh < 0)\n"
@@ -144,6 +155,23 @@ VARIANTS: Dict[str, List[Patch]] = {
     "entry_tile_wide": [
         (TILES, "    return TilePlan(n, ho, wo, -(-ho // nh), -(-wo // nw))\n",
          "    return tile_plan(n, ho, wo, ENTRY_TILE_ROWS - 1)\n", 1)],
+    "std_quant_mul": [
+        (STD, "quant16<true>(lo, hi, scale);",
+         "quant16<false>(lo, hi, 1.0f / scale);", 1)],
+    "std_no_quant": [
+        (STD, "quant16<true>(lo, hi, scale);",
+         "make_uint4(lo.x ^ hi.x, 0, 0, 0);", 1)],
+    "std_cols_128": [
+        (STD, "  return a.o % 256 == 0 ? run_std<256, DUAL, BF16_OUT, "
+              "HALF>(a)\n                        : run_std<128, DUAL, "
+              "BF16_OUT, HALF>(a);",
+         "  return run_std<128, DUAL, BF16_OUT, HALF>(a);", 1),
+        (INT8, "    nb = 256 if o % 256 == 0 else 128", "    nb = 128", 1)],
+    "std_chunks_8": [
+        (STD, "  static constexpr int GATHER_CHUNKS = 4;",
+         "  static constexpr int GATHER_CHUNKS = 8;", 1),
+        (STD, "PRODUCER_REGS = GATHER ? 80 : sm90::kProducerRegs;",
+         "PRODUCER_REGS = GATHER ? 96 : sm90::kProducerRegs;", 1)],
 }
 
 
@@ -289,6 +317,27 @@ def _sites8(gen, n):
         return (op, label, (x, w, *vecs(o4, 4 * x.shape[-1], scale)),
                 {**kw, "wk": kmaj(w)})
 
+    def h4(op, label, x, c, o4, kw):
+        w = wq(c, o4)
+        return (op, label, (x, w, *vecs(o4, c)), {**kw, "wkm": kmaj(w)})
+
+    def h8(label, x, o, out_bf16=False):
+        w = wq(3, 3, x.shape[-1], o)
+        mul, add = vecs(o, 9 * x.shape[-1], 1 / 20 if out_bf16 else 1.0)
+        return ("std_conv3x3_s8", label, (x, w, mul, add),
+                {"requant": not out_bf16, "wk": kmaj(w)})
+
+    def h8_dual(label, skip, up, offset):
+        # the bf16 up side as a deconv's ReLU leaves it: half of it zeros
+        up = up * (torch.rand(up.shape, generator=gen, device=dev) > 0.5)
+        c, o = up.shape[-1], up.shape[-1]
+        wa, wb = wq(3, 3, c, o), wq(3, 3, c, o)
+        (cs_a, _), (cs_b, b) = vecs(o, 18 * c), vecs(o, 18 * c)
+        return ("std_conv3x3_dual_s8_inline", label,
+                (skip, up, wa, wb, cs_a, cs_b, b),
+                {"offset": offset, "out_scale": 1.0, "act_scale_b": 1 / 16,
+                 "wka": kmaj(wa), "wkb": kmaj(wb)})
+
     def h2(op, label, skip, up, o4, offset, act_b=None):
         c4 = up.shape[-1]
         wa, wb = wq(2, 2, c4, o4), wq(2, 2, c4, o4)
@@ -339,6 +388,28 @@ def _sites8(gen, n):
         h2("packed_conv2x2_dual_s8_inline", "conv9_1 even (90,90) bf16 up",
            codes(n, 254, 254, 128), acts(n, 164, 164, 128), 128, (90, 90),
            1 / 16),
+        h4("rows_matmul_s8", "upconv3 identity", codes(n, 84, 84, 128), 128,
+           256, {"scatter": False}),
+        h4("rows_matmul_s8_inline", "upconv3 identity bf16 in",
+           acts(n, 84, 84, 128), 128, 256,
+           {"scatter": False, "act_scale": 1 / 16}),
+        h4("rows_matmul_s8", "upconv4 scatter", codes(n, 82, 82, 256), 64,
+           128, {"scatter": True}),
+        h4("rows_matmul_s8_inline", "upconv4 scatter bf16 in",
+           acts(n, 82, 82, 256), 64, 128,
+           {"scatter": True, "act_scale": 1 / 16}),
+        h8("conv3_1", codes(n, 125, 125, 64), 128),
+        h8("conv3_2", codes(n, 123, 123, 128), 128),
+        h8("conv4_1", codes(n, 60, 60, 128), 256),
+        h8("conv4_2", codes(n, 58, 58, 256), 256),
+        h8("conv5_1", codes(n, 28, 28, 256), 512),
+        h8("conv5_2 bf16 out", codes(n, 26, 26, 512), 512, True),
+        h8_dual("conv6_1 (4,4) bf16 up", codes(n, 56, 56, 256),
+                acts(n, 48, 48, 256), (4, 4)),
+        h8("conv6_2 bf16 out", codes(n, 46, 46, 256), 256, True),
+        h8_dual("conv7_1 (16,16) bf16 up", codes(n, 121, 121, 128),
+                acts(n, 88, 88, 128), (16, 16)),
+        h8("conv7_2", codes(n, 86, 86, 128), 128),
     ]
 
 
@@ -361,6 +432,8 @@ def run_variant(name: str, mode: str) -> None:
         return
     sums: Dict[str, float] = {}
     for op, label, args, kw0 in _sites(generator(15, "cuda")):
+        if op.startswith("std_conv3x3") and op not in ci.NAMES:
+            continue  # a package without H8 (a parent's)
         mod = cb if "dgrad" in op else ci if op in ci.NAMES else cf
         fn = getattr(mod, ci.wrapper_of(op) if mod is ci else op)
         # a package whose wrappers take no K-major copy gets none

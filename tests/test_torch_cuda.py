@@ -464,13 +464,36 @@ def test_strided_conv4x4s2_s8_kernel(gen, shape, c, o4):
     assert ci.launches["strided_conv4x4s2_s8"] == 1
 
 
+# H4 int8's cases, the input grid [N, H, W] (the scatter's packed one) and
+# C: the 512² sites (upconv3 identity, C = 128, boxed; upconv4 scatter, C =
+# 64, gathered), a small grid, a tile ragged in both directions, N = 3, C =
+# 16 (one K block, the rest zeros) and 144 (a second block of 16); each at
+# both 4O (ping-pong with TMA stores, and tiles split between the consumers)
+ROWS8 = {"upconv3": ((1, 84, 84), 128), "upconv4": ((1, 82, 82), 64),
+         "small": ((2, 7, 9), 64), "ragged tiles": ((1, 21, 37), 128),
+         "N=3": ((3, 10, 13), 128), "C=16": ((2, 5, 9), 16),
+         "C=144": ((1, 6, 11), 144)}
+
+
+def _rows8_site(gen, case, scatter, o4, inline=False):
+    (n, h, w), c = ROWS8[case]
+    x = (_acts8 if inline else _s8)(gen, n, h, w, 4 * c if scatter else c)
+    wqm = _s8(gen, c, o4)
+    kw = {"scatter": scatter, "wkm": ci.k_major(wqm)}
+    if inline:
+        kw["act_scale"] = ACT_S
+    return (x, wqm, *_requant_vecs(gen, o4, c)), kw
+
+
+@pytest.mark.parametrize("o4", [128, 256])
+@pytest.mark.parametrize("case", list(ROWS8))
 @pytest.mark.parametrize("scatter", [False, True])
-def test_rows_matmul_s8_kernel(gen, scatter):
-    c, o4 = (64, 128) if scatter else (128, 256)
-    x = _s8(gen, 2, 7, 9, 4 * c if scatter else c)
-    args = (x, _s8(gen, c, o4), *_requant_vecs(gen, o4, c))
-    _check_s8(ci.rows_matmul_s8(*args, scatter=scatter),
-              ci.rows_matmul_s8_plain(*args, scatter=scatter))
+def test_rows_matmul_s8_kernel(gen, scatter, case, o4):
+    args, kw = _rows8_site(gen, case, scatter, o4)
+    ci.reset_launches()
+    _check_exact(ci.rows_matmul_s8(*args, **kw),
+                 ci.rows_matmul_s8_plain(*args, **kw))
+    assert ci.launches["rows_matmul_s8"] == 1
 
 
 # H5's cases, the image [N, H, W]: 512² (N = 1; 254² outputs, ragged 8 ×
@@ -610,14 +633,27 @@ def test_strided_conv4x4s2_s8_inline_kernel(gen, shape, c, o4):
     assert ci.launches["strided_conv4x4s2_s8_inline"] == 1
 
 
+@pytest.mark.parametrize("o4", [128, 256])
+@pytest.mark.parametrize("case", list(ROWS8))
 @pytest.mark.parametrize("scatter", [False, True])
-def test_rows_matmul_s8_inline_kernel(gen, scatter):
-    c, o4 = (64, 128) if scatter else (128, 256)
-    x = _acts8(gen, 2, 7, 9, 4 * c if scatter else c)
-    args = (x, _s8(gen, c, o4), *_requant_vecs(gen, o4, c))
-    kw = {"scatter": scatter, "act_scale": ACT_S}
-    _check_s8(ci.rows_matmul_s8(*args, **kw),
-              ci.rows_matmul_s8_plain(*args, **kw))
+def test_rows_matmul_s8_inline_kernel(gen, scatter, case, o4):
+    args, kw = _rows8_site(gen, case, scatter, o4, inline=True)
+    ci.reset_launches()
+    _check_exact(ci.rows_matmul_s8(*args, **kw),
+                 ci.rows_matmul_s8_plain(*args, **kw))
+    assert ci.launches["rows_matmul_s8_inline"] == 1
+
+
+def test_rows_matmul_s8_refuses_bad_operands(gen):
+    """No fallback: H4 int8 without its K-major copy, with a bad one or a
+    misaligned x raises."""
+    args, kw = _rows8_site(gen, "small", False, 128)
+    with pytest.raises(ValueError, match="K-major"):
+        ci.rows_matmul_s8(*args, **{**kw, "wkm": None})
+    with pytest.raises(ValueError, match="shape"):
+        ci.rows_matmul_s8(*args, **{**kw, "wkm": kw["wkm"][:, :32]})
+    with pytest.raises(ValueError, match="16-byte"):
+        ci.rows_matmul_s8(_misaligned(args[0]), *args[1:], **kw)
 
 
 @pytest.mark.parametrize("o4", [128, 256])
@@ -723,26 +759,207 @@ def test_strided_entry_s8_wrappers_refuse_bad_operands(gen):
         ci.entry_chain(_act(gen, 1, 8, 14, 4), *eargs[1:], **ekw)
 
 
-def test_conv3x3_s8_int_mm(gen):
-    x, wq = _s8(gen, 2, 9, 11, 64), _s8(gen, 3, 3, 64, 128)
-    got = ci.conv3x3_s8(x, wq)
-    assert got.dtype == torch.int32
-    assert torch.equal(got, ci.conv3x3_s8_plain(x, wq))
+def _check_exact(got, want):
+    """Kernel and plain version equal bit for bit (s8 codes, bf16 values)."""
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+
+
+def test_quant_act_divides_on_the_card(gen):
+    """The std levels' quantize (models/unet_int8.py quant_act, H8's plain
+    versions) is JAX's division round(f32(x) / f32(s)) on the card as on
+    the CPU, at f32 values within 4 ulps of every half-integer quotient
+    under 50 scales. ATen's CUDA x / <Python float> multiplies by the
+    reciprocal instead; how many codes that changes is printed."""
+    import numpy as np
+
+    from segmentation_tpu_torch.nn.kernels.conv_int8 import quant_act
+
+    rng = np.random.default_rng(0)
+    scales = (rng.uniform(1.0, 2.0, 50)
+              * 2.0 ** rng.integers(-12, -2, 50)).astype(np.float32)
+    ties = np.arange(-130, 130, dtype=np.float32) + np.float32(0.5)
+    differ = total = 0
+    for s in scales:
+        bits = ((ties * s).astype(np.float32).view(np.int32)[:, None]
+                + np.arange(-4, 5, dtype=np.int32))
+        x = bits.reshape(-1).view(np.float32)
+        want = torch.from_numpy(
+            np.clip(np.rint(x / s), -127, 127).astype(np.int8))
+        xt = torch.from_numpy(x)
+        assert torch.equal(quant_act(xt, float(s)), want)
+        assert torch.equal(quant_act(xt.cuda(), float(s)).cpu(), want)
+        by_tensor = xt.cuda() / torch.full_like(xt.cuda(), float(s))
+        assert torch.equal(
+            torch.clamp(torch.round(by_tensor), -127, 127).to(torch.int8)
+            .cpu(), want)
+        by_float = torch.clamp(torch.round(xt.cuda() / float(s)), -127, 127)
+        differ += int((by_float.to(torch.int8).cpu() != want).sum())
+        total += x.size
+    print(f"[repair] x / <Python float> on the card: {differ} of {total} "
+          f"codes differ from the division")
+
+
+# H8's single cases: x [N, H, W, C] and O. The int8 request's sites (N =
+# 1; conv3_1 C = 64, half a K block; O = 512 two column tiles), ragged
+# tiles at both column tiles, one output row, column or pixel, N = 3, C =
+# 16 and 48 (one K block, the rest TMA's zeros; two k-steps), 192 (a second
+# block of 64), and a row wider than the widest tile row
+STD8 = {"conv3_1": ((1, 125, 125, 64), 128),
+        "conv3_2": ((1, 123, 123, 128), 128),
+        "conv4_1": ((1, 60, 60, 128), 256),
+        "conv4_2": ((1, 58, 58, 256), 256),
+        "conv5_1": ((1, 28, 28, 256), 512),
+        "conv5_2": ((1, 26, 26, 512), 512),
+        "conv6_2": ((1, 46, 46, 256), 256),
+        "conv7_2": ((1, 86, 86, 128), 128),
+        "ragged": ((2, 13, 21, 128), 128),
+        "ragged O=256": ((2, 13, 21, 128), 256),
+        "one row": ((1, 3, 40, 128), 128),
+        "one column": ((1, 40, 3, 256), 256),
+        "one pixel": ((2, 3, 3, 128), 512),
+        "N=3": ((3, 20, 45, 256), 128),
+        "C=16": ((2, 9, 13, 16), 128),
+        "C=48": ((1, 9, 13, 48), 256),
+        "C=192": ((1, 12, 17, 192), 128),
+        "wide": ((1, 8, 300, 128), 128)}
+
+
+def _std8_site(gen, case, requant):
+    shape, o = STD8[case]
+    c = shape[-1]
+    wq = _s8(gen, 3, 3, c, o)
+    mul, add = _requant_vecs(gen, o, 9 * c)
+    if not requant:
+        mul = mul / 20
+    return (_s8(gen, *shape), wq, mul, add), {"requant": requant,
+                                              "wk": ci.k_major(wq)}
+
+
+@pytest.mark.parametrize("requant", [True, False], ids=["s8", "bf16"])
+@pytest.mark.parametrize("case", list(STD8))
+def test_std_conv3x3_s8_kernel(gen, case, requant):
+    args, kw = _std8_site(gen, case, requant)
+    ci.reset_launches()
+    _check_exact(ci.std_conv3x3_s8(*args, **kw),
+                 ci.std_conv3x3_s8_plain(*args, **kw))
+    assert ci.launches["std_conv3x3_s8"] == 1
+
+
+# H8's dual cases: skip [N, Hs, Ws, C], up [N, H, W, C], O, the crop
+# origin. The request's two sites, ragged tiles, one row, N = 3, C = 64,
+# O = 512 (two column tiles of 64-row tiles)
+STD8_DUAL = {"conv6_1": ((1, 56, 56, 256), (1, 48, 48, 256), 256, (4, 4)),
+             "conv7_1": ((1, 121, 121, 128), (1, 88, 88, 128), 128,
+                         (16, 16)),
+             "ragged": ((2, 20, 25, 128), (2, 13, 21, 128), 256, (3, 2)),
+             "one row": ((1, 6, 44, 128), (1, 3, 40, 128), 128, (1, 2)),
+             "N=3": ((3, 24, 49, 256), (3, 20, 45, 256), 128, (2, 4)),
+             "C=64": ((1, 15, 17, 64), (1, 9, 11, 64), 128, (3, 3)),
+             "O=512": ((1, 14, 14, 128), (1, 10, 10, 128), 512, (2, 2))}
+
+
+def _masked_acts8(gen, *shape):
+    """bf16 sides as a deconv's ReLU leaves them, and beyond: about half
+    exact zeros (a division's slow path), the rest codes -75..150 at
+    ACT_S."""
+    x = (torch.rand(shape, generator=gen, device="cuda") * 225 - 75) * ACT_S
+    keep = torch.rand(shape, generator=gen, device="cuda") > 0.5
+    return (x * keep).to(torch.bfloat16)
+
+
+def _std8_dual_site(gen, case, sides, out):
+    sshape, ushape, o, offset = STD8_DUAL[case]
+    c = ushape[-1]
+    sk = (_masked_acts8(gen, *sshape) if sides[0] == "bf16"
+          else _s8(gen, *sshape))
+    up = (_masked_acts8(gen, *ushape) if sides[1] == "bf16"
+          else _s8(gen, *ushape))
+    wqa, wqb = _s8(gen, 3, 3, c, o), _s8(gen, 3, 3, c, o)
+    cs_a, _ = _requant_vecs(gen, o, 18 * c)
+    cs_b, b = _requant_vecs(gen, o, 18 * c)
+    kw = {"offset": offset, "wka": ci.k_major(wqa), "wkb": ci.k_major(wqb),
+          "out_scale": 1.0 if out == "s8" else None,
+          "act_scale_a": ACT_S if sides[0] == "bf16" else None,
+          "act_scale_b": ACT_S if sides[1] == "bf16" else None}
+    return (sk, up, wqa, wqb, cs_a, cs_b, b), kw
+
+
+@pytest.mark.parametrize("out", ["s8", "bf16"])
+@pytest.mark.parametrize("sides", [("s8", "bf16"), ("s8", "s8"),
+                                   ("bf16", "s8"), ("bf16", "bf16")],
+                         ids=["skip s8 up bf16", "s8 s8", "skip bf16 up s8",
+                              "bf16 bf16"])
+@pytest.mark.parametrize("case", list(STD8_DUAL))
+def test_std_conv3x3_dual_s8_kernel(gen, case, sides, out):
+    args, kw = _std8_dual_site(gen, case, sides, out)
+    ci.reset_launches()
+    _check_exact(ci.std_conv3x3_dual_s8(*args, **kw),
+                 ci.std_conv3x3_dual_s8_plain(*args, **kw))
+    mode = "std_conv3x3_dual_s8" + ("_inline" if "bf16" in sides else "")
+    assert ci.launches[mode] == 1
+
+
+@pytest.mark.parametrize("op", ["single conv3_1", "single conv5_1 bf16",
+                                "dual conv7_1"])
+def test_std_conv3x3_s8_is_deterministic(gen, op):
+    if op.startswith("single"):
+        args, kw = _std8_site(gen, op.split()[1], "bf16" not in op)
+        fn = ci.std_conv3x3_s8
+    else:
+        args, kw = _std8_dual_site(gen, "conv7_1", ("s8", "bf16"), "s8")
+        fn = ci.std_conv3x3_dual_s8
+    first, second = fn(*args, **kw), fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_std_conv3x3_s8_refuses_bad_operands(gen):
+    """No fallback: an H8 call the kernel does not take raises."""
+    args, kw = _std8_site(gen, "ragged", True)
+    x, wq, mul, add = args
+    with pytest.raises(ValueError, match="K-major"):
+        ci.std_conv3x3_s8(*args, **{**kw, "wk": None})
+    with pytest.raises(ValueError, match="shape"):
+        ci.std_conv3x3_s8(*args, **{**kw, "wk": kw["wk"][:, :128]})
+    with pytest.raises(TypeError):
+        ci.std_conv3x3_s8(x.to(torch.bfloat16), wq, mul, add, **kw)
+    with pytest.raises(ValueError, match="bad input shape"):
+        w24 = _s8(gen, 3, 3, 24, 128)
+        ci.std_conv3x3_s8(_s8(gen, 1, 5, 5, 24), w24, mul, add,
+                          wk=ci.k_major(w24))
+    with pytest.raises(ValueError, match="bad input shape"):
+        w64 = _s8(gen, 3, 3, 128, 64)
+        ci.std_conv3x3_s8(x, w64, mul[:64], add[:64], wk=ci.k_major(w64))
+    with pytest.raises(ValueError, match="16-byte"):
+        ci.std_conv3x3_s8(_misaligned(x), wq, mul, add, **kw)
+    dargs, dkw = _std8_dual_site(gen, "ragged", ("s8", "bf16"), "s8")
+    with pytest.raises(ValueError, match="K-major"):
+        ci.std_conv3x3_dual_s8(*dargs, **{**dkw, "wka": None})
+    with pytest.raises(ValueError, match="does not cover"):
+        ci.std_conv3x3_dual_s8(*dargs, **{**dkw, "offset": (8, 0)})
+    with pytest.raises(TypeError, match="act_scale"):
+        ci.std_conv3x3_dual_s8(*dargs, **{**dkw, "act_scale_b": None})
+    with pytest.raises(ValueError, match="16-byte"):
+        ci.std_conv3x3_dual_s8(_misaligned(dargs[0]), *dargs[1:], **dkw)
 
 
 # each int8 configuration's kernel modes (chip_smoke.py ROUTE_LAUNCHES):
 # at 256², where the JAX route fuses level 1
+_STD8 = {"std_conv3x3_s8", "std_conv3x3_dual_s8_inline"}
 _ROUTE_MODES = {
     (): {"entry_chain", "strided_conv4x4s2_s8", "packed_conv2x2_s8_pool",
-         "rows_matmul_s8", "packed_conv2x2_dual_s8", "packed_conv2x2_s8"},
+         "rows_matmul_s8", "packed_conv2x2_dual_s8",
+         "packed_conv2x2_s8"} | _STD8,
     (("padflat", False),): {
         "strided_conv4x4s2", "rows_matmul", "packed_conv2x2_s8_pool",
         "strided_conv4x4s2_s8", "packed_conv2x2_dual_s8_inline",
-        "packed_conv2x2_s8"},
+        "packed_conv2x2_s8"} | _STD8,
     (("quant_deconvs", False),): {
         "entry_chain", "rows_matmul", "packed_conv2x2_s8_pool",
         "strided_conv4x4s2_s8", "packed_conv2x2_dual_s8_inline",
-        "packed_conv2x2_s8"},
+        "packed_conv2x2_s8"} | _STD8,
 }
 
 

@@ -30,6 +30,12 @@ from segmentation_tpu_torch import profile_serving as ps
     ("void segk::rows_matmul_fwd_kernel<256, true>("
      "segk::RowsTiles<256, true>)", "H4 rows_matmul"),
     ("void rows_matmul_s8_kernel(RowsLoader<s8>, ...)", "H4 rows_matmul"),
+    ("void segk::rows_matmul_s8_kernel<128, 1>(segk::RowsS8Tiles<128, 1>)",
+     "H4 rows_matmul"),
+    ("void segk::std_conv3x3_s8_kernel<128, false, false, true>("
+     "segk::StdTiles<128, false, false, true>)", "H8 std_conv3x3_s8"),
+    ("void segk::std_conv3x3_dual_s8_kernel<256, true, false, false>("
+     "segk::StdTiles<256, true, false, false>)", "H8 std_conv3x3_s8"),
     ("void segk::(anonymous namespace)::crop_normalize_kernel<"
      "__nv_bfloat16>(unsigned char const*, ...)", "H7 crop_normalize"),
     ("cutlass_80_wmma_tensorop_i161616gemm_s8_32x32_128x1_tn_align16",
