@@ -36,10 +36,21 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                H4 int8's and H8's library column is torch._int_mm of the
                same product (s32 out);
   3c.        — the same for H6 (the packed-conv input grad), single and
-               dual, at its six training sites, each line with the tile
+               dual, at its six training sites as the step calls it (g the
+               window of its zero-margined buffer, the duals' dxa stored
+               into the skip's crop window), each line with the tile
                (th × tw) the wrapper's plan picked, the share of the bound
                and the share of the packed form's tensor peak (its GEMM's
-               operations over 989 TFLOP/s), then each mode's sums;
+               operations over 989 TFLOP/s), then each mode's sums; and
+               the train step's glue kernels (train_glue.cu) at the ten
+               packed train sites: relu_bias_grad (the level sites' pool
+               mode, the 2×2 sites' zero-margined buffers) bit for bit its
+               plain version's but db, within its bound of the exact sum
+               (the depth of the kernel's f32 sums), which a db of zeros or
+               of half the pixels exceeds, and crop_margin_zero on the
+               duals' skip gradients, bit for bit; H1's train pool-index mode
+               (phase 3's sites) holds its pool and index bit for bit
+               against pool_select of its own y;
   4. slice   — 4 requests of B = 8 through serving.entry (apply_argmax),
                whose launches alone are counted, then one apply (logits);
                every kernel must have launched in the requests, the masks
@@ -69,18 +80,23 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                one B = 16 synthetic batch, whose loss must fall; (c) the
                B = 128 step (the JAX bench's batch) on device-resident
                batches: 2 warm-up steps, then 5 timed by CUDA events, whose
-               launches alone are counted (every training kernel must have
-               launched), on both paths, then the device busy share of the
-               kernel path's step;
+               launches alone are counted (every training kernel and glue
+               kernel must have launched, and the kernel path must call no
+               pool4_select, plain glue, F.pad or crop copy but the duals'
+               wgrad operand, one a dual launch), on both
+               paths, then the device busy share of the kernel path's step;
   7. data    — (a) H7 (crop_normalize) against its plain version at the
                data path's shape, B = 128 staging tiles of 600²×3 and
-               600²×1, crop 512, mixed flips, bf16, f32 and u8 out: exact;
-               timed beside its bound; (b) the data path into the
-               flagship trainer: GeneratorDataSet over seeded 600² u8
+               600²×1, crop 512, mixed flips, bf16, f32 and u8 out, the
+               image alone and with its mask in one launch, x offsets on
+               and off the 8-pixel grid: exact; the path's one launch (bf16
+               image + u8 mask) timed beside its bound; (b) the data path
+               into the flagship trainer: GeneratorDataSet over seeded 600² u8
                tiles → DevicePrefetcher (pinned, side stream) →
                fused_augment (H7) → train_step at B = 128, 2 warm-up then
-               5 timed steps whose launches alone are counted (H1–H4, H6
-               and H7 must launch), the busy share, the pinned H2D rate;
+               5 timed steps whose launches alone are counted (H1–H4, H6,
+               the glue and H7, once a step, must launch), the busy share,
+               the pinned H2D rate;
                (c) 48 PNG pairs of 600² on disk → the native u8 loader
                alone at 1, 2 and 4 threads, then → prefetcher → H7 →
                trainer at B = 16; skipped with g++'s error on one line
@@ -198,6 +214,23 @@ REPLACES["packed_conv2x2_dgrad"] = \
 REPLACES["packed_conv2x2_dgrad_dual"] = \
     "segmentation_tpu/nn/pallas/conv_flat_bwd.py:217"
 REPLACES["crop_normalize"] = "segmentation_tpu/nn/pallas/augment.py:65"
+# the train route's glue and H1's train pool mode (train_glue.cu; the JAX
+# package leaves the glue to XLA around its custom-VJP wrappers)
+_TR, _UF = ("segmentation_tpu/nn/pallas/train.py",
+            "segmentation_tpu/models/unet_fast.py")
+SOURCES["packed_conv2x2_pool_index"] = SOURCES["packed_conv2x2"]
+REPLACES["packed_conv2x2_pool_index"] = (
+    f"{_CONV}:372 conv2x2_flat + {_UF}:526 pool4_select (its forward)")
+for k in ("relu_bias_grad", "relu_bias_grad_pool", "crop_margin_zero"):
+    SOURCES[k] = "segmentation_tpu_torch/csrc/train_glue.cu"
+REPLACES["relu_bias_grad"] = (
+    f"{_TR}:116 _mask + :122 _db (in the wrappers :155,191,226,259,300)")
+REPLACES["relu_bias_grad_pool"] = (
+    f"{_TR}:116 _mask + :122 _db + {_UF}:559 _pool4_bwd (XLA)")
+REPLACES["crop_margin_zero"] = (
+    f"{_UF}:618 packed_center_crop_flat's VJP (:665; XLA)")
+# kernels that write in place (the parity runs each on its own copy)
+IN_PLACE = ("crop_margin_zero",)
 REPLACES["std_conv3x3_s8"] = f"{_UI8}:72 int8_conv (XLA)"
 REPLACES["std_conv3x3_dual_s8"] = REPLACES["std_conv3x3_dual_s8_inline"] = \
     f"{_UI8}:104 int8_std_dual_conv (XLA)"
@@ -249,9 +282,9 @@ def _wgt(gen, *shape):
 
 
 def _sites(n, gen):
-    """The ten packed sites of one 512² forward (n_kernels = 32):
-    (kernel, label, args, kwargs) with random operands of the path's
-    shapes and dtypes."""
+    """The ten packed sites of one 512² forward (n_kernels = 32), and H1's
+    train pool mode at conv1_2 and conv2_2: (kernel, label, args, kwargs)
+    with random operands of the path's shapes and dtypes."""
     import torch
 
     from segmentation_tpu_torch.models.unet_fast import head_diff
@@ -278,6 +311,12 @@ def _sites(n, gen):
         ("packed_conv2x2", "conv1_2 +pool", (act(n, 255, 255, 128),
                                              wgt(2, 2, 128, 128), bias(128)),
          {"pool": True}),
+        ("packed_conv2x2_pool_index", "conv1_2 train pool index",
+         (act(n, 255, 255, 128), wgt(2, 2, 128, 128), bias(128)),
+         {"pool_index": True}),
+        ("packed_conv2x2_pool_index", "conv2_2 train pool index",
+         (act(n, 126, 126, 256), wgt(2, 2, 256, 256), bias(256)),
+         {"pool_index": True}),
         ("strided_conv4x4s2", "conv2_1 C=32", (act(n, 254, 254, 32),
                                                wgt(4, 4, 32, 256), bias(256)),
          {}),
@@ -308,17 +347,24 @@ def _sites(n, gen):
 
 
 def _dgrad_sites(n, gen):
-    """H6's six sites in one 512² train step (n_kernels = 32): a
-    ReLU-masked bf16 cotangent g [n, hg, wg, 4O] (zero on about half the
-    elements) and the sites' bf16 packed weights."""
+    """H6's six sites in one 512² train step (n_kernels = 32), as the step
+    calls it: a ReLU-masked bf16 cotangent g [n, hg, wg, 4O] (zero on about
+    half the elements), the window of its zero-margined buffer [n, hg+1,
+    wg+1, 4O] (train_glue.relu_bias_grad's), and the sites' bf16 packed
+    weights; the duals store dxa into the crop window of the skip's
+    gradient (conv8_1 at (41, 41), conv9_1 at (90, 90))."""
     import torch
 
     dev = gen.device
 
     def cot(*shape):
+        n_, hg, wg, o4 = shape
+        buf = torch.zeros((n_, hg + 1, wg + 1, o4), device=dev,
+                          dtype=torch.bfloat16)
         g = torch.randn(shape, generator=gen, device=dev)
         keep = torch.rand(shape, generator=gen, device=dev) > 0.5
-        return (g * keep).to(torch.bfloat16)
+        buf[:, :hg, :wg] = (g * keep).to(torch.bfloat16)
+        return buf[:, :hg, :wg]
 
     def w(c4, o4):
         return _wgt(gen, 2, 2, c4, o4)
@@ -327,12 +373,59 @@ def _dgrad_sites(n, gen):
     return [
         (single, "conv1_2", (cot(n, 254, 254, 128), w(128, 128)), {}),
         (single, "conv2_2", (cot(n, 125, 125, 256), w(256, 256)), {}),
-        (dual, "conv8_1", (cot(n, 83, 83, 256), w(256, 256), w(256, 256)),
-         {}),
+        (dual, "conv8_1 into the skip's crop (41,41)",
+         (cot(n, 83, 83, 256), w(256, 256), w(256, 256)),
+         {"skip_shape": (n, 125, 125, 256), "offset": (41, 41)}),
         (single, "conv8_2", (cot(n, 82, 82, 256), w(256, 256)), {}),
-        (dual, "conv9_1", (cot(n, 163, 163, 128), w(128, 128), w(128, 128)),
-         {}),
+        (dual, "conv9_1 into the skip's crop (90,90)",
+         (cot(n, 163, 163, 128), w(128, 128), w(128, 128)),
+         {"skip_shape": (n, 254, 254, 128), "offset": (90, 90)}),
         (single, "conv9_2", (cot(n, 162, 162, 128), w(128, 128)), {}),
+    ]
+
+
+def _glue_sites(n, gen):
+    """The glue kernels at the ten packed sites of one 512² train step
+    (n_kernels = 32): relu_bias_grad on a cotangent g and a post-ReLU
+    output y (zero on about half the elements) of each site's shape, in
+    the site's mode (the level sites with the pool's gradient and index,
+    the 2×2 sites into the zero-margined buffer); crop_margin_zero on the
+    duals' skip gradients."""
+    import torch
+
+    dev = gen.device
+
+    def bf(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    def gy(*shape):
+        return bf(*shape), torch.relu(bf(*shape))
+
+    def pool(n_, h, w, o4):
+        idx = torch.randint(0, 4, (n_, h, w, o4 // 4), generator=gen,
+                            device=dev, dtype=torch.int8)
+        return bf(n_, h, w, o4 // 4), idx
+
+    rbg, rbgp = "relu_bias_grad", "relu_bias_grad_pool"
+    pad = {"pad": True}
+    return [
+        (rbg, "conv1_1", gy(n, 255, 255, 128), {}),
+        (rbgp, "conv1_2", gy(n, 254, 254, 128),
+         {"pool": pool(n, 254, 254, 128), **pad}),
+        (rbg, "conv2_1", gy(n, 126, 126, 256), {}),
+        (rbgp, "conv2_2", gy(n, 125, 125, 256),
+         {"pool": pool(n, 125, 125, 256), **pad}),
+        (rbg, "upconv3", gy(n, 84, 84, 256), {}),
+        (rbg, "conv8_1", gy(n, 83, 83, 256), pad),
+        (rbg, "conv8_2", gy(n, 82, 82, 256), pad),
+        (rbg, "upconv4", gy(n, 164, 164, 128), {}),
+        (rbg, "conv9_1", gy(n, 163, 163, 128), pad),
+        (rbg, "conv9_2", gy(n, 162, 162, 128), pad),
+        ("crop_margin_zero", "conv8_1's skip (41,41)",
+         (bf(n, 125, 125, 256), 84, 84, (41, 41)), {}),
+        ("crop_margin_zero", "conv9_1's skip (90,90)",
+         (bf(n, 254, 254, 128), 164, 164, (90, 90)), {}),
     ]
 
 
@@ -573,7 +666,9 @@ def _site_work(name, args, kw, outs):
     each weight), 2·C·4O per input pixel of the 2×2/2 deconv, 2·O per
     pixel of the nc=2 head (the two logits' difference); H5 its two
     convs, conv1_1 in bf16 and conv1_2 in s8."""
-    base = re.sub(r"(_s8)?(_pool|_inline)?$", "", name)
+    if name.startswith(("relu_bias_grad", "crop_margin_zero")):
+        return _glue_work(name, args, kw, outs)
+    base = re.sub(r"(_s8)?(_pool_index|_pool|_inline)?$", "", name)
     if name.startswith("conv3entry"):
         base = "strided_conv4x4s2"
     kind = "s8" if "_s8" in name or name == "conv3entry_s8" else "bf16"
@@ -619,8 +714,26 @@ def _site_work(name, args, kw, outs):
     else:  # the dgrads: g [n, hg, wg, 4O] against one or two weights
         g, *ws = args
         n, hg, wg, o4 = g.shape
+        if kw.get("skip_shape"):  # the kernel writes the crop window only
+            nbytes -= (outs[0].numel() - n * (hg + 1) * (wg + 1)
+                       * ws[0].shape[2]) * outs[0].element_size()
         ops = conv3x3(4 * n * hg * wg, ws[0].shape[2] // 4, o4 // 4) * len(ws)
     return nbytes, {kind: ops}
+
+
+def _glue_work(name, args, kw, outs):
+    """(bytes, {type: operations}) of a glue launch: relu_bias_grad reads g,
+    y (and the pool's gradient and index) once and writes its buffer,
+    margin included, about one f32 add an element (two with the pool);
+    crop_margin_zero writes the margin alone."""
+    if name == "crop_margin_zero":
+        buf, hp, wp, _ = args
+        n, _, _, c4 = buf.shape
+        return (buf.numel() - n * hp * wp * c4) * buf.element_size(), {}
+    g, y = args
+    ins = (g, y, *kw.get("pool", ()))
+    return _bytes(*ins, *outs), {
+        "f32": y.numel() * (2 if "pool" in kw else 1)}
 
 
 def _library_call(name, args, kw):
@@ -821,7 +934,8 @@ SM90_S8 = ("packed_conv2x2_s8", "packed_conv2x2_s8_pool",
            "packed_conv2x2_dual_s8_inline", "strided_conv4x4s2_s8",
            "strided_conv4x4s2_s8_inline", "conv3entry_s8", "rows_matmul_s8",
            "rows_matmul_s8_inline") + STD8
-SM90 = ("packed_conv2x2", "packed_conv2x2_dual", "strided_conv4x4s2",
+SM90 = ("packed_conv2x2", "packed_conv2x2_pool_index",
+        "packed_conv2x2_dual", "strided_conv4x4s2",
         "rows_matmul", "packed_conv2x2_dgrad", "packed_conv2x2_dgrad_dual",
         "conv3entry_requant", "entry_chain") + SM90_S8
 
@@ -855,6 +969,47 @@ def _tile_note(name, args, kw, ms, bound):
     return note
 
 
+def _exact(label, name, kw, got, want):
+    """The outputs held bit for bit: the glue kernels' gm buffers (and the
+    margin the in-place kernel writes), H1's train pool and index against
+    pool_select of its own y; relu_bias_grad's f32 db against the exact
+    (f64) sum of gm within its bound (train_glue.db_error_bound: the depth
+    of the kernel's three sequential sums · 2^-24 · Σ|gm| per channel), a
+    bound that a db of zeros, or of half the pixels, must exceed."""
+    import torch
+
+    from segmentation_tpu_torch.nn.kernels.train_glue import db_error_bound
+
+    if name.startswith(("relu_bias_grad", "crop_margin_zero")):
+        pairs = [(g, w) for g, w in zip(got, want) if g.dtype != torch.float32]
+    elif kw.get("pool_index"):
+        pairs = list(zip(got[1:], want[1:]))
+    else:
+        return
+    for g, w in pairs:
+        if not torch.equal(g.view(torch.uint8), w.view(torch.uint8)):
+            raise AssertionError(f"{label}: not bit for bit the plain "
+                                 f"version's ({tuple(g.shape)} {g.dtype})")
+    if name.startswith("relu_bias_grad"):
+        exact = want[0].double().sum((0, 1, 2))
+        bound = db_error_bound(want[0])
+        err = (got[1].double() - exact).abs()
+        rows = want[0].double().flatten(0, 2)
+        half = rows[: rows.shape[0] // 2].sum(0)
+        print(f"[kernels] {label}: gm bit for bit; db max abs err "
+              f"{err.max().item():.3e} (its bound: max "
+              f"{bound.max().item():.3e}; |db| max "
+              f"{exact.abs().max().item():.3e})")
+        if (err > bound).any():
+            raise AssertionError(f"{label}: db beyond its bound")
+        if not ((exact.abs() > bound).any()
+                and ((exact - half).abs() > bound).any()):
+            raise AssertionError(f"{label}: db's bound would pass a db of "
+                                 f"zeros or of half the pixels")
+    else:
+        print(f"[kernels] {label}: bit for bit the plain version's")
+
+
 def _kernel_phase(mod, sites):
     """Each kernel of ``mod`` against its plain version at every site of
     the path, N = 2 and B = 8; each site's time at B = 8 beside the plain
@@ -878,10 +1033,19 @@ def _kernel_phase(mod, sites):
     bound_parts = {k: {"bytes": 0.0, "operations": 0.0} for k in mod.NAMES}
     library_ms = dict.fromkeys(mod.NAMES)
     packed = {k: {} for k in mod.NAMES}
+    from segmentation_tpu_torch.nn.kernels.conv_flat import pool_select
+
     for n in (B_PARITY, B_SERVE):
         for name, label, args, kw in sites(n, generator(7 + n, "cuda")):
-            got = _outs(wrappers[name](*args, **kw))
-            want = _outs(plains[name](*args, **kw))
+            own = args
+            if name in IN_PLACE:  # each on its own copy of the buffer
+                own = (args[0].clone(),) + tuple(args[1:])
+            got = _outs(wrappers[name](*own, **kw))
+            if name in IN_PLACE:
+                own = (args[0].clone(),) + tuple(args[1:])
+            want = _outs(plains[name](*own, **kw))
+            if kw.get("pool_index"):  # the pool and index of the kernel's y
+                want = (want[0], *pool_select(got[0]))
             margin = None
             if "head" in kw:
                 wd, bd = kw["head"]
@@ -892,6 +1056,7 @@ def _kernel_phase(mod, sites):
             for g, w in zip(got, want):
                 worst[name] = max(worst[name], _parity(
                     f"N={n} {name} {label}", g, w, margin))
+            _exact(f"N={n} {name} {label}", name, kw, got, want)
             if n != B_SERVE:
                 continue
             fns = {"plain": lambda: plains[name](*args, **kw),
@@ -1062,7 +1227,69 @@ def _train_throughput(trainer, batch, tag, reset, counts):
     return ms, peak, launches
 
 
-def _train_phase(cf, cb):
+class _CallCensus:
+    """Counts the calls of module functions while it is entered (from the
+    last ``reset``): the plain versions and the glue that the kernel path
+    must not run. Each target is the name its callers resolve when they
+    call it (a module global looked up at call time)."""
+
+    def __init__(self, targets):
+        self.targets, self.counts, self._saved = targets, {}, []
+
+    def reset(self):
+        self.counts = dict.fromkeys(self.targets, 0)
+
+    def __enter__(self):
+        self.reset()
+        for label, (mod, attr) in self.targets.items():
+            f = getattr(mod, attr)
+
+            def counted(*a, _f=f, _label=label, **k):
+                self.counts[_label] += 1
+                return _f(*a, **k)
+
+            self._saved.append((mod, attr, f))
+            setattr(mod, attr, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, f in reversed(self._saved):
+            setattr(mod, attr, f)
+        self._saved = []
+
+
+WGRAD_CROP = "crop_packed (conv_bwd: the duals' wgrad operand)"
+
+
+def _glue_census():
+    """The plain code a train step's kernel path may reach: pool4_select
+    (through unet_fast's pool_select and pool_scatter), the plain pool and
+    glue (conv_flat.pool_select, train_glue's relu_bias_grad_plain and
+    pool_scatter), the plain dual's crop copy and its dgrad's un-crop, and
+    F.pad (of a cotangent): none of them; and the crop copy that
+    conv_bwd.conv2x2_wgrad_crop makes as the skip side's wgrad operand
+    (WGRAD_CROP): one per dual site and step."""
+    import torch.nn.functional as F
+
+    from segmentation_tpu_torch.models import unet_fast
+    from segmentation_tpu_torch.nn.kernels import conv_bwd, conv_flat
+    from segmentation_tpu_torch.nn.kernels import train_glue
+
+    return _CallCensus({
+        "pool4_select (unet_fast.pool_select)": (unet_fast, "pool_select"),
+        "pool4_select backward (unet_fast.pool_scatter)":
+            (unet_fast, "pool_scatter"),
+        "pool_select (the plain H1 pool)": (conv_flat, "pool_select"),
+        "relu_bias_grad_plain": (train_glue, "relu_bias_grad_plain"),
+        "pool_scatter (the plain glue)": (train_glue, "pool_scatter"),
+        "crop_packed (the plain dual)": (conv_flat, "crop_packed"),
+        "uncrop_packed (the plain dual dgrad)": (conv_bwd, "uncrop_packed"),
+        WGRAD_CROP: (conv_bwd, "crop_packed"),
+        "F.pad": (F, "pad"),
+    })
+
+
+def _train_phase(cf, cb, tg):
     """Phase 6; returns the kernel path's timed-step launches and the
     summary numbers."""
     import torch
@@ -1102,19 +1329,33 @@ def _train_phase(cf, cb):
         big = kern._place(SyntheticSegmentation(B_TRAIN, cfg.hw,
                                                 seed=2).get_batch())
 
+        census = _glue_census()
+
         def reset():
             cf.reset_launches()
             cb.reset_launches()
+            tg.reset_launches()
+            census.reset()
 
         def counts():
-            return {**cf.launches, **cb.launches}
+            return {**cf.launches, **cb.launches, **tg.launches}
 
         torch.cuda.empty_cache()
-        k_ms, k_peak, launches = _train_throughput(kern, big, "kernels",
-                                                   reset, counts)
+        with census:
+            k_ms, k_peak, launches = _train_throughput(kern, big, "kernels",
+                                                       reset, counts)
         missing = [k for k, v in launches.items() if v == 0]
         if missing:
             raise AssertionError(f"train kernels never launched: {missing}")
+        print(f"[train] kernels B={B_TRAIN}: calls of the plain versions and "
+              f"glue in the timed steps {census.counts} (the old _mask is "
+              f"gone)")
+        crops = census.counts.pop(WGRAD_CROP)
+        if any(census.counts.values()) or \
+                crops != launches["packed_conv2x2_dual"]:
+            raise AssertionError(f"the kernel path ran {census.counts} and "
+                                 f"{crops} wgrad crop copies for "
+                                 f"{launches['packed_conv2x2_dual']} duals")
         torch.cuda.empty_cache()
         p_ms, p_peak, p_launches = _train_throughput(plain, big, "plain",
                                                      reset, counts)
@@ -1152,9 +1393,11 @@ def _data_tiles(n):
 def _h7_phase(tiles):
     """Phase 7a: H7 against its plain version at the data path's shape (B =
     128 staging tiles, crop 512, fused_augment's offsets, mixed flips):
-    exact in every mode. Returns (kernel ms, plain ms, bound ms, the
-    resource that binds) of the path's two launches, the bf16 image and
-    the u8 mask, and the largest max abs err of the three modes."""
+    exact in every mode, the image alone (u8, f32, bf16) and the image
+    with its mask in one launch (each image dtype), then with x offsets
+    off the 8-pixel grid. Returns (kernel ms, plain ms, bound ms, the
+    resource that binds) of the path's one launch, the bf16 image and the
+    u8 mask, and the largest max abs err of the modes."""
     import numpy as np
     import torch
 
@@ -1168,42 +1411,62 @@ def _h7_phase(tiles):
     n = B_TRAIN
     ys, xs, flips = aug.random_offsets(generator(DATA_SEED, "cuda"),
                                        imgs.shape, HW, x_step=8)
+    xs_any = (xs + torch.arange(n, device="cuda", dtype=torch.int32) % 8
+              ).clamp(max=TILE - HW)
     print(f"[data] H7 offsets: {int(flips.sum())} of {n} flipped, x in "
-          f"[{int(xs.min())}, {int(xs.max())}]")
-    out = {}
-    for label, x, dt in (("image bf16", imgs, torch.bfloat16),
-                         ("image f32", imgs, torch.float32),
-                         ("mask u8", masks, torch.uint8)):
-        def k_fn(x=x, dt=dt):
-            return aug.crop_normalize(x, ys, xs, flips, HW, dt)
-
-        def p_fn(x=x, dt=dt):
-            return aug.crop_normalize_plain(x, ys, xs, flips, HW, dt)
-
-        got, want = k_fn(), p_fn()
+          f"[{int(xs.min())}, {int(xs.max())}] (multiples of 8; then "
+          f"{int((xs_any % 8 != 0).sum())} off the grid)")
+    worst = 0.0
+    cases = [(f"image {t}", False, dt, xs) for t, dt in (
+        ("u8", torch.uint8), ("f32", torch.float32),
+        ("bf16", torch.bfloat16))]
+    cases += [(f"image {t} + mask{x_txt}", True, dt, x_) for t, dt in (
+        ("u8", torch.uint8), ("f32", torch.float32),
+        ("bf16", torch.bfloat16))
+        for x_txt, x_ in (("", xs), (" (x off the grid)", xs_any))]
+    for label, pair, dt, x_ in cases:
+        if pair:
+            got = aug.crop_normalize_pair(imgs, masks, ys, x_, flips, HW, dt)
+            want = (aug.crop_normalize_plain(imgs, ys, x_, flips, HW, dt),
+                    aug.crop_normalize_plain(masks, ys, x_, flips, HW,
+                                             torch.uint8))
+        else:
+            got = (aug.crop_normalize(imgs, ys, x_, flips, HW, dt),)
+            want = (aug.crop_normalize_plain(imgs, ys, x_, flips, HW, dt),)
         torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        if not torch.equal(got, want):
-            raise AssertionError(f"H7 {label}: differs from the plain "
-                                 f"version (max abs err {err})")
-        t_p1, t_k1, t_k2, t_p2 = (_time_ms(f) for f in
-                                  (p_fn, k_fn, k_fn, p_fn))
-        t_k, t_p = (t_k1 + t_k2) / 2, (t_p1 + t_p2) / 2
-        # the windows read, the output written, the offsets; a multiply
-        # per float output
-        nbytes = n * HW * HW * x.shape[-1] + _bytes(got, ys, xs, flips)
-        ops = {} if dt == torch.uint8 else {"f32": got.numel()}
-        b, by = _bound_ms(nbytes, ops)
-        out[label] = (t_k, t_p, b, by, err)
+        for g, w in zip(got, want):
+            err = (g.float() - w.float()).abs().max().item()
+            worst = max(worst, err)
+            if not torch.equal(g, w):
+                raise AssertionError(f"H7 {label}: differs from the plain "
+                                     f"version (max abs err {err})")
         print(f"[data] H7 {label} B={n} {TILE}²→{HW}²: equal to the plain "
-              f"version (max abs err {err}); {t_k:.4f} ms, plain "
-              f"{t_p:.4f} ms, bound {b:.4f} ms ({by}), "
-              f"{nbytes / t_k / 1e6:.1f} GB/s")
+              f"version byte for byte")
         del got, want
-    path = [out["image bf16"], out["mask u8"]]
-    by = max(path, key=lambda v: v[2])[3]
-    return (*(sum(v[i] for v in path) for i in range(3)), by,
-            max(v[4] for v in out.values()))
+
+    def k_fn():  # the path's launch: the bf16 image and the u8 mask
+        return aug.crop_normalize_pair(imgs, masks, ys, xs, flips, HW,
+                                       torch.bfloat16)
+
+    def p_fn():
+        return (aug.crop_normalize_plain(imgs, ys, xs, flips, HW,
+                                         torch.bfloat16),
+                aug.crop_normalize_plain(masks, ys, xs, flips, HW,
+                                         torch.uint8))
+
+    k_fn(), p_fn()
+    t_p1, t_k1, t_k2, t_p2 = (_time_ms(f) for f in (p_fn, k_fn, k_fn, p_fn))
+    t_k, t_p = (t_k1 + t_k2) / 2, (t_p1 + t_p2) / 2
+    # the windows read, the outputs written, the offsets; a multiply per
+    # float output
+    nbytes = (n * HW * HW * (imgs.shape[-1] + masks.shape[-1])
+              + _bytes(*k_fn(), ys, xs, flips))
+    b, by = _bound_ms(nbytes, {"f32": n * HW * HW * imgs.shape[-1]})
+    print(f"[data] H7 image bf16 + mask u8, one launch, B={n} "
+          f"{TILE}²→{HW}²: {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
+          f"{b:.4f} ms ({by}), {nbytes / t_k / 1e6:.1f} GB/s, "
+          f"{b / t_k:.3f} of the bound")
+    return t_k, t_p, b, by, worst
 
 
 def _write_png(path, a):
@@ -1300,7 +1563,7 @@ def _disk_phase(trainer, tiles, gen):
     return disk_ips, alone_ips
 
 
-def _data_phase(cf, cb, tiles):
+def _data_phase(cf, cb, tg, tiles):
     """Phase 7b (and 7c): the data path into the flagship trainer at B =
     128, its launches, step time, busy share and the pinned H2D rate."""
     import numpy as np
@@ -1360,10 +1623,11 @@ def _data_phase(cf, cb, tiles):
             step()
         torch.cuda.synchronize()
         gc.collect()
-        for mod in (cf, cb, aug):  # counted: the first 5 timed steps alone
+        for mod in (cf, cb, tg, aug):  # counted: the first 5 timed steps
             mod.reset_launches()
         ms = _time_ms(step, 5)
-        launches = {**cf.launches, **cb.launches, **aug.launches}
+        launches = {**cf.launches, **cb.launches, **tg.launches,
+                    **aug.launches}
         print(f"[data] B={B_TRAIN} prefetcher → H7 → train step: {ms:.3f} "
               f"ms a step, {B_TRAIN * 1e3 / ms:.1f} img/s, loss "
               f"{metrics['seg_loss']:.6f}; launches {launches}")
@@ -1372,8 +1636,9 @@ def _data_phase(cf, cb, tiles):
         missing = [k for k, v in launches.items() if v == 0]
         if missing:
             raise AssertionError(f"data path: never launched {missing}")
-        if launches["crop_normalize"] != 2 * 5:
-            raise AssertionError("H7 did not launch twice a step")
+        if launches["crop_normalize"] != 5:
+            raise AssertionError("H7 did not launch once a step (image and "
+                                 "mask together)")
         # what the data path costs the step: the same trainer in turns
         # (data, resident, resident, data), 5 steps each
         r1, r2, d2 = (_time_ms(f, 5) for f in (resident, resident, step))
@@ -1504,6 +1769,7 @@ def _int8_config_phase(tag, kw, reqs, calib, want, out_hw, reset):
     from segmentation_tpu_torch.models.unet_int8 import UNetS2DInt8
     from segmentation_tpu_torch.nn.kernels import conv_flat as cf
     from segmentation_tpu_torch.nn.kernels import conv_int8 as ci
+    from segmentation_tpu_torch.nn.kernels import train_glue as tg
     from segmentation_tpu_torch.serving import Server, entry
 
     t0 = time.perf_counter()
@@ -1560,6 +1826,7 @@ def main() -> None:
     from segmentation_tpu_torch.nn.kernels import conv_bwd as cb
     from segmentation_tpu_torch.nn.kernels import conv_flat as cf
     from segmentation_tpu_torch.nn.kernels import conv_int8 as ci
+    from segmentation_tpu_torch.nn.kernels import train_glue as tg
     from segmentation_tpu_torch.serving import Server, entry
 
     # ---- 1. device ------------------------------------------------------
@@ -1590,7 +1857,7 @@ def main() -> None:
 
     # ---- 3. kernel parity (N = 2 and B = 8) and timing (B = 8) ----------
     tables = _kernel_phase(cf, _sites)
-    for mod, sites in ((ci, _sites8), (cb, _dgrad_sites)):
+    for mod, sites in ((ci, _sites8), (cb, _dgrad_sites), (tg, _glue_sites)):
         for table, part in zip(tables, _kernel_phase(mod, sites)):
             table.update(part)
     worst, ms, plain_ms, bound, bound_by, library_ms, packed = tables
@@ -1621,7 +1888,8 @@ def main() -> None:
     print(f"[slice] launches {counts}")
     logits = server.logits(reqs[0])
     torch.cuda.synchronize()
-    missing = [k for k, v in counts.items() if v == 0]
+    missing = [k for k, v in counts.items()
+               if v == 0 and k not in cf.TRAIN_ONLY]
     if missing:
         raise AssertionError(f"kernels never launched on the path: {missing}")
     oh, ow = server.model.output_hw((HW, HW))
@@ -1726,7 +1994,8 @@ def main() -> None:
           f"ms ({h8['bound_ms'] / h8['ms']:.3f} of it reached)")
 
     # ---- 6. the training slice -------------------------------------------
-    train_counts, (k_ms, k_peak, p_ms, p_peak, busy) = _train_phase(cf, cb)
+    train_counts, (k_ms, k_peak, p_ms, p_peak, busy) = _train_phase(cf, cb,
+                                                                      tg)
     print(f"[summary] {smi}: train B={B_TRAIN} step kernels {k_ms:.3f} ms "
           f"({B_TRAIN * 1e3 / k_ms:.1f} img/s, peak {k_peak:.1f} MiB), plain "
           f"{p_ms:.3f} ms ({B_TRAIN * 1e3 / p_ms:.1f} img/s, peak "
@@ -1737,7 +2006,8 @@ def main() -> None:
     tiles = _data_tiles(16)
     h7_ms, h7_plain_ms, h7_bound_ms, h7_by, h7_err = _h7_phase(tiles)
     torch.cuda.empty_cache()
-    data_counts, (d_ms, r_ms, d_busy, h2d, disk) = _data_phase(cf, cb, tiles)
+    data_counts, (d_ms, r_ms, d_busy, h2d, disk) = _data_phase(cf, cb, tg,
+                                                                tiles)
     disk_txt = "disk phase skipped (no native loader)" if disk is None else (
         f"disk→step B={B_DISK} {disk[0]:.1f} img/s, the step alone "
         f"{disk[1]:.1f} img/s")
@@ -1763,7 +2033,7 @@ def main() -> None:
         bound[k], library_ms[k] = s["bound_ms"], s["library_ms"]
         bound_by[k] = max(s["parts"], key=s["parts"].get)
     kernels = []
-    for k in cf.NAMES + ci.NAMES + cb.NAMES + aug.NAMES:
+    for k in cf.NAMES + ci.NAMES + cb.NAMES + tg.NAMES + aug.NAMES:
         paths = {tag: c[k] for tag, c in by_path.items() if k in c}
         launches = paths.get("data", paths.get("train", sum(paths.values())))
         kernels.append({

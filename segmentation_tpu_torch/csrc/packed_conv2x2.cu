@@ -10,8 +10,10 @@
 //         they store it (act_inv, the inline-quantize mode: the Pallas
 //         multiply rule, once per K block).
 // Options: the fused 2x2/2 max pool (slot-max, [N, hp-1, wp-1, O], in the
-// output's type) and the fused binary mask head (u8 [N, hp-1, wp-1, 4],
-// on the stored bf16 value) with or without the store.
+// output's type), with the pool's int8 index for training (bf16: the first
+// slot that attains the max, pool4_select's rule, so that its backward
+// needs no pass over y), and the fused binary mask head (u8 [N, hp-1,
+// wp-1, 4], on the stored bf16 value) with or without the store.
 //
 // Replaces the TPU kernels segmentation_tpu/nn/pallas/conv_flat.py
 // conv2x2_padflat (:275) and conv2x2_pf2 (:1162), and of the 4-D route
@@ -92,17 +94,19 @@ int conv2x2_s8_modes(const Conv2x2S8& a, bool requant) {
 
 // x [n, hp, wp, c4] bf16 (c4 % 8 == 0); w [4*c4, o4] bf16 (HWIO [2, 2, c4,
 // o4]); bias [o4] f32; y [n, hp-1, wp-1, o4] bf16 or null; pool [.., o4/4]
-// bf16 or null; wd [o4, 4] bf16, bd [4] f32 and mask [.., 4] u8, or all
-// null; (th, tw) the output tile from tiles.tile_plan (th (tw + 1) GEMM
-// rows). Every pointer 16-byte aligned.
+// bf16 or null; idx [.., o4/4] int8 (with pool and without the head) or
+// null; wd [o4, 4] bf16, bd [4] f32 and mask [.., 4] u8, or all null; (th,
+// tw) the output tile from tiles.tile_plan (th (tw + 1) GEMM rows). Every
+// pointer 16-byte aligned.
 extern "C" int seg_packed_conv2x2(const void* x, const void* w,
                                   const void* bias, void* y, void* pool,
-                                  const void* wd, const void* bd, void* mask,
-                                  int n, int hp, int wp, int c4, int o4,
-                                  int th, int tw, void* stream) {
+                                  void* idx, const void* wd, const void* bd,
+                                  void* mask, int n, int hp, int wp, int c4,
+                                  int o4, int th, int tw, void* stream) {
   using namespace segk;
   if (c4 < 8 || c4 % 8 || n < 1 || hp < 2 || wp < 2 || th < 1 || tw < 1 ||
-      th > 255 || tw > 255)
+      th > 255 || tw > 255 ||
+      (idx != nullptr && (pool == nullptr || mask != nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   auto run = [&](auto& p) {
@@ -111,12 +115,24 @@ extern "C" int seg_packed_conv2x2(const void* x, const void* w,
     p.bias = (const float*)bias;
     p.y = (bf16*)y;
     p.pool = (bf16*)pool;
+    p.pool_idx = (int8_t*)idx;
     p.wd = (const bf16*)wd;
     p.bd = (const float*)bd;
     p.mask = (uint8_t*)mask;
     return fwd_launch(p, n, hp - 1, wp - 1, c4, th, tw, s);
   };
   const int epi = (pool != nullptr ? kPool : 0) | (mask != nullptr ? kHead : 0);
+  if (idx != nullptr) {
+    if (o4 == 128) {
+      FwdTiles<128, false, kPool | kPoolIdx> p{};
+      return run(p);
+    }
+    if (o4 == 256) {
+      FwdTiles<256, false, kPool | kPoolIdx> p{};
+      return run(p);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   if (o4 == 128) {
     switch (epi) {
       case 0: { FwdTiles<128, false, 0> p{}; return run(p); }

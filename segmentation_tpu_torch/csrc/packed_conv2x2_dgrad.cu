@@ -5,8 +5,16 @@
 //                    g[n, i-u, j-v, o] * w[u, v, c, o]
 //
 // g [N, hg, wg, 4O] bf16 is the (ReLU-masked) output cotangent, zero outside
-// its extent; dx [N, hg+1, wg+1, 4C] bf16, accumulated in f32. The dual mode
-// computes dxa from wa and dxb from wb out of the same g.
+// its extent, read in place from a buffer of g_rows x g_cols pixels an
+// image (the zero-margined cotangent train_glue.cu writes); dx [N, hg+1,
+// wg+1, 4C] bf16, accumulated in f32. The dual mode computes dxa from wa and
+// dxb from wb out of the same g. In training, the dual site's skip enters
+// H2 uncropped: its dxa is stored straight into the crop window of the
+// skip's gradient [N, hpa, wpa, 4C] at the unpacked offset (oh, ow), by the
+// address rule H2 reads the skip with (output slot (d, e) of pixel (i, j)
+// to packed pixel ((oh + d) / 2 + i, (ow + e) / 2 + j), slot ((oh + d) % 2,
+// (ow + e) % 2)), so the gradient of the crop is never made and un-cropped
+// (train_glue.cu zeros the rest of that buffer).
 //
 // Replaces the TPU kernels segmentation_tpu/nn/pallas/conv_flat_bwd.py
 // conv2x2_dgrad_padflat (:119) and conv2x2_dgrad_dual_padflat (:217).
@@ -77,6 +85,7 @@ struct DgradTiles {
   bf16* dxa;
   bf16* dxb;
   int hx, wx, th, tw, tiles_w, tiles_hw, n_tiles, kb;
+  int hpa, wpa, oh, ow;  // dxa's buffer and the crop window's offset
 
   __device__ int tiles() const { return n_tiles; }
   __device__ int k_blocks() const { return kb; }
@@ -127,6 +136,13 @@ struct DgradTiles {
       if (a >= th || b >= tw || i >= hx || j >= wx) return nullptr;
       const long long pix = ((long long)n * hx + i) * wx + j;
       if (DUAL && !SPLIT_N && col >= C4) return dxb + pix * C4 + col - C4;
+      if (DUAL && out == dxa) {  // through the crop: 8 channels of one slot
+        constexpr int CS = C4 / 4;
+        const int s = col / CS, yy = oh + (s >> 1), xx = ow + (s & 1);
+        const long long pa =
+            ((long long)n * hpa + (yy >> 1) + i) * wpa + (xx >> 1) + j;
+        return dxa + pa * C4 + (2 * (yy & 1) + (xx & 1)) * CS + col - s * CS;
+      }
       return out + pix * C4 + col;
     });
   }
@@ -138,24 +154,38 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
   sm90::run(p);
 }
 
+// The operands as the C entry takes them.
+struct DgradArgs {
+  const void *g, *wa, *wb;
+  void *dxa, *dxb;
+  int n, hg, wg, o4, th, tw, g_rows, g_cols, hpa, wpa, oh, ow;
+};
+
 template <int C4, bool DUAL>
-int dgrad(const void* g, const void* wa, const void* wb, void* dxa,
-          void* dxb, int n, int hg, int wg, int o4, int th, int tw,
-          cudaStream_t stream) {
+int dgrad(const DgradArgs& a, cudaStream_t stream) {
   using P = DgradTiles<C4, DUAL>;
-  if (th * (tw + 1) > P::BM) return (int)cudaErrorInvalidValue;
+  if (a.th * (a.tw + 1) > P::BM) return (int)cudaErrorInvalidValue;
   P p{};
+  const int n = a.n, hg = a.hg, wg = a.wg, o4 = a.o4, th = a.th, tw = a.tw;
   const cuuint64_t gdims[4] = {(cuuint64_t)o4, (cuuint64_t)wg,
                                (cuuint64_t)hg, (cuuint64_t)n};
+  const cuuint64_t gstrides[3] = {
+      (cuuint64_t)o4 * 2, (cuuint64_t)o4 * 2 * a.g_cols,
+      (cuuint64_t)o4 * 2 * a.g_cols * a.g_rows};
   const cuuint32_t gbox[4] = {64, (cuuint32_t)tw + 1, (cuuint32_t)th + 1, 1};
   const cuuint64_t wdims[2] = {(cuuint64_t)o4, (cuuint64_t)(4 * C4)};
   const cuuint32_t wbox[2] = {64, (cuuint32_t)C4};
-  int e = sm90::make_map(&p.gmap, g, 4, gdims, gbox);
+  const void *g = a.g, *wa = a.wa, *wb = a.wb;
+  int e = sm90::make_map_strided(&p.gmap, g, 4, gdims, gstrides, gbox);
   if (e == 0) e = sm90::make_map(&p.wamap, wa, 2, wdims, wbox);
   if (e == 0 && DUAL) e = sm90::make_map(&p.wbmap, wb, 2, wdims, wbox);
   if (e != 0) return e;
-  p.dxa = (bf16*)dxa;
-  p.dxb = (bf16*)dxb;
+  p.dxa = (bf16*)a.dxa;
+  p.dxb = (bf16*)a.dxb;
+  p.hpa = a.hpa;
+  p.wpa = a.wpa;
+  p.oh = a.oh;
+  p.ow = a.ow;
   p.hx = hg + 1;
   p.wx = wg + 1;
   p.th = th;
@@ -169,26 +199,32 @@ int dgrad(const void* g, const void* wa, const void* wb, void* dxa,
 
 }  // namespace segk
 
-// g [n, hg, wg, o4] bf16; wa (and wb for the dual, else null) [2, 2, c4, o4]
-// bf16; dxa (and dxb) [n, hg+1, wg+1, c4] bf16; (th, tw) the output tile
-// from tiles.tile_plan (th (tw + 1) GEMM rows). Every pointer 16-byte
-// aligned.
+// g [n, hg, wg, o4] bf16 in a buffer of g_rows >= hg rows of g_cols >= wg
+// pixels an image; wa (and wb for the dual, else null) [2, 2, c4, o4] bf16;
+// dxa (and dxb) [n, hg+1, wg+1, c4] bf16, the dual's dxa in a buffer [n,
+// hpa, wpa, c4] at the unpacked crop offset (oh, ow) (hpa = hg + 1, wpa =
+// wg + 1 and (0, 0) where it is not cropped; the single mode takes only
+// that); (th, tw) the output tile from tiles.tile_plan (th (tw + 1) GEMM
+// rows). Every pointer 16-byte aligned.
 extern "C" int seg_packed_conv2x2_dgrad(const void* g, const void* wa,
                                         const void* wb, void* dxa, void* dxb,
                                         int n, int hg, int wg, int o4, int c4,
-                                        int th, int tw, void* stream) {
+                                        int th, int tw, int g_rows,
+                                        int g_cols, int hpa, int wpa, int oh,
+                                        int ow, void* stream) {
   using namespace segk;
   const bool dual = wb != nullptr;
+  const bool crop = hpa != hg + 1 || wpa != wg + 1 || oh != 0 || ow != 0;
   if (o4 < 8 || o4 % 8 || (c4 != 128 && c4 != 256) || n < 1 || hg < 1 ||
       wg < 1 || th < 1 || tw < 1 || th > 255 || tw > 255 ||
-      dual != (dxb != nullptr))
+      dual != (dxb != nullptr) || g_rows < hg || g_cols < wg ||
+      (crop && !dual) || oh < 0 || ow < 0 || oh + 2 * (hg + 1) > 2 * hpa ||
+      ow + 2 * (wg + 1) > 2 * wpa)
     return (int)cudaErrorInvalidValue;
+  const DgradArgs a{g,  wa, wb, dxa,    dxb,    n,   hg,  wg, o4,
+                    th, tw, g_rows, g_cols, hpa, wpa, oh, ow};
   cudaStream_t s = (cudaStream_t)stream;
   if (c4 == 128)
-    return dual ? dgrad<128, true>(g, wa, wb, dxa, dxb, n, hg, wg, o4, th, tw, s)
-                : dgrad<128, false>(g, wa, wb, dxa, dxb, n, hg, wg, o4, th, tw,
-                                    s);
-  return dual ? dgrad<256, true>(g, wa, wb, dxa, dxb, n, hg, wg, o4, th, tw, s)
-              : dgrad<256, false>(g, wa, wb, dxa, dxb, n, hg, wg, o4, th, tw,
-                                  s);
+    return dual ? dgrad<128, true>(a, s) : dgrad<128, false>(a, s);
+  return dual ? dgrad<256, true>(a, s) : dgrad<256, false>(a, s);
 }

@@ -90,12 +90,15 @@ namespace segk {
 using bf16 = __nv_bfloat16;
 
 // EPI, the epilogue's options: kPool and kHead (compiled in only where
-// asked: the head's sums beside 128 accumulators would spill); the int8
+// asked: the head's sums beside 128 accumulators would spill); kPoolIdx
+// (with kPool, training): also the pool's int8 index, the first slot that
+// attains the max (strict >, pool4_select's tie rule); the int8
 // modes: kInt8 (s8 operands, s32 accumulation, the int8 epilogue),
 // kRequant (s8 out; without kInt8: the int8 epilogue on the f32
 // accumulators of a bf16 product, H3's requant-only entry), kTwoAcc (one
 // accumulator per side, H2).
-constexpr int kPool = 1, kHead = 2, kInt8 = 4, kRequant = 8, kTwoAcc = 16;
+constexpr int kPool = 1, kHead = 2, kInt8 = 4, kRequant = 8, kTwoAcc = 16,
+              kPoolIdx = 32;
 
 // The output side of a forward problem: 4O = O4 columns, tiles of th x tw
 // output pixels as GEMM rows m = a (tw + HALO) + b, the walk over them,
@@ -111,6 +114,7 @@ struct FwdOut {
   static_assert(INT8 || (EPI & kTwoAcc) == 0, "int8 options");
   static_assert((EPI & kHead) == 0 || std::is_same_v<OutT, bf16>,
                 "the head reads the bf16 value");
+  static_assert((EPI & kPoolIdx) == 0 || (EPI & kPool) != 0, "pool index");
   static constexpr int NB = O4;
   static constexpr bool SPLIT_N = SIDES == 2 && O4 == 256;
   static constexpr int NI = SPLIT_N ? 128 : NB;
@@ -143,6 +147,7 @@ struct FwdOut {
   const float* cs_b;
   OutT* y;
   OutT* pool;
+  int8_t* pool_idx;         // kPoolIdx: [N, ho, wo, O4 / 4]
   const bf16* wd;
   const float* bd;
   uint8_t* mask;
@@ -422,6 +427,28 @@ struct FwdOut {
             else
               *reinterpret_cast<uint32_t*>(dst + 8 * jn + 2 * q) =
                   sm90::pack_bf16(v[0], v[1]);
+            if constexpr ((EPI & kPoolIdx) != 0) {
+              // the first slot above every earlier one, as pool4_select
+              // scans them (the values are the rounded outputs)
+              uint32_t id2 = 0;
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                float best = as_f32(acc[mi][4 * jn + 2 * h + e]);
+                uint32_t id = 0;
+#pragma unroll
+                for (int sl = 1; sl < 4; ++sl) {
+                  const float a = as_f32(acc[mi][4 * (jn + sl * JO) + 2 * h + e]);
+                  if (a > best) {
+                    best = a;
+                    id = sl;
+                  }
+                }
+                id2 |= id << (8 * e);
+              }
+              if (pix >= 0)
+                *reinterpret_cast<uint16_t*>(pool_idx + pix * O + 8 * jn +
+                                             2 * q) = (uint16_t)id2;
+            }
           }
         }
     }

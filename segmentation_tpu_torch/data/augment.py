@@ -19,6 +19,7 @@ import torch
 
 from segmentation_tpu_torch.nn.kernels.augment import (
     crop_normalize,
+    crop_normalize_pair,
     random_offsets,
 )
 
@@ -66,12 +67,13 @@ def one_hot_mask(mask: torch.Tensor, n_classes: int) -> torch.Tensor:
 def device_augment_at(images_u8, masks_u8, ys, xs, flips, crop: int,
                       n_classes: int = 0):
     """``device_augment`` on given offsets ys, xs and flips [N]."""
-    imgs = crop_normalize(images_u8, ys, xs, flips, crop, torch.float32)
-    masks = None
-    if masks_u8 is not None:
-        masks = crop_normalize(masks_u8, ys, xs, flips, crop, torch.uint8)
-        if n_classes > 0:
-            masks = one_hot_mask(masks, n_classes)
+    if masks_u8 is None:
+        return crop_normalize(images_u8, ys, xs, flips, crop,
+                              torch.float32), None
+    imgs, masks = crop_normalize_pair(images_u8, masks_u8, ys, xs, flips,
+                                      crop, torch.float32)
+    if n_classes > 0:
+        masks = one_hot_mask(masks, n_classes)
     return imgs, masks
 
 

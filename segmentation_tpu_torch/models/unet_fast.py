@@ -24,7 +24,9 @@ training hooks (``UNetS2DTrain``) override.
 params, whose forward packs the weights differentiably (a gather of the
 [3, 3, C, O] kernels) and runs ``apply`` through the train hooks: each
 packed site a ``torch.autograd.Function`` of nn/kernels/train.py (H1–H4
-forward, H6 input grads), the pool an argmax-index ``pool4_select``.
+forward, H6 input grads, the glue kernels of nn/kernels/train_glue.py),
+each level's pool fused into its conv with an argmax index, as
+``pool4_select`` computes it.
 """
 
 from __future__ import annotations
@@ -44,8 +46,9 @@ from segmentation_tpu_torch.nn.kernels import train as kt
 from segmentation_tpu_torch.nn.kernels.conv_flat import (
     KERNEL_OPS,
     Ops,
-    _conv_nhwc,
+    pool_select,
 )
+from segmentation_tpu_torch.nn.kernels.train_glue import pool_scatter
 from segmentation_tpu_torch.nn.layers import (
     conv2d,
     conv2d_transpose,
@@ -139,33 +142,27 @@ class _Pool4Select(torch.autograd.Function):
     """2×2/2 max pool of a flat packed tensor (the max over its 4 slots)
     that saves only the winning slot's int8 index: the first slot that
     attains the max (strict >), so that tied post-ReLU zeros send their
-    grad where the JAX package's pool4_select does."""
+    grad where the JAX package's pool4_select does (conv_flat.pool_select,
+    train_glue.pool_scatter; the train route runs both fused into H1 and
+    train_glue's pool mode)."""
 
     @staticmethod
     def forward(ctx, x4):
-        c = x4.shape[-1] // 4
-        y = x4[..., :c]
-        idx = torch.zeros(y.shape, dtype=torch.int8, device=x4.device)
-        for s in range(1, 4):
-            sl = x4[..., s * c : (s + 1) * c]
-            idx.masked_fill_(sl > y, s)
-            y = torch.maximum(y, sl)
+        y, idx = pool_select(x4)
         ctx.save_for_backward(idx)
         return y
 
     @staticmethod
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
-        n, hp, wp, c = g.shape
-        slots = torch.arange(4, dtype=torch.int8, device=g.device)
-        d5 = torch.where(idx[..., None, :] == slots[:, None],
-                         g[..., None, :], 0.0)
-        return d5.reshape(n, hp, wp, 4 * c)
+        return pool_scatter(g, idx)
 
 
 def pool4_select(x4: torch.Tensor) -> torch.Tensor:
     """[N, hp, wp, 4C] → [N, hp, wp, C], the argmax-index pool
-    (segmentation_tpu.models.unet_fast.pool4_select)."""
+    (segmentation_tpu.models.unet_fast.pool4_select). No route calls it:
+    the train route pools in conv2x2_pool_t (H1's pool index, or its plain
+    version on the CPU); it stays as the tests' reference."""
     return _Pool4Select.apply(x4)
 
 
@@ -338,6 +335,15 @@ class UNetS2DInference:
     def _pool(self, h):
         return max_pool(h, 2)
 
+    def _std_deconv(self, p, up, h):
+        return conv2d_transpose(h, p[f"{up}/w"], p[f"{up}/b"], 2)
+
+    def _logits(self, p, h4):
+        # 1×1 head IN packed layout (it commutes with the unpack)
+        w1 = p["output/w"][0, 0].to(h4.dtype)
+        logits = unpack2(view5(h4, self.cfg.n_kernels) @ w1)
+        return logits + p["output/b"].to(logits.dtype)
+
     # ---- forward ----------------------------------------------------------
     def apply(self, p: Dict[str, torch.Tensor], x: torch.Tensor,
               packed_out: bool = False, head: bool = False):
@@ -345,7 +351,7 @@ class UNetS2DInference:
         returns the last decoder tensor still packed, [N, hp, wp, 4k];
         ``head`` (n_classes = 2) returns only the fused u8 packed mask
         [N, hp, wp, 4] of the last conv."""
-        k, L, pl_ = self.cfg.n_kernels, self.levels, self.packed_levels
+        L, pl_ = self.levels, self.packed_levels
         if x.shape[1] % 2 or x.shape[2] % 2:
             raise ValueError(
                 f"space-to-depth U-Net needs even H/W, got "
@@ -384,16 +390,13 @@ class UNetS2DInference:
                 h = self._packed_conv(p, c2, h4)
                 packed = True
             else:
-                h = conv2d_transpose(h, p[f"{up}/w"], p[f"{up}/b"], 2)
+                h = self._std_deconv(p, up, h)
                 h = self._std_dual_conv(p, c1, skip, h)
                 h = self._std_conv(p, c2, h)
 
         if packed_out:
             return h
-        # 1×1 head IN packed layout (it commutes with the unpack)
-        w1 = p["output/w"][0, 0].to(h.dtype)
-        logits = unpack2(view5(h, k) @ w1)
-        return logits + p["output/b"].to(logits.dtype)
+        return self._logits(p, h)
 
     def apply_argmax(self, p: Dict[str, torch.Tensor],
                      x: torch.Tensor) -> torch.Tensor:
@@ -422,35 +425,61 @@ class UNetS2DTrain(UNetS2DInference):
     packed site runs its autograd.Function over ``ops``, with no shape
     gate: on CUDA tensors the kernels, whose wrappers raise for a shape
     they do not take; on CPU tensors their plain versions. The image entry
-    (conv1_1, C = 3) runs plain PyTorch ops in the compute dtype, as the
-    JAX package leaves it to XLA."""
+    (conv1_1, C = 3) is H3's gathered mode, bias and ReLU fused (the JAX
+    package leaves it to XLA); each level's conv and pool are one H1 launch
+    (conv2x2_pool_t), and each dual site reads its skip uncropped through
+    the crop offset, as H2 does in serving.
 
-    def _encode_packed(self, p, lvl, h):
-        name = f"conv{lvl + 1}_1"
-        if lvl == 0:
-            y = _conv_nhwc(h, p[f"{name}/w4"], 2)
-            h4 = torch.relu(y + p[f"{name}/b4"].to(y.dtype))
-        else:
-            h4 = self._strided(p, name, h)
-        h4 = self._packed_conv(p, f"conv{lvl + 1}_2", h4)
-        return h4, pool4_select(h4)
+    Every hook runs inside a profiler range ``seg:fwd:<site>`` (the
+    Functions' backward passes name theirs ``seg:bwd:<site>/<part>``), so
+    that a trace attributes each device activity to its call site
+    (profile_train.py)."""
+
+    def _conv_pool(self, p, name, h4):
+        with kt.span(f"fwd:{name}"):
+            return kt.conv2x2_pool_t(h4, p[f"{name}/w2"], p[f"{name}/b4"],
+                                     ops=self.ops, site=name)
 
     def _strided(self, p, name, h):
-        return kt.conv4x4s2_t(h, p[f"{name}/w4"], p[f"{name}/b4"],
-                              ops=self.ops)
+        with kt.span(f"fwd:{name}"):
+            return kt.conv4x4s2_t(h, p[f"{name}/w4"], p[f"{name}/b4"],
+                                  ops=self.ops, site=name)
 
     def _packed_conv(self, p, name, h4):
-        return kt.conv2x2_t(h4, p[f"{name}/w2"], p[f"{name}/b4"],
-                            ops=self.ops)
+        with kt.span(f"fwd:{name}"):
+            return kt.conv2x2_t(h4, p[f"{name}/w2"], p[f"{name}/b4"],
+                                ops=self.ops, site=name)
 
     def _deconv(self, p, up, h, scatter):
         f = kt.deconv_packed_t if scatter else kt.matmul_rows_t
-        return f(h, p[f"{up}/wm"], p[f"{up}/b4"], ops=self.ops)
+        with kt.span(f"fwd:{up}"):
+            return f(h, p[f"{up}/wm"], p[f"{up}/b4"], ops=self.ops, site=up)
 
     def _dual(self, p, name, skip, h4, offset):
-        sk = crop_packed(skip, h4.shape, offset)  # materialized, as in JAX
-        return kt.conv2x2_dual_t(sk, h4, p[f"{name}/w2a"], p[f"{name}/w2b"],
-                                 p[f"{name}/b4"], ops=self.ops)
+        with kt.span(f"fwd:{name}"):
+            return kt.conv2x2_dual_t(skip, h4, p[f"{name}/w2a"],
+                                     p[f"{name}/w2b"], p[f"{name}/b4"],
+                                     offset=offset, ops=self.ops, site=name)
+
+    def _std_conv(self, p, name, h):
+        with kt.span(f"fwd:{name}"):
+            return super()._std_conv(p, name, h)
+
+    def _std_dual_conv(self, p, name, skip, h):
+        with kt.span(f"fwd:{name}"):
+            return super()._std_dual_conv(p, name, skip, h)
+
+    def _pool(self, h):
+        with kt.span("fwd:std_pool"):
+            return super()._pool(h)
+
+    def _std_deconv(self, p, up, h):
+        with kt.span(f"fwd:{up}"):
+            return super()._std_deconv(p, up, h)
+
+    def _logits(self, p, h4):
+        with kt.span("fwd:head"):
+            return super()._logits(p, h4)
 
 
 class UNetS2D(nn.Module):
@@ -511,4 +540,6 @@ class UNetS2D(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [N, H, W, C] in the compute dtype → logits [N, h, w,
         n_classes]."""
-        return self.net.apply(self.packed(), x)
+        with kt.span("fwd:pack_weights"):
+            p = self.packed()
+        return self.net.apply(p, x)

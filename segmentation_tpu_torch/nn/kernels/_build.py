@@ -37,7 +37,7 @@ NVCC_FLAGS = (
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of csrc/*.cu (every kernel entry returns its cudaError_t)
 _SIGNATURES = {
-    "seg_packed_conv2x2": [_P] * 8 + [_I] * 7 + [_P],
+    "seg_packed_conv2x2": [_P] * 9 + [_I] * 7 + [_P],
     "seg_packed_conv2x2_dual": [_P] * 6 + [_I] * 11 + [_P],
     "seg_strided_conv4x4s2": [_P] * 4 + [_I] * 7 + [_P],
     "seg_strided_conv4x4s2_requant": [_P] * 5 + [_I] * 7 + [_P],
@@ -51,8 +51,11 @@ _SIGNATURES = {
     "seg_std_conv3x3_dual_s8": [_P] * 8 + [_I] * 9 + [_F] * 3 + [_I] * 2
     + [_P],
     "seg_entry_chain": [_P] * 9 + [_I] * 5 + [_P],
-    "seg_packed_conv2x2_dgrad": [_P] * 5 + [_I] * 7 + [_P],
-    "seg_crop_normalize": [_P] * 5 + [_I] * 6 + [_P],
+    "seg_packed_conv2x2_dgrad": [_P] * 5 + [_I] * 13 + [_P],
+    "seg_crop_normalize": [_P] * 7 + [_I] * 7 + [_P],
+    "seg_relu_bias_grad": [_P] * 5 + [_I] * 2 + [_P] * 2 + [_I] * 4 + [_P],
+    "seg_relu_bias_grad_blocks": [],
+    "seg_crop_margin_zero": [_P] + [_I] * 8 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -4,12 +4,14 @@
   H7 crop_normalize   u8 staging [N,H,W,C] → [N,crop,crop,C]: sample i's
                       window at (ys[i], xs[i]), its columns reversed where
                       flips[i], each byte mapped to f32 or bf16 (or kept
-                      as u8, the masks' byte copy)
+                      as u8, the masks' byte copy); with the masks
+                      [N,H,W,CM] u8, their byte copy at the same offsets
+                      and flips in the same launch (crop_normalize_pair)
 
 The wrapper launches ``csrc/crop_normalize.cu`` for a CUDA tensor, or
 raises; for a tensor on the CPU it runs the plain version. Each launch adds
-one to ``launches["crop_normalize"]``. Offsets are clamped into the image,
-as a dynamic slice clamps them.
+one to ``launches["crop_normalize"]`` (an image and its masks: one launch).
+Offsets are clamped into the image, as a dynamic slice clamps them.
 
 A byte v maps to v · f32(1/255), one IEEE f32 multiply: the Pallas
 kernel's map (augment.py:58), and also what XLA compiles the JAX package's
@@ -87,16 +89,16 @@ def crop_normalize_plain(images_u8, ys, xs, flips, crop,
 
 
 # ------------------------------------------------------------ kernel wrapper
-def crop_normalize(images_u8, ys, xs, flips, crop, out_dtype=torch.float32):
-    """H7: u8 [N,H,W,C] and per-sample ys, xs, flips [N] → [N,crop,crop,C]
-    in ``out_dtype`` (u8: the window's bytes)."""
-    _check(images_u8, crop, out_dtype)
-    if _on_cpu(images_u8):
-        return crop_normalize_plain(images_u8, ys, xs, flips, crop,
-                                    out_dtype)
+def _launch(images_u8, masks_u8, ys, xs, flips, crop, out_dtype):
     n, h, w, c = images_u8.shape
     dev = images_u8.device
     _require(images_u8, "images_u8", torch.uint8, images_u8.shape, dev)
+    cm, mout = 0, None
+    if masks_u8 is not None:
+        cm = masks_u8.shape[-1]
+        _require(masks_u8, "masks_u8", torch.uint8, (n, h, w, cm), dev)
+        mout = torch.empty((n, crop, crop, cm), dtype=torch.uint8,
+                           device=dev)
     ys, xs, flips = (torch.as_tensor(t).to(dev, torch.int32).contiguous()
                      for t in (ys, xs, flips))
     for t, name in ((ys, "ys"), (xs, "xs"), (flips, "flips")):
@@ -104,12 +106,41 @@ def crop_normalize(images_u8, ys, xs, flips, crop, out_dtype=torch.float32):
     out = torch.empty((n, crop, crop, c), dtype=out_dtype, device=dev)
     with torch.cuda.device(dev):
         err = _build.library().seg_crop_normalize(
-            _ptr(images_u8), _ptr(ys), _ptr(xs), _ptr(flips), _ptr(out),
-            n, h, w, c, crop, _KINDS[out_dtype], _stream(images_u8),
+            _ptr(images_u8), _ptr(masks_u8), _ptr(ys), _ptr(xs),
+            _ptr(flips), _ptr(out), _ptr(mout), n, h, w, c, cm, crop,
+            _KINDS[out_dtype], _stream(images_u8),
         )
     _build.check(err, "crop_normalize")
     launches["crop_normalize"] += 1
-    return out
+    return out, mout
+
+
+def crop_normalize(images_u8, ys, xs, flips, crop, out_dtype=torch.float32):
+    """H7: u8 [N,H,W,C] and per-sample ys, xs, flips [N] → [N,crop,crop,C]
+    in ``out_dtype`` (u8: the window's bytes)."""
+    _check(images_u8, crop, out_dtype)
+    if _on_cpu(images_u8):
+        return crop_normalize_plain(images_u8, ys, xs, flips, crop,
+                                    out_dtype)
+    return _launch(images_u8, None, ys, xs, flips, crop, out_dtype)[0]
+
+
+def crop_normalize_pair(images_u8, masks_u8, ys, xs, flips, crop,
+                        out_dtype=torch.float32):
+    """H7 on an image batch and its masks [N,H,W,CM] u8 in one launch, at
+    the same offsets and flips: (crop_normalize of the images, the masks'
+    crops as u8)."""
+    _check(images_u8, crop, out_dtype)
+    _check(masks_u8, crop, torch.uint8)
+    if tuple(masks_u8.shape[:3]) != tuple(images_u8.shape[:3]):
+        raise ValueError(f"masks {tuple(masks_u8.shape)} do not match "
+                         f"images {tuple(images_u8.shape)}")
+    if _on_cpu(images_u8):
+        return (crop_normalize_plain(images_u8, ys, xs, flips, crop,
+                                     out_dtype),
+                crop_normalize_plain(masks_u8, ys, xs, flips, crop,
+                                     torch.uint8))
+    return _launch(images_u8, masks_u8, ys, xs, flips, crop, out_dtype)
 
 
 # ------------------------------------------- the JAX module's functions
@@ -128,11 +159,10 @@ def fused_augment_at(images_u8, masks_u8, ys, xs, flips, crop,
     """fused_augment on given offsets: (image [N,crop,crop,C] in
     ``out_dtype``, mask u8 [N,crop,crop,1] or None)."""
     xs = _floor8(xs)
-    imgs = crop_normalize(images_u8, ys, xs, flips, crop, out_dtype)
-    masks = None
-    if masks_u8 is not None:
-        masks = crop_normalize(masks_u8, ys, xs, flips, crop, torch.uint8)
-    return imgs, masks
+    if masks_u8 is None:
+        return crop_normalize(images_u8, ys, xs, flips, crop, out_dtype), None
+    return crop_normalize_pair(images_u8, masks_u8, ys, xs, flips, crop,
+                               out_dtype)
 
 
 def random_offsets(generator: torch.Generator, shape, crop, flip=True,

@@ -7,7 +7,8 @@ There is no fallback from a failed launch. Each launch adds one to
 ``launches[<name>]``.
 
   H1 packed_conv2x2      2×2 VALID conv, packed [N,hp,wp,4C] → [N,hp-1,wp-1,4O]
-                         (+ slot-max pool, + binary mask head)
+                         (+ slot-max pool, + its int8 index for training,
+                         + binary mask head)
   H2 packed_conv2x2_dual conv(crop(skip), wa) + conv(up, wb), concat-free
   H3 strided_conv4x4s2   4×4/2 conv, unpacked [N,H,W,C] → packed 4O
   H4 rows_matmul         per-pixel [C] → [4O] (2×2/2 deconv), identity or
@@ -45,6 +46,10 @@ from segmentation_tpu_torch.nn.kernels.conv_bwd import (
     packed_conv2x2_dgrad_dual_plain,
     packed_conv2x2_dgrad_plain,
 )
+from segmentation_tpu_torch.nn.kernels.train_glue import (
+    relu_bias_grad,
+    relu_bias_grad_plain,
+)
 from segmentation_tpu_torch.nn.kernels.tiles import (
     aligned,
     strided_boxable,
@@ -53,13 +58,20 @@ from segmentation_tpu_torch.nn.kernels.tiles import (
 from segmentation_tpu_torch.nn.packing import crop_packed, unpack2
 
 NAMES = ("packed_conv2x2", "packed_conv2x2_dual", "strided_conv4x4s2",
-         "rows_matmul")
+         "rows_matmul", "packed_conv2x2_pool_index")
+# the training route's modes, which no server runs
+TRAIN_ONLY = ("packed_conv2x2_pool_index",)
 launches = dict.fromkeys(NAMES, 0)
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+def wrapper_of(mode: str) -> str:
+    """The wrapper function that launches kernel mode ``mode``."""
+    return mode.removesuffix("_pool_index")
 
 
 # ------------------------------------------------------------ plain versions
@@ -82,17 +94,31 @@ def _head_mask(y, head):
     return (hd > 0).to(torch.uint8)
 
 
-def packed_conv2x2_plain(x, w2, b4, *, pool=False, head=None,
-                         head_only=False):
+def pool_select(y):
+    """The 2×2/2 max pool of a packed y [N,h,w,4O] (the max over its 4
+    slots) and its int8 index: the first slot that attains the max (strict
+    >), the rule of segmentation_tpu.models.unet_fast.pool4_select."""
+    c = y.shape[-1] // 4
+    best = y[..., :c]
+    idx = torch.zeros(best.shape, dtype=torch.int8, device=y.device)
+    for s in range(1, 4):
+        sl = y[..., s * c : (s + 1) * c]
+        idx.masked_fill_(sl > best, s)
+        best = torch.maximum(best, sl)
+    return best.contiguous(), idx
+
+
+def packed_conv2x2_plain(x, w2, b4, *, pool=False, pool_index=False,
+                         head=None, head_only=False):
     if head_only and head is None:
         raise ValueError("head_only needs head=(wd, bd)")
     y = _epilogue(_conv_nhwc(x, w2, 1), b4, x.dtype)
     outs = [] if head_only else [y]
     if head is not None:
         outs.append(_head_mask(y, head))
-    if pool:
-        n, h, w, o4 = y.shape
-        outs.append(y.reshape(n, h, w, 4, o4 // 4).amax(3))
+    if pool or pool_index:
+        pooled, idx = pool_select(y)
+        outs += [pooled, idx] if pool_index else [pooled]
     return outs[0] if len(outs) == 1 else tuple(outs)
 
 
@@ -152,16 +178,22 @@ def rows_plan(x, o4, scatter):
     return _fwd_plan(n, h, w, o4, halo=0)
 
 
-def packed_conv2x2(x, w2, b4, *, pool=False, head=None, head_only=False):
+def packed_conv2x2(x, w2, b4, *, pool=False, pool_index=False, head=None,
+                   head_only=False):
     """H1: x [N,hp,wp,4C], w2 [2,2,4C,4O], b4 [4O] f32 → y [N,hp-1,wp-1,4O];
-    with ``pool`` also the slot-max [..,O]; with ``head=(wd [4O,4] bf16,
-    bd [4] f32)`` also the u8 mask [..,4]; ``head_only`` returns the mask
-    alone. Outputs in the order (y, mask, pooled)."""
+    with ``pool`` also the slot-max [..,O]; ``pool_index`` (training) also
+    the pool's int8 index [..,O] (``pool_select``'s); with ``head=(wd
+    [4O,4] bf16, bd [4] f32)`` also the u8 mask [..,4]; ``head_only``
+    returns the mask alone. Outputs in the order (y, mask, pooled, idx)."""
     if _on_cpu(x):
-        return packed_conv2x2_plain(x, w2, b4, pool=pool, head=head,
+        return packed_conv2x2_plain(x, w2, b4, pool=pool,
+                                    pool_index=pool_index, head=head,
                                     head_only=head_only)
     if head_only and head is None:
         raise ValueError("head_only needs head=(wd, bd)")
+    if pool_index and head is not None:
+        raise ValueError("packed_conv2x2: pool_index takes no head")
+    pool = pool or pool_index
     n, hp, wp, c4 = x.shape
     o4 = w2.shape[-1]
     dev = x.device
@@ -171,7 +203,7 @@ def packed_conv2x2(x, w2, b4, *, pool=False, head=None, head_only=False):
     _require(x, "x", torch.bfloat16, x.shape, dev)
     _require(w2, "w2", torch.bfloat16, (2, 2, c4, o4), dev)
     _require(b4, "b4", torch.float32, (o4,), dev)
-    wd = bd = mask = pooled = y = None
+    wd = bd = mask = pooled = idx = y = None
     shp = (n, hp - 1, wp - 1)
     if head is not None:
         wd, bd = head
@@ -186,15 +218,18 @@ def packed_conv2x2(x, w2, b4, *, pool=False, head=None, head_only=False):
     if pool:
         pooled = torch.empty(shp + (o4 // 4,), dtype=torch.bfloat16,
                              device=dev)
+    if pool_index:
+        idx = torch.empty(shp + (o4 // 4,), dtype=torch.int8, device=dev)
     with torch.cuda.device(dev):
         err = _build.library().seg_packed_conv2x2(
-            _ptr(x), _ptr(w2), _ptr(b4), _ptr(y), _ptr(pooled), _ptr(wd),
-            _ptr(bd), _ptr(mask), n, hp, wp, c4, o4, plan.th, plan.tw,
-            _stream(x),
+            _ptr(x), _ptr(w2), _ptr(b4), _ptr(y), _ptr(pooled), _ptr(idx),
+            _ptr(wd), _ptr(bd), _ptr(mask), n, hp, wp, c4, o4, plan.th,
+            plan.tw, _stream(x),
         )
-    _build.check(err, "packed_conv2x2")
-    launches["packed_conv2x2"] += 1
-    outs = [t for t in (y, mask, pooled) if t is not None]
+    name = "packed_conv2x2_pool_index" if pool_index else "packed_conv2x2"
+    _build.check(err, name)
+    launches[name] += 1
+    outs = [t for t in (y, mask, pooled, idx) if t is not None]
     return outs[0] if len(outs) == 1 else tuple(outs)
 
 
@@ -299,9 +334,9 @@ def rows_matmul(x, wm, b4, *, scatter=False):
 
 
 class Ops(NamedTuple):
-    """The packed-site ops a model runs through: the four forward ops and
-    the input grads of the 2×2 sites (H6, conv_bwd.py), which training
-    runs."""
+    """The packed-site ops a model runs through: the four forward ops, and
+    what training runs besides: the input grads of the 2×2 sites (H6,
+    conv_bwd.py) and the glue of every site's backward (train_glue.py)."""
 
     packed_conv2x2: Callable
     packed_conv2x2_dual: Callable
@@ -309,10 +344,13 @@ class Ops(NamedTuple):
     rows_matmul: Callable
     packed_conv2x2_dgrad: Callable
     packed_conv2x2_dgrad_dual: Callable
+    relu_bias_grad: Callable
 
 
 KERNEL_OPS = Ops(packed_conv2x2, packed_conv2x2_dual, strided_conv4x4s2,
-                 rows_matmul, packed_conv2x2_dgrad, packed_conv2x2_dgrad_dual)
+                 rows_matmul, packed_conv2x2_dgrad, packed_conv2x2_dgrad_dual,
+                 relu_bias_grad)
 PLAIN_OPS = Ops(packed_conv2x2_plain, packed_conv2x2_dual_plain,
                 strided_conv4x4s2_plain, rows_matmul_plain,
-                packed_conv2x2_dgrad_plain, packed_conv2x2_dgrad_dual_plain)
+                packed_conv2x2_dgrad_plain, packed_conv2x2_dgrad_dual_plain,
+                relu_bias_grad_plain)

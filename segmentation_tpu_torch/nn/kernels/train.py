@@ -1,14 +1,26 @@
 """Trainable packed sites (segmentation_tpu.nn.pallas.train).
 
-Five ``torch.autograd.Function``s over one ``Ops`` (the hand kernels H1–H4
-and H6 by default, their plain versions with ``PLAIN_OPS``). Each forward
-runs one packed-site op of ``ops`` and saves its input(s), the weight cast
-to the input's dtype, and its output, as the JAX wrappers' save-output
-variant does. Each backward masks the cotangent with y > 0 (every train site ends in a ReLU,
-and y > 0 exactly where the pre-activation is), then:
+Six ``torch.autograd.Function``s over one ``Ops`` (the hand kernels H1–H4,
+H6 and the glue kernels of train_glue.py by default, their plain versions
+with ``PLAIN_OPS``). Each forward runs one packed-site op of ``ops`` and
+saves its input(s), the weight cast to the input's dtype, and its output,
+as the JAX wrappers' save-output variant does. Each backward masks the
+cotangent with y > 0 (every train site ends in a ReLU, and y > 0 exactly
+where the pre-activation is) and sums the bias gradient in one pass
+(``ops.relu_bias_grad``), then:
 
-  conv2x2_t        dx by H6, dw by conv2x2_wgrad, db
-  conv2x2_dual_t   dxa and dxb by H6's dual mode, dwa, dwb, db
+  conv2x2_t        dx by H6, dw by conv2x2_wgrad, both reading the masked
+                   cotangent in place in its zero-margined buffer
+  conv2x2_pool_t   the level sites (conv1_2, conv2_2): H1 with the pool and
+                   its index in one launch; the backward adds the pool's
+                   gradient to the skip's in the mask's pass (JAX:
+                   conv2x2_t, then pool4_select)
+  conv2x2_dual_t   the uncropped skip and the crop offset, as H2 reads them
+                   in serving (JAX: packed_center_crop_flat, then
+                   conv2x2_dual_t); dskip and dup by H6's dual mode, dskip
+                   written into the crop window of a skip-sized buffer whose
+                   margin alone is zeroed; dwa by conv2x2_wgrad_crop on a
+                   copy of the skip's crop, dwb, db
   conv4x4s2_t      dx and dw plain (torch.nn.grad; XLA in the JAX package)
   matmul_rows_t    dx = g wmᵀ, dwm = xᵀ g
   deconv_packed_t  the same on the unpacked input, dx packed again
@@ -18,16 +30,29 @@ as the JAX package's transpose of a bf16 conv); autograd casts dw to the
 f32 parameter's grad. Only ``relu=True`` is taken: every train site has
 it, and the kernels fuse it. The JAX package's recompute-mask variant
 (``SEG_PALLAS_TRAIN=2``) is not ported.
+
+Each forward and backward part runs in a profiler range (``span``), which
+profile_train.py reads to attribute the step's device time to call sites.
 """
 
 from __future__ import annotations
 
 import torch
 from torch.autograd import Function
+from torch.profiler import record_function
 
-from segmentation_tpu_torch.nn.kernels.conv_bwd import bias_grad, conv2x2_wgrad
+from segmentation_tpu_torch.nn.kernels.conv_bwd import (
+    conv2x2_wgrad,
+    conv2x2_wgrad_crop,
+)
 from segmentation_tpu_torch.nn.kernels.conv_flat import KERNEL_OPS
 from segmentation_tpu_torch.nn.packing import pack2, unpack2, view5
+
+
+def span(name: str):
+    """A profiler range ``seg:<name>`` (profile_train.py attributes the
+    device activities launched inside it to it)."""
+    return record_function(f"seg:{name}")
 
 
 def _relu_only(relu: bool) -> None:
@@ -39,137 +64,208 @@ def _cast(w, x):
     return w.to(x.dtype).contiguous()
 
 
-def _mask(g, y):
-    return torch.where(y > 0, g, 0.0).contiguous()
-
-
 def _flat_wgrad(x, g):
     """xᵀ g over every pixel: [C, 4O]."""
     return x.reshape(-1, x.shape[-1]).T @ g.reshape(-1, g.shape[-1])
 
 
+def _conv2x2_grads(ctx, x, w, gm, needs_dx):
+    """dx (H6, reading gm's [N, h, w] window) and dw of a 2×2 site from
+    the zero-margined masked cotangent gm [N, h+1, w+1, 4O]."""
+    dx = None
+    if needs_dx:
+        with span(f"bwd:{ctx.site}/dgrad"):
+            dx = ctx.ops.packed_conv2x2_dgrad(gm[:, :-1, :-1], w)
+    with span(f"bwd:{ctx.site}/wgrad"):
+        dw = conv2x2_wgrad(x, gm)
+    return dx, dw
+
+
 class _Conv2x2(Function):
     @staticmethod
-    def forward(ctx, x, w, b4, ops):
+    def forward(ctx, x, w, b4, ops, site):
         x, w = x.contiguous(), _cast(w, x)
         y = ops.packed_conv2x2(x, w, b4.float())
         ctx.save_for_backward(x, w, y)
-        ctx.ops = ops
+        ctx.ops, ctx.site = ops, site
         return y
 
     @staticmethod
     def backward(ctx, g):
         x, w, y = ctx.saved_tensors
-        g = _mask(g, y)
-        dx = (ctx.ops.packed_conv2x2_dgrad(g, w)
-              if ctx.needs_input_grad[0] else None)
-        return dx, conv2x2_wgrad(x, g), bias_grad(g), None
+        with span(f"bwd:{ctx.site}/mask_bias"):
+            gm, db = ctx.ops.relu_bias_grad(g.contiguous(), y, pad=True)
+        dx, dw = _conv2x2_grads(ctx, x, w, gm, ctx.needs_input_grad[0])
+        return dx, dw, db, None, None
+
+
+class _Conv2x2Pool(Function):
+    @staticmethod
+    def forward(ctx, x, w, b4, ops, site):
+        x, w = x.contiguous(), _cast(w, x)
+        y, pooled, idx = ops.packed_conv2x2(x, w, b4.float(),
+                                            pool_index=True)
+        ctx.save_for_backward(x, w, y, idx)
+        ctx.ops, ctx.site = ops, site
+        ctx.set_materialize_grads(False)
+        return y, pooled
+
+    @staticmethod
+    def backward(ctx, g, g_pool):
+        x, w, y, idx = ctx.saved_tensors
+        if g is None and g_pool is None:
+            return None, None, None, None, None
+        g = None if g is None else g.contiguous()
+        pool = None if g_pool is None else (g_pool.contiguous(), idx)
+        with span(f"bwd:{ctx.site}/mask_bias"):
+            gm, db = ctx.ops.relu_bias_grad(g, y, pool=pool, pad=True)
+        dx, dw = _conv2x2_grads(ctx, x, w, gm, ctx.needs_input_grad[0])
+        return dx, dw, db, None, None
 
 
 class _Conv2x2Dual(Function):
     @staticmethod
-    def forward(ctx, xa, xb, wa, wb, b4, ops):
-        xa, xb = xa.contiguous(), xb.contiguous()
-        wa, wb = _cast(wa, xb), _cast(wb, xb)
-        y = ops.packed_conv2x2_dual(xa, xb, wa, wb, b4.float(),
-                                    offset=(0, 0))
-        ctx.save_for_backward(xa, xb, wa, wb, y)
-        ctx.ops = ops
+    def forward(ctx, skip, up, wa, wb, b4, ops, site, offset):
+        skip, up = skip.contiguous(), up.contiguous()
+        wa, wb = _cast(wa, up), _cast(wb, up)
+        y = ops.packed_conv2x2_dual(skip, up, wa, wb, b4.float(),
+                                    offset=offset)
+        ctx.save_for_backward(skip, up, wa, wb, y)
+        ctx.ops, ctx.site, ctx.offset = ops, site, tuple(offset)
         return y
 
     @staticmethod
     def backward(ctx, g):
-        xa, xb, wa, wb, y = ctx.saved_tensors
-        g = _mask(g, y)
-        dxa, dxb = ctx.ops.packed_conv2x2_dgrad_dual(g, wa, wb)
-        return (dxa, dxb, conv2x2_wgrad(xa, g), conv2x2_wgrad(xb, g),
-                bias_grad(g), None)
+        skip, up, wa, wb, y = ctx.saved_tensors
+        with span(f"bwd:{ctx.site}/mask_bias"):
+            gm, db = ctx.ops.relu_bias_grad(g.contiguous(), y, pad=True)
+        with span(f"bwd:{ctx.site}/dgrad"):
+            dskip, dup = ctx.ops.packed_conv2x2_dgrad_dual(
+                gm[:, :-1, :-1], wa, wb, skip_shape=tuple(skip.shape),
+                offset=ctx.offset)
+        with span(f"bwd:{ctx.site}/wgrad"):
+            dwa = conv2x2_wgrad_crop(skip, gm, ctx.offset)
+            dwb = conv2x2_wgrad(up, gm)
+        return dskip, dup, dwa, dwb, db, None, None, None
 
 
 class _Conv4x4s2(Function):
     @staticmethod
-    def forward(ctx, x, w4, b4, ops):
+    def forward(ctx, x, w4, b4, ops, site):
         x, w4 = x.contiguous(), _cast(w4, x)
         y = ops.strided_conv4x4s2(x, w4, b4.float())
         ctx.save_for_backward(x, w4, y)
+        ctx.ops, ctx.site = ops, site
         return y
 
     @staticmethod
     def backward(ctx, g):
         x, w4, y = ctx.saved_tensors
-        g = _mask(g, y)
+        with span(f"bwd:{ctx.site}/mask_bias"):
+            g, db = ctx.ops.relu_bias_grad(g.contiguous(), y)
         gn = g.permute(0, 3, 1, 2)
         xn, wn = x.permute(0, 3, 1, 2), w4.permute(3, 2, 0, 1)
         dx = None
         if ctx.needs_input_grad[0]:
-            dx = torch.nn.grad.conv2d_input(xn.shape, wn, gn, stride=2)
-            dx = dx.permute(0, 2, 3, 1).contiguous()
-        dw = torch.nn.grad.conv2d_weight(xn, wn.shape, gn, stride=2)
-        return dx, dw.permute(2, 3, 1, 0), bias_grad(g), None
+            with span(f"bwd:{ctx.site}/dgrad"):
+                dx = torch.nn.grad.conv2d_input(xn.shape, wn, gn, stride=2)
+                dx = dx.permute(0, 2, 3, 1).contiguous()
+        with span(f"bwd:{ctx.site}/wgrad"):
+            dw = torch.nn.grad.conv2d_weight(xn, wn.shape, gn, stride=2)
+        return dx, dw.permute(2, 3, 1, 0), db, None, None
 
 
 class _MatmulRows(Function):
     @staticmethod
-    def forward(ctx, x, wm, b4, ops):
+    def forward(ctx, x, wm, b4, ops, site):
         x, wm = x.contiguous(), _cast(wm, x)
         y = ops.rows_matmul(x, wm, b4.float(), scatter=False)
         ctx.save_for_backward(x, wm, y)
+        ctx.ops, ctx.site = ops, site
         return y
 
     @staticmethod
     def backward(ctx, g):
         x, wm, y = ctx.saved_tensors
-        g = _mask(g, y)
-        return g @ wm.T, _flat_wgrad(x, g), bias_grad(g), None
+        with span(f"bwd:{ctx.site}/mask_bias"):
+            g, db = ctx.ops.relu_bias_grad(g.contiguous(), y)
+        with span(f"bwd:{ctx.site}/dgrad"):
+            dx = g @ wm.T
+        with span(f"bwd:{ctx.site}/wgrad"):
+            dw = _flat_wgrad(x, g)
+        return dx, dw, db, None, None
 
 
 class _DeconvPacked(Function):
     @staticmethod
-    def forward(ctx, x4, wm, b4, ops):
+    def forward(ctx, x4, wm, b4, ops, site):
         x4, wm = x4.contiguous(), _cast(wm, x4)
         y = ops.rows_matmul(x4, wm, b4.float(), scatter=True)
         ctx.save_for_backward(x4, wm, y)
+        ctx.ops, ctx.site = ops, site
         return y
 
     @staticmethod
     def backward(ctx, g):
         x4, wm, y = ctx.saved_tensors
-        g = _mask(g, y)
+        with span(f"bwd:{ctx.site}/mask_bias"):
+            g, db = ctx.ops.relu_bias_grad(g.contiguous(), y)
         n, i, j, c4 = x4.shape
-        xu = unpack2(view5(x4, c4 // 4))  # [N, 2i, 2j, C]
-        dx = pack2(g @ wm.T).reshape(n, i, j, c4)
-        return dx, _flat_wgrad(xu, g), bias_grad(g), None
+        with span(f"bwd:{ctx.site}/dgrad"):
+            dx = pack2(g @ wm.T).reshape(n, i, j, c4)
+        with span(f"bwd:{ctx.site}/wgrad"):
+            xu = unpack2(view5(x4, c4 // 4))  # [N, 2i, 2j, C]
+            dw = _flat_wgrad(xu, g)
+        return dx, dw, db, None, None
 
 
-def conv2x2_t(x, w, b4, relu=True, *, ops=KERNEL_OPS):
+def conv2x2_t(x, w, b4, relu=True, *, ops=KERNEL_OPS, site=""):
     """Trainable H1: [N,hp,wp,4C] x [2,2,4C,4O] → [N,hp-1,wp-1,4O]."""
     _relu_only(relu)
-    return _Conv2x2.apply(x, w, b4, ops)
+    return _Conv2x2.apply(x, w, b4, ops, site)
 
 
-def conv2x2_dual_t(xa, xb, wa, wb, b4, relu=True, *, ops=KERNEL_OPS):
-    """Trainable H2 (concat-free decoder conv), same-shape operands: the
-    skip crop is taken before the call."""
+def conv2x2_pool_t(x, w, b4, relu=True, *, ops=KERNEL_OPS, site=""):
+    """Trainable H1 with the 2×2/2 max pool: (y [N,hp-1,wp-1,4O], its pool
+    [..,O]), the pool's gradient to the first slot attaining the max, as
+    conv2x2_t followed by unet_fast.pool4_select."""
     _relu_only(relu)
-    if xa.shape != xb.shape:
-        raise ValueError(f"conv2x2_dual_t: operands {tuple(xa.shape)} and "
-                         f"{tuple(xb.shape)} differ; crop the skip first")
-    return _Conv2x2Dual.apply(xa, xb, wa, wb, b4, ops)
+    return _Conv2x2Pool.apply(x, w, b4, ops, site)
 
 
-def conv4x4s2_t(x, w4, b4, relu=True, *, ops=KERNEL_OPS):
-    """Trainable H3: unpacked [N,H,W,C] → packed [N,(H-2)//2,(W-2)//2,4O]."""
+def conv2x2_dual_t(skip, up, wa, wb, b4, relu=True, *, offset=(0, 0),
+                   ops=KERNEL_OPS, site=""):
+    """Trainable H2 (concat-free decoder conv): skip [N,hpa,wpa,4C] read
+    through its center crop at the UNPACKED ``offset`` (even: a packed
+    slice; odd: a slot phase), up [N,hp,wp,4C] → [N,hp-1,wp-1,4O]; the
+    skip's gradient has its shape, zero outside the crop."""
     _relu_only(relu)
-    return _Conv4x4s2.apply(x, w4, b4, ops)
+    oh, ow = (int(v) for v in offset)
+    n, hp, wp, c4 = up.shape
+    if (skip.shape[0] != n or skip.shape[3] != c4 or oh < 0 or ow < 0
+            or oh + 2 * hp > 2 * skip.shape[1]
+            or ow + 2 * wp > 2 * skip.shape[2]):
+        raise ValueError(f"conv2x2_dual_t: the crop {offset} of the skip "
+                         f"{tuple(skip.shape)} does not cover up "
+                         f"{tuple(up.shape)}")
+    return _Conv2x2Dual.apply(skip, up, wa, wb, b4, ops, site, (oh, ow))
 
 
-def matmul_rows_t(x, wm, b4, relu=True, *, ops=KERNEL_OPS):
+def conv4x4s2_t(x, w4, b4, relu=True, *, ops=KERNEL_OPS, site=""):
+    """Trainable H3: unpacked [N,H,W,C] → packed [N,(H-2)//2,(W-2)//2,4O]
+    (the image entry too, C = 3: its dx is skipped, the image needing no
+    grad)."""
+    _relu_only(relu)
+    return _Conv4x4s2.apply(x, w4, b4, ops, site)
+
+
+def matmul_rows_t(x, wm, b4, relu=True, *, ops=KERNEL_OPS, site=""):
     """Trainable H4 identity (2×2/2 deconv, unpacked input)."""
     _relu_only(relu)
-    return _MatmulRows.apply(x, wm, b4, ops)
+    return _MatmulRows.apply(x, wm, b4, ops, site)
 
 
-def deconv_packed_t(x4, wm, b4, relu=True, *, ops=KERNEL_OPS):
+def deconv_packed_t(x4, wm, b4, relu=True, *, ops=KERNEL_OPS, site=""):
     """Trainable H4 scatter (2×2/2 deconv, packed in and out)."""
     _relu_only(relu)
-    return _DeconvPacked.apply(x4, wm, b4, ops)
+    return _DeconvPacked.apply(x4, wm, b4, ops, site)

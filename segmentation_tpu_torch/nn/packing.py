@@ -51,3 +51,22 @@ def crop_packed(skip: torch.Tensor, shape, offset) -> torch.Tensor:
             src = 2 * ((oh + d) % 2) + (ow + e) % 2
             slots.append(x5[:, ro : ro + hp, co : co + wp, src])
     return torch.stack(slots, dim=3).reshape(n, hp, wp, c4)
+
+
+def uncrop_packed(x: torch.Tensor, shape, offset) -> torch.Tensor:
+    """The adjoint of crop_packed: x [N, hp, wp, 4C] placed into zeros of
+    the skip's ``shape`` [N, hpa, wpa, 4C] at the crop of the UNPACKED
+    offset (oh, ow)."""
+    n, hp, wp, c4 = x.shape
+    oh, ow = offset
+    out = x.new_zeros(shape)
+    if oh % 2 == 0 and ow % 2 == 0:
+        out[:, oh // 2 : oh // 2 + hp, ow // 2 : ow // 2 + wp] = x
+        return out
+    o5, x5 = view5(out, c4 // 4), view5(x, c4 // 4)
+    for d in range(2):
+        for e in range(2):
+            ro, co = (oh + d) // 2, (ow + e) // 2
+            src = 2 * ((oh + d) % 2) + (ow + e) % 2
+            o5[:, ro : ro + hp, co : co + wp, src] = x5[:, :, :, 2 * d + e]
+    return out

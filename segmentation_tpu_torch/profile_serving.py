@@ -32,9 +32,9 @@ import argparse
 import collections
 from typing import Dict, Iterable, List, Tuple
 
-# hand kernels by the name of their __global__ function (csrc/*.cu); the
-# dual's and the dgrad's names hold the plain conv's, so they are matched
-# first
+# hand kernels by the name of their __global__ function (csrc/*.cu; the
+# train step's glue of train_glue.cu as its own groups); the dual's and the
+# dgrad's names hold the plain conv's, so they are matched first
 HAND = (("entry_chain", "H5 entry_chain"),
         ("packed_conv2x2_dgrad", "H6 packed_conv2x2_dgrad"),
         ("packed_conv2x2_dual", "H2 packed_conv2x2_dual"),
@@ -42,7 +42,10 @@ HAND = (("entry_chain", "H5 entry_chain"),
         ("strided_conv4x4s2", "H3 strided_conv4x4s2"),
         ("rows_matmul", "H4 rows_matmul"),
         ("crop_normalize", "H7 crop_normalize"),
-        ("std_conv3x3", "H8 std_conv3x3_s8"))
+        ("std_conv3x3", "H8 std_conv3x3_s8"),
+        ("relu_bias_grad", "glue relu_bias_grad"),
+        ("bias_reduce", "glue relu_bias_grad"),
+        ("crop_margin_zero", "glue crop_margin_zero"))
 
 
 def group_of(name: str) -> str:
@@ -56,7 +59,7 @@ def group_of(name: str) -> str:
     # cuDNN's convs run as implicit GEMMs: test their names first
     if any(k in low for k in ("cudnn", "conv", "fprop", "dgrad", "wgrad")):
         return "library conv"
-    if "gemm" in low:
+    if "gemm" in low or "nvjet" in low:  # nvjet: cuBLAS's Hopper GEMMs
         return "library GEMM"
     return "other (elementwise, pools, reductions)"
 
@@ -74,12 +77,20 @@ def union_us(spans: Iterable[Tuple[float, float]]) -> float:
     return total
 
 
+def device_activities(events):
+    """The trace's device activities: kernels, copies and sets, not the
+    device-side copies of profiler ranges (``record_function``)."""
+    from torch.autograd import DeviceType
+
+    return [e for e in events if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.name.startswith("seg:")]
+
+
 def breakdown(events, n: int) -> Tuple[float, Dict[str, float], List]:
     """(device ms per request, {group: ms per request}, [(ms, launches,
     name) per request, slowest first]) from a trace's FunctionEvents."""
-    from torch.autograd import DeviceType
-
-    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    dev = device_activities(events)
     spans = [(e.time_range.start, e.time_range.end) for e in dev]
     groups: Dict[str, float] = collections.defaultdict(float)
     per_name: Dict[str, List[float]] = collections.defaultdict(list)

@@ -27,6 +27,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from segmentation_tpu_torch.core.config import ModelConfig, TrainConfig
 from segmentation_tpu_torch.nn.shapes import center_crop_or_pad
@@ -93,10 +94,13 @@ class SegmentationTrainer:
         return center_crop_or_pad(y, logits.shape[1], logits.shape[2])
 
     def _loss(self, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
-        logits = self.model(self._to_compute(batch["image"]))
-        target = self._align_target(batch["mask"], logits)
-        xent = losses.segmentation_xentropy(logits, target,
-                                            self.mcfg.n_classes)
+        with record_function("seg:fwd:input"):
+            x = self._to_compute(batch["image"])
+        logits = self.model(x)
+        with record_function("seg:fwd:loss"):
+            target = self._align_target(batch["mask"], logits)
+            xent = losses.segmentation_xentropy(logits, target,
+                                                self.mcfg.n_classes)
         return xent, logits
 
     # ---- steps --------------------------------------------------------------
@@ -126,7 +130,8 @@ class SegmentationTrainer:
     def train_step(self, batch: Optional[Batch] = None) -> Dict[str, float]:
         """One Adam step on ``batch`` (default: the dataset's next)."""
         loss, _ = self.loss_and_grads(batch)
-        self.optimizer.step()
+        with record_function("seg:optimizer"):
+            self.optimizer.step()
         self.step += 1
         xent = float(loss)
         return {"seg_xentropy": xent, "seg_loss": xent}

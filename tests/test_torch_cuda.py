@@ -305,7 +305,8 @@ def test_s2d_forward_kernels_vs_plain(gen):
     plain = UNetS2DInference(cfg, ops=cf.PLAIN_OPS)
     cf.reset_launches()
     got = fast.apply_argmax(prepared, x)
-    assert all(v > 0 for v in cf.launches.values()), cf.launches
+    assert all(v > 0 for k, v in cf.launches.items()
+               if k not in cf.TRAIN_ONLY), cf.launches
     want = plain.apply_argmax(prepared, x)
     # 800 output pixels: hold each disagreement to a margin within bf16
     # rounding of the plain forward's logits instead of a pixel share
@@ -1270,7 +1271,7 @@ def test_fused_augment_on_the_card(gen):
     out_i, out_m = aug.fused_augment(gen, imgs, masks, 24,
                                      out_dtype=torch.float32)
     torch.cuda.synchronize()
-    assert aug.launches["crop_normalize"] == 2
+    assert aug.launches["crop_normalize"] == 1  # image and mask together
     table = torch.from_numpy(aug.byte_table()).cuda()
     assert torch.equal(out_i[..., 0], table[out_m[..., 0].long()])
 
@@ -1314,3 +1315,303 @@ def test_trainer_defaults_to_the_card_and_keeps_device_batches(gen,
     placed = trainer._place(batch)
     assert all(placed[k].data_ptr() == batch[k].data_ptr() for k in batch)
     assert torch.isfinite(torch.tensor(trainer.train_step(batch)["seg_loss"]))
+
+
+# ------------------------------------------------- the train step's glue
+# relu_bias_grad's sites: the cotangent's shape [N, h, w, 4O] at the ten
+# packed train sites of a 512² step (N = 1), then ragged shapes (N = 3, one
+# pixel, 4O = 72 and 8); the mode (pool: the level sites; pad: the 2×2
+# sites' zero-margined buffer)
+GLUE = {"conv1_1": ((1, 255, 255, 128), {}),
+        "conv1_2 pool": ((1, 254, 254, 128), {"pool": True, "pad": True}),
+        "conv2_1": ((1, 126, 126, 256), {}),
+        "conv2_2 pool": ((1, 125, 125, 256), {"pool": True, "pad": True}),
+        "upconv3": ((1, 84, 84, 256), {}),
+        "conv8_1 dual": ((1, 83, 83, 256), {"pad": True}),
+        "conv8_2": ((1, 82, 82, 256), {"pad": True}),
+        "upconv4": ((1, 164, 164, 128), {}),
+        "conv9_1 dual": ((1, 163, 163, 128), {"pad": True}),
+        "conv9_2": ((1, 162, 162, 128), {"pad": True}),
+        "ragged N=3 pool": ((3, 7, 13, 128), {"pool": True, "pad": True}),
+        "ragged pool no g": ((2, 9, 5, 256), {"pool": True, "pad": True,
+                                              "no_g": True}),
+        "one pixel": ((2, 1, 1, 256), {"pad": True}),
+        "4O=72": ((2, 9, 13, 72), {}),
+        "4O=8": ((1, 5, 6, 8), {"pad": True})}
+
+
+def _glue_operands(gen, shape, mode):
+    """g, y (a post-ReLU output, zero on about half the elements, with -0
+    and +0 cotangents among g) and the pool's (gp, idx) where asked."""
+    n, h, w, o4 = shape
+    g = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    g.view(-1)[::7] = -0.0
+    y = torch.relu(torch.randn(shape, generator=gen, device="cuda")
+                   ).to(torch.bfloat16)
+    pool = None
+    if mode.get("pool"):
+        gp = torch.randn((n, h, w, o4 // 4), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        gp.view(-1)[::5] = -0.0
+        idx = torch.randint(0, 4, (n, h, w, o4 // 4), generator=gen,
+                            device="cuda", dtype=torch.int8)
+        pool = (gp, idx)
+    return (None if mode.get("no_g") else g), y, pool
+
+
+GLUE_512 = tuple(GLUE)[:10]  # the 512² sites
+
+
+@pytest.mark.parametrize("site", list(GLUE))
+def test_relu_bias_grad_kernel(gen, site):
+    """gm bit for bit equal to the plain version, margin included; db
+    within its f32 bound (train_glue.db_error_bound: the depth of the
+    kernel's sums) of the exact (f64) sum of gm, a bound that a db of
+    zeros or of half the pixels exceeds at the 512² sites; two launches
+    give the same bits."""
+    from segmentation_tpu_torch.nn.kernels import train_glue as tg
+
+    shape, mode = GLUE[site]
+    g, y, pool = _glue_operands(gen, shape, mode)
+    kw = {k: v for k, v in mode.items() if k == "pad"}
+    tg.reset_launches()
+    got = tg.relu_bias_grad(g, y, pool=pool, **kw)
+    again = tg.relu_bias_grad(g, y, pool=pool, **kw)
+    want = tg.relu_bias_grad_plain(g, y, pool=pool, **kw)
+    torch.cuda.synchronize()
+    name = "relu_bias_grad_pool" if pool is not None else "relu_bias_grad"
+    assert tg.launches[name] == 2
+    assert len(got) == len(want)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape and a.dtype == b.dtype, i
+        if a.dtype == torch.bfloat16:  # the bits, signs of zero included
+            assert torch.equal(a.view(torch.int16), b.view(torch.int16)), i
+    exact = want[0].double().sum((0, 1, 2))
+    bound = tg.db_error_bound(want[0])
+    err = (got[1].double() - exact).abs()
+    assert (err <= bound).all(), (err - bound).max().item()
+    if site in GLUE_512:
+        half = want[0].double().flatten(0, 2)
+        half = half[: half.shape[0] // 2].sum(0)
+        assert ((exact.abs() > bound).any()
+                and ((exact - half).abs() > bound).any())
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# the duals' skip-side weight gradient (conv_bwd.conv2x2_wgrad_crop) at
+# the 512² sites: (skip shape, the cotangent buffer's grid, crop offset)
+WGRAD_CROP = {"conv8_1 (41,41)": ((8, 125, 125, 256), (84, 84), (41, 41)),
+              "conv9_1 (90,90)": ((8, 254, 254, 128), (164, 164), (90, 90))}
+
+
+@pytest.mark.parametrize("site", list(WGRAD_CROP))
+def test_conv2x2_wgrad_crop_bf16_sums_in_f32(gen, site):
+    """dwa in bf16 against the f64 product of the same bf16 operands:
+    within one bf16 rounding of the result (2^-8 |ref|) plus 2^-16 Σ|a·b|
+    for the f32 sum. The images come in pairs whose cotangents nearly
+    cancel (skip post-ReLU, gm ≈ ±(1 + noise)), so each image's partial is
+    large and their sum small: a partial rounded to bf16 per image (2^-9
+    of a partial) would exceed the bound."""
+    from segmentation_tpu_torch.nn.kernels import conv_bwd as cb
+
+    shape, (hp, wp), offset = WGRAD_CROP[site]
+    n, c4 = shape[0], shape[-1]
+    skip = torch.relu(torch.randn(shape, generator=gen, device="cuda"))
+    skip[1::2] = skip[0::2]
+    g = torch.randn((n, hp - 1, wp - 1, c4), generator=gen, device="cuda")
+    g[0::2] += 1.0
+    g[1::2] = -g[0::2] + 2.0**-4 * g[1::2]
+    gp = torch.zeros((n, hp, wp, c4), device="cuda", dtype=torch.bfloat16)
+    gp[:, :-1, :-1] = g
+    skip = skip.to(torch.bfloat16)
+    got = cb.conv2x2_wgrad_crop(skip, gp, offset)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, 2, c4, c4)
+    ref = cb.conv2x2_wgrad_crop(skip.double(), gp.double(), offset)
+    mag = cb.conv2x2_wgrad_crop(skip.double().abs(), gp.double().abs(),
+                                offset)
+    err = (got.double() - ref).abs()
+    bound = 2.0**-8 * ref.abs() + 2.0**-16 * mag
+    assert (err <= bound).all(), (err / bound).max().item()
+
+
+# (skip shape, up's packed grid, crop offset): the 512² sites, then small
+# ones at either parity and at the far edge
+MARGIN = {"conv8_1": ((2, 125, 125, 256), (84, 84), (41, 41)),
+          "conv9_1": ((1, 254, 254, 128), (164, 164), (90, 90)),
+          "same": ((3, 20, 23, 128), (20, 23), (0, 0)),
+          "odd rows": ((3, 20, 23, 128), (17, 19), (3, 6)),
+          "odd cols 4C=256": ((2, 17, 19, 256), (15, 14), (2, 5)),
+          "far edge": ((1, 9, 9, 128), (6, 6), (5, 5))}
+
+
+@pytest.mark.parametrize("case", list(MARGIN))
+def test_crop_margin_zero_kernel(gen, case):
+    """Zeros outside the crop window, the window untouched, bit for bit as
+    the plain version (odd offsets: the edge pixels' slots one by one)."""
+    from segmentation_tpu_torch.nn.kernels import train_glue as tg
+
+    shape, (hp, wp), offset = MARGIN[case]
+    n, hpa, wpa, c4 = shape
+    buf = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    want = tg.crop_margin_zero_plain(buf.clone(), hp, wp, offset)
+    got = tg.crop_margin_zero(buf.clone(), hp, wp, offset)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    keep = tg.window_mask(shape, hp, wp, offset, "cuda")
+    assert torch.equal(got.view(n, hpa, wpa, 4, -1) * keep,
+                       buf.view(n, hpa, wpa, 4, -1) * keep)
+
+
+@pytest.mark.parametrize("o4", [128, 256])
+@pytest.mark.parametrize("shape", ["conv2_2", "ragged", "ragged tiles",
+                                   "one pixel", "N=3"])
+def test_packed_conv2x2_pool_index_kernel(gen, shape, o4):
+    """H1's train pool mode: y within the bf16 tolerance of the plain
+    version; the pool and its index bit for bit pool_select's of the
+    kernel's own y, with ties forced (zero input pixels give four equal
+    slots under a bias tiled over the slots, a negative bias four zero
+    slots): the first slot wins."""
+    x = _act(gen, *FWD[shape])
+    x[:, :4] = 0
+    c4 = x.shape[-1]
+    b = _bias(gen, o4 // 4)
+    b[::4] = -5.0
+    args = (x, _wgt(gen, 2, 2, c4, o4), b.repeat(4))  # one bias a slot
+    y, pooled, idx = cf.packed_conv2x2(*args, pool_index=True)
+    want = cf.packed_conv2x2_plain(*args, pool_index=True)
+    _check(y, want[0])
+    best, first = cf.pool_select(y)
+    torch.cuda.synchronize()
+    assert torch.equal(pooled, best) and torch.equal(idx, first)
+    assert (idx == 0).float().mean().item() > 0.3  # the ties went first
+
+
+# H6's dual in training: g the [N, hg, wg] window of its zero-margined
+# buffer, dxa into the skip's crop window (the 512² sites' crops, then
+# ragged ones at either parity)
+DGRAD_CROP = {"conv8_1 (41,41)": ((1, 83, 83, 256), (1, 125, 125, 256),
+                                  (41, 41)),
+              "conv9_1 (90,90)": ((1, 163, 163, 128), (1, 254, 254, 128),
+                                  (90, 90)),
+              "odd 4C=128": ((2, 9, 13, 128), (2, 16, 19, 128), (5, 3)),
+              "even 4C=256": ((3, 6, 7, 256), (3, 10, 10, 256), (4, 2)),
+              "odd 4O=72": ((1, 9, 13, 72), (1, 12, 16, 256), (1, 2))}
+
+
+@pytest.mark.parametrize("site", list(DGRAD_CROP))
+def test_packed_conv2x2_dgrad_dual_crop_store(gen, site):
+    from segmentation_tpu_torch.nn.kernels import conv_bwd as cb
+    from segmentation_tpu_torch.nn.kernels import train_glue as tg
+
+    gshape, sshape, offset = DGRAD_CROP[site]
+    n, hg, wg, o4 = gshape
+    c4 = sshape[-1]
+    buf = torch.zeros((n, hg + 1, wg + 1, o4), device="cuda",
+                      dtype=torch.bfloat16)
+    buf[:, :hg, :wg] = _cot(gen, *gshape)
+    g = buf[:, :hg, :wg]
+    wa, wb = (_wgt(gen, 2, 2, c4, o4) for _ in range(2))
+    tg.reset_launches()
+    got = cb.packed_conv2x2_dgrad_dual(g, wa, wb, skip_shape=sshape,
+                                       offset=offset)
+    want = cb.packed_conv2x2_dgrad_dual_plain(g, wa, wb, skip_shape=sshape,
+                                              offset=offset)
+    _check(got, want)
+    keep = tg.window_mask(sshape, hg + 1, wg + 1, offset, "cuda")
+    outside = got[0].view(n, *sshape[1:3], 4, -1) * ~keep
+    assert not outside.any() and tg.launches["crop_margin_zero"] == 1
+    # the window equals the compact dxa of the same g, bit for bit
+    compact = cb.packed_conv2x2_dgrad_dual(g.contiguous(), wa, wb)[0]
+    from segmentation_tpu_torch.nn.packing import crop_packed
+
+    assert torch.equal(crop_packed(got[0], compact.shape, offset), compact)
+
+
+def _train_operands(gen, site):
+    def act(*s):
+        return _act(gen, *s).requires_grad_()
+
+    def wgt(*s):
+        return _wgt(gen, *s).float().requires_grad_()
+
+    # biases of ±4 keep every pre-activation far from 0, so that bf16
+    # rounding in either forward flips no ReLU mask; for the pool, slot
+    # biases 4, 12, 20, 28 (the winner rotating with the channel) and every
+    # fifth channel far below zero in all slots, so that rounding moves no
+    # argmax either
+    o = torch.arange(256, device="cuda")
+    b = 4.0 - 8.0 * (o % 2).float()
+    if site == "conv2x2_pool_t":
+        b = (8.0 * ((o // 64 + o % 64) % 4).float() + 4.0
+             - 40.0 * (o % 64 % 5 == 0))
+    b = b.requires_grad_()
+    args, kw = {
+        "conv2x2_pool_t": ((act(2, 13, 21, 256), wgt(2, 2, 256, 256)), {}),
+        "dual odd (5,3)": ((act(2, 16, 19, 256), act(2, 9, 11, 256),
+                            wgt(2, 2, 256, 256), wgt(2, 2, 256, 256)),
+                           {"offset": (5, 3)}),
+        "dual even (4,6)": ((act(1, 13, 15, 128), act(1, 9, 11, 128),
+                             wgt(2, 2, 128, 256), wgt(2, 2, 128, 256)),
+                            {"offset": (4, 6)}),
+    }[site]
+    return args + (b,), kw
+
+
+@pytest.mark.parametrize("site", ["conv2x2_pool_t", "dual odd (5,3)",
+                                  "dual even (4,6)"])
+def test_train_glue_functions_kernels_vs_plain(gen, site):
+    """The level Function (H1 pool index, relu_bias_grad_pool) and the
+    crop-folded dual (H2 at an offset, H6's crop store, crop_margin_zero,
+    the crop wgrad): values and grads to every operand, the skip's
+    included, against the same Functions on the plain versions."""
+    from segmentation_tpu_torch.nn.kernels import train as kt
+
+    args, kw = _train_operands(gen, site)
+    fn = kt.conv2x2_pool_t if site == "conv2x2_pool_t" else kt.conv2x2_dual_t
+    outs, grads = [], []
+    for ops in (cf.KERNEL_OPS, cf.PLAIN_OPS):
+        for a in args:
+            a.grad = None
+        ys = _outs(fn(*args, ops=ops, **kw))
+        loss = sum((y.float() * torch.randn(
+            y.shape, generator=generator(i + 1, "cuda"), device="cuda")
+        ).sum() for i, y in enumerate(ys))
+        loss.backward()
+        outs.append([y.detach() for y in ys])
+        grads.append([a.grad.clone() for a in args])
+    for g, w in zip(outs[0], outs[1]):
+        _check(g, w)
+    for g, w in zip(*grads):
+        _check(g, w)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.uint8, torch.float32,
+                                       torch.bfloat16])
+@pytest.mark.parametrize("xs_kind", ["multiples of 8", "any"])
+def test_crop_normalize_pair_kernel(gen, xs_kind, out_dtype):
+    """H7's one launch for image and mask at the data path's shape (600²
+    staging, crop 512) with half the samples flipped, x offsets multiples
+    of 8 (fused_augment's) or any column: both outputs equal to the plain
+    version byte for byte."""
+    from segmentation_tpu_torch.nn.kernels import augment as aug
+
+    n, tile, crop = 6, 600, 512
+    x = torch.randint(0, 256, (n, tile, tile, 3), generator=gen,
+                      device="cuda", dtype=torch.uint8)
+    m = torch.randint(0, 2, (n, tile, tile, 1), generator=gen,
+                      device="cuda", dtype=torch.uint8)
+    ys = torch.randint(0, tile - crop + 1, (n,), generator=gen, device="cuda")
+    xs = torch.randint(0, tile - crop + 1, (n,), generator=gen, device="cuda")
+    if xs_kind == "multiples of 8":
+        xs = xs // 8 * 8
+    else:
+        xs[:3] = torch.tensor([1, 7, 83], device="cuda")
+    flips = torch.arange(n, device="cuda") % 2
+    aug.reset_launches()
+    got = aug.crop_normalize_pair(x, m, ys, xs, flips, crop, out_dtype)
+    want = aug.crop_normalize_pair(x.cpu(), m.cpu(), ys.cpu(), xs.cpu(),
+                                   flips.cpu(), crop, out_dtype)
+    torch.cuda.synchronize()
+    assert aug.launches["crop_normalize"] == 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)

@@ -46,6 +46,13 @@ from segmentation_tpu_torch import profile_serving as ps
      "library GEMM"),
     ("void cudnn::engines_precompiled::nchwToNhwcKernel<float>(...)",
      "library conv"),
+    ("nvjet_tst_128x128_64x6_2x1_v_bz_splitK_NTT", "library GEMM"),
+    ("void segk::(anonymous namespace)::relu_bias_grad_kernel<true, true>("
+     "uint4 const*, ...)", "glue relu_bias_grad"),
+    ("void segk::(anonymous namespace)::bias_reduce_kernel(float const*, "
+     "float*, int, int)", "glue relu_bias_grad"),
+    ("void segk::(anonymous namespace)::crop_margin_zero_kernel(uint4*, "
+     "int, int, int, int, int, int, int)", "glue crop_margin_zero"),
     ("Memcpy DtoD (Device -> Device)", "copies"),
     ("void at::native::elementwise_kernel<128, 2, direct_copy_kernel_cuda>",
      "copies"),

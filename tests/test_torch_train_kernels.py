@@ -40,6 +40,7 @@ from segmentation_tpu_torch.models import unet_fast as tfast
 from segmentation_tpu_torch.nn import shapes as tshapes
 from segmentation_tpu_torch.nn.kernels import conv_bwd as cb
 from segmentation_tpu_torch.nn.kernels import train as ttr
+from segmentation_tpu_torch.nn.kernels import train_glue as tg
 from segmentation_tpu_torch.nn.packing import crop_packed
 from segmentation_tpu_torch.training import losses as tlosses
 
@@ -107,8 +108,12 @@ def test_functions_take_relu_only(np_rng):
     w = _t(np_rng.normal(size=(2, 2, 128, 128)))
     with pytest.raises(ValueError, match="relu=True"):
         ttr.conv2x2_t(x, w, _t(np.zeros(128)), relu=False)
-    with pytest.raises(ValueError, match="crop the skip"):
-        ttr.conv2x2_dual_t(x, x[:, :2], w, w, _t(np.zeros(128)))
+    # the dual takes the uncropped skip: its crop must cover up
+    with pytest.raises(ValueError, match="does not cover"):
+        ttr.conv2x2_dual_t(x[:, :2], x, w, w, _t(np.zeros(128)))
+    with pytest.raises(ValueError, match="does not cover"):
+        ttr.conv2x2_dual_t(x, x[:, :2], w, w, _t(np.zeros(128)),
+                           offset=(3, 0))
 
 
 # ------------------------------------------------------------------ dgrad
@@ -148,8 +153,9 @@ def test_dgrad_dual_plain_matches_pallas(np_rng, n, h, w, c, o):
 
 @pytest.mark.parametrize("h,w", [(7, 6), (4, 9)])
 def test_wgrad_and_bias_grad_match_xla_vjp(np_rng, h, w):
-    """dw by the four row-shifted products, and db, against jax.vjp of the
-    conv (f32)."""
+    """dw by the four row-shifted products on the zero-margined cotangent
+    (read in place: no pad of g), and db, against jax.vjp of the conv
+    (f32)."""
     x4 = np_rng.standard_normal((2, h, w, 128)).astype(np.float32)
     wk = (np_rng.standard_normal((2, 2, 128, 128)) * 0.1).astype(np.float32)
     g4 = np_rng.standard_normal((2, h - 1, w - 1, 128)).astype(np.float32)
@@ -157,9 +163,15 @@ def test_wgrad_and_bias_grad_match_xla_vjp(np_rng, h, w):
         jnp.asarray(x4), w_, (1, 1), "VALID", dimension_numbers=_DN),
         jnp.asarray(wk))
     (want,) = vjp(jnp.asarray(g4))
-    np.testing.assert_allclose(cb.conv2x2_wgrad(_t(x4), _t(g4)).numpy(),
+    gp = np.pad(g4, ((0, 0), (0, 1), (0, 1), (0, 0)))
+    np.testing.assert_allclose(cb.conv2x2_wgrad(_t(x4), _t(gp)).numpy(),
                                np.asarray(want), rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(cb.bias_grad(_t(g4)).numpy(),
+    with pytest.raises(ValueError, match="x's grid"):
+        cb.conv2x2_wgrad(_t(x4), _t(g4))
+    # db is the glue's f32 sum of the masked cotangent (here y > 0 keeps
+    # all of g)
+    db = tg.relu_bias_grad(_t(g4), _t(np.ones_like(g4)))[1]
+    np.testing.assert_allclose(db.numpy(),
                                g4.sum((0, 1, 2)), rtol=1e-5, atol=1e-4)
 
 
