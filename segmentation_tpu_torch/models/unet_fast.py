@@ -18,7 +18,10 @@ devices and are not ported. Each packed site calls one op of ``ops``:
 the hand kernels by default, their plain versions with ``PLAIN_OPS``.
 Every conv site goes through a hook method (``_strided``, ``_conv_pool``,
 ``_dual``, ...), which the int8 subclass (models/unet_int8.py) and the
-training hooks (``UNetS2DTrain``) override.
+training hooks (``UNetS2DTrain``) override. ``apply`` runs each site in
+the span ``fwd:<site>`` (utils/trace.py), a fused kernel in one span named
+for the sites it fuses (``fwd:conv9_2+head``), so that the subclasses
+inherit the spans with the forward.
 
 ``UNetS2D`` is the trainable model: an ``nn.Module`` holding the f32 U-Net
 params, whose forward packs the weights differentiably (a gather of the
@@ -61,6 +64,7 @@ from segmentation_tpu_torch.nn.packing import (  # noqa: F401 (re-export)
     view5,
 )
 from segmentation_tpu_torch.nn.shapes import unet_output_hw
+from segmentation_tpu_torch.utils import trace
 
 
 def pack_conv3_weight(w: np.ndarray) -> np.ndarray:
@@ -240,7 +244,7 @@ class UNetS2DInference:
                 device=None) -> Dict[str, torch.Tensor]:
         """Pack the packed-site weights once (host-side numpy), cast every
         weight to ``dtype`` and tile the packed sites' biases to [4O] f32
-        (the kernels' operand types)."""
+        (the kernels' operand types). Runs in the span ``setup:prepare``."""
         if self.levels < 1:
             raise ValueError("the s2d U-Net needs at least one level")
 
@@ -254,35 +258,36 @@ class UNetS2DInference:
 
         entry, packed, dual, ups = self._site_names()
         out = {}
-        for name, v in params.items():  # std levels, head: plain weights
-            out[name] = put(f32(name), dtype)
-        for name in entry:
-            out[f"{name}/w4"] = put(pack_conv3_weight_s2(f32(f"{name}/w")),
-                                    dtype)
-        for name in packed + dual:
-            w = f32(f"{name}/w")
-            if name in dual:
-                ci = w.shape[2] // 2  # input = concat(skip C, up C)
-                out[f"{name}/w2a"] = put(pack_conv3_weight(w[:, :, :ci]),
-                                         dtype)
-                out[f"{name}/w2b"] = put(pack_conv3_weight(w[:, :, ci:]),
-                                         dtype)
-            else:
-                out[f"{name}/w2"] = put(pack_conv3_weight(w), dtype)
-        for name in ups:
-            w = f32(f"{name}/w")
-            c, o = w.shape[2], w.shape[3]
-            out[f"{name}/wm"] = put(
-                np.transpose(w, (2, 0, 1, 3)).reshape(c, 4 * o), dtype
-            )
-        for name in entry + packed + dual + ups:
-            out[f"{name}/b4"] = tile_bias4(put(f32(f"{name}/b"),
-                                               torch.float32))
-        if self.cfg.n_classes == 2:
-            wd, bd = head_diff(put(f32("output/w"), torch.float32),
-                               put(f32("output/b"), torch.float32))
-            out["head/wd"] = wd.to(torch.bfloat16)  # the kernel's operand
-            out["head/bd"] = bd
+        with trace.span("setup:prepare"):
+            for name, v in params.items():  # std levels, head: plain weights
+                out[name] = put(f32(name), dtype)
+            for name in entry:
+                out[f"{name}/w4"] = put(
+                    pack_conv3_weight_s2(f32(f"{name}/w")), dtype)
+            for name in packed + dual:
+                w = f32(f"{name}/w")
+                if name in dual:
+                    ci = w.shape[2] // 2  # input = concat(skip C, up C)
+                    out[f"{name}/w2a"] = put(
+                        pack_conv3_weight(w[:, :, :ci]), dtype)
+                    out[f"{name}/w2b"] = put(
+                        pack_conv3_weight(w[:, :, ci:]), dtype)
+                else:
+                    out[f"{name}/w2"] = put(pack_conv3_weight(w), dtype)
+            for name in ups:
+                w = f32(f"{name}/w")
+                c, o = w.shape[2], w.shape[3]
+                out[f"{name}/wm"] = put(
+                    np.transpose(w, (2, 0, 1, 3)).reshape(c, 4 * o), dtype
+                )
+            for name in entry + packed + dual + ups:
+                out[f"{name}/b4"] = tile_bias4(put(f32(f"{name}/b"),
+                                                   torch.float32))
+            if self.cfg.n_classes == 2:
+                wd, bd = head_diff(put(f32("output/w"), torch.float32),
+                                   put(f32("output/b"), torch.float32))
+                out["head/wd"] = wd.to(torch.bfloat16)  # the kernel's operand
+                out["head/bd"] = bd
         return out
 
     # ---- conv-site hooks (models/unet_int8.py overrides them) -----------
@@ -291,8 +296,11 @@ class UNetS2DInference:
         runs level 1 unfused through these two hooks too: conv1_1 in bf16
         (its ``_strided``), quantized and convolved in s8 by its
         ``_conv_pool``."""
-        h4 = self._strided(p, f"conv{lvl + 1}_1", h)
-        return self._conv_pool(p, f"conv{lvl + 1}_2", h4)
+        c1, c2 = f"conv{lvl + 1}_1", f"conv{lvl + 1}_2"
+        with trace.span("fwd", c1):
+            h4 = self._strided(p, c1, h)
+        with trace.span("fwd", c2):
+            return self._conv_pool(p, c2, h4)
 
     def _strided(self, p, name, h):
         return self.ops.strided_conv4x4s2(h, p[f"{name}/w4"], p[f"{name}/b4"])
@@ -365,13 +373,15 @@ class UNetS2DInference:
             skips.append(skip)
 
         # ---- encoder: standard levels + bottleneck ---------------------
-        for lvl in range(pl_, L):
-            h = self._std_conv(p, f"conv{lvl + 1}_1", h)
-            h = self._std_conv(p, f"conv{lvl + 1}_2", h)
-            skips.append(h)
-            h = self._pool(h)
-        h = self._std_conv(p, f"conv{L + 1}_1", h)
-        h = self._std_conv(p, f"conv{L + 1}_2", h)
+        span = trace.span
+        for lvl in range(pl_, L + 1):
+            for name in (f"conv{lvl + 1}_1", f"conv{lvl + 1}_2"):
+                with span("fwd", name):
+                    h = self._std_conv(p, name, h)
+            if lvl < L:
+                skips.append(h)
+                with span("fwd", "std_pool"):
+                    h = self._pool(h)
 
         # ---- decoder -----------------------------------------------------
         packed = False
@@ -380,23 +390,31 @@ class UNetS2DInference:
                 f"conv{L + 2 + i}_2"
             skip = skips[lvl]
             if lvl < pl_:
-                h4 = self._deconv(p, up, h, scatter=packed)
+                with span("fwd", up):
+                    h4 = self._deconv(p, up, h, scatter=packed)
                 # center-crop offset in UNPACKED units
                 off = (skip.shape[1] - h4.shape[1],
                        skip.shape[2] - h4.shape[2])
-                h4 = self._dual(p, c1, skip, h4, off)
+                with span("fwd", c1):
+                    h4 = self._dual(p, c1, skip, h4, off)
                 if head and lvl == 0:
-                    return self._head_conv(p, c2, h4)
-                h = self._packed_conv(p, c2, h4)
+                    with span("fwd", c2, "+head"):
+                        return self._head_conv(p, c2, h4)
+                with span("fwd", c2):
+                    h = self._packed_conv(p, c2, h4)
                 packed = True
             else:
-                h = self._std_deconv(p, up, h)
-                h = self._std_dual_conv(p, c1, skip, h)
-                h = self._std_conv(p, c2, h)
+                with span("fwd", up):
+                    h = self._std_deconv(p, up, h)
+                with span("fwd", c1):
+                    h = self._std_dual_conv(p, c1, skip, h)
+                with span("fwd", c2):
+                    h = self._std_conv(p, c2, h)
 
         if packed_out:
             return h
-        return self._logits(p, h)
+        with span("fwd", "head"):
+            return self._logits(p, h)
 
     def apply_argmax(self, p: Dict[str, torch.Tensor],
                      x: torch.Tensor) -> torch.Tensor:
@@ -407,12 +425,14 @@ class UNetS2DInference:
             mask_p = self.apply(p, x, head=True)
         else:
             hp = view5(self.apply(p, x, packed_out=True), self.cfg.n_kernels)
-            w = p["output/w"][0, 0].to(hp.dtype)
-            logits_p = hp @ w + p["output/b"].to(hp.dtype)
-            mask_p = torch.argmax(logits_p, dim=-1).to(torch.uint8)
-        n, hp_, wp_, _ = mask_p.shape
-        m = mask_p.reshape(n, hp_, wp_, 2, 2).permute(0, 1, 3, 2, 4)
-        return m.reshape(n, 2 * hp_, 2 * wp_)
+            with trace.span("fwd", "head"):
+                w = p["output/w"][0, 0].to(hp.dtype)
+                logits_p = hp @ w + p["output/b"].to(hp.dtype)
+                mask_p = torch.argmax(logits_p, dim=-1).to(torch.uint8)
+        with trace.span("fwd", "unpack"):
+            n, hp_, wp_, _ = mask_p.shape
+            m = mask_p.reshape(n, hp_, wp_, 2, 2).permute(0, 1, 3, 2, 4)
+            return m.reshape(n, 2 * hp_, 2 * wp_)
 
     def output_hw(self, in_hw):
         return unet_output_hw(in_hw, self.levels)
@@ -430,56 +450,30 @@ class UNetS2DTrain(UNetS2DInference):
     (conv2x2_pool_t), and each dual site reads its skip uncropped through
     the crop offset, as H2 does in serving.
 
-    Every hook runs inside a profiler range ``seg:fwd:<site>`` (the
-    Functions' backward passes name theirs ``seg:bwd:<site>/<part>``), so
-    that a trace attributes each device activity to its call site
-    (profile_train.py)."""
+    The Functions' backward passes run their parts in the spans
+    ``bwd:<site>/<part>`` (nn/kernels/train.py), beside the forward's
+    ``fwd:<site>`` that ``apply`` opens."""
 
     def _conv_pool(self, p, name, h4):
-        with kt.span(f"fwd:{name}"):
-            return kt.conv2x2_pool_t(h4, p[f"{name}/w2"], p[f"{name}/b4"],
-                                     ops=self.ops, site=name)
+        return kt.conv2x2_pool_t(h4, p[f"{name}/w2"], p[f"{name}/b4"],
+                                 ops=self.ops, site=name)
 
     def _strided(self, p, name, h):
-        with kt.span(f"fwd:{name}"):
-            return kt.conv4x4s2_t(h, p[f"{name}/w4"], p[f"{name}/b4"],
-                                  ops=self.ops, site=name)
+        return kt.conv4x4s2_t(h, p[f"{name}/w4"], p[f"{name}/b4"],
+                              ops=self.ops, site=name)
 
     def _packed_conv(self, p, name, h4):
-        with kt.span(f"fwd:{name}"):
-            return kt.conv2x2_t(h4, p[f"{name}/w2"], p[f"{name}/b4"],
-                                ops=self.ops, site=name)
+        return kt.conv2x2_t(h4, p[f"{name}/w2"], p[f"{name}/b4"],
+                            ops=self.ops, site=name)
 
     def _deconv(self, p, up, h, scatter):
         f = kt.deconv_packed_t if scatter else kt.matmul_rows_t
-        with kt.span(f"fwd:{up}"):
-            return f(h, p[f"{up}/wm"], p[f"{up}/b4"], ops=self.ops, site=up)
+        return f(h, p[f"{up}/wm"], p[f"{up}/b4"], ops=self.ops, site=up)
 
     def _dual(self, p, name, skip, h4, offset):
-        with kt.span(f"fwd:{name}"):
-            return kt.conv2x2_dual_t(skip, h4, p[f"{name}/w2a"],
-                                     p[f"{name}/w2b"], p[f"{name}/b4"],
-                                     offset=offset, ops=self.ops, site=name)
-
-    def _std_conv(self, p, name, h):
-        with kt.span(f"fwd:{name}"):
-            return super()._std_conv(p, name, h)
-
-    def _std_dual_conv(self, p, name, skip, h):
-        with kt.span(f"fwd:{name}"):
-            return super()._std_dual_conv(p, name, skip, h)
-
-    def _pool(self, h):
-        with kt.span("fwd:std_pool"):
-            return super()._pool(h)
-
-    def _std_deconv(self, p, up, h):
-        with kt.span(f"fwd:{up}"):
-            return super()._std_deconv(p, up, h)
-
-    def _logits(self, p, h4):
-        with kt.span("fwd:head"):
-            return super()._logits(p, h4)
+        return kt.conv2x2_dual_t(skip, h4, p[f"{name}/w2a"],
+                                 p[f"{name}/w2b"], p[f"{name}/b4"],
+                                 offset=offset, ops=self.ops, site=name)
 
 
 class UNetS2D(nn.Module):
@@ -540,6 +534,6 @@ class UNetS2D(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [N, H, W, C] in the compute dtype → logits [N, h, w,
         n_classes]."""
-        with kt.span("fwd:pack_weights"):
+        with trace.span("fwd", "pack_weights"):
             p = self.packed()
         return self.net.apply(p, x)

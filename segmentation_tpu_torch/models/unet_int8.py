@@ -75,6 +75,7 @@ from segmentation_tpu_torch.nn.kernels.conv_int8 import (
     strided_k_major,
 )
 from segmentation_tpu_torch.nn.packing import crop_packed
+from segmentation_tpu_torch.utils import trace
 
 S8, BF16 = torch.int8, torch.bfloat16
 _PLANNED = "conv1_1/qmul"  # written by UNetS2DInt8.plan
@@ -200,7 +201,8 @@ class UNetS2DInt8(UNetS2DInference):
         activation scales ``ascale`` / ``ascale_a`` / ``ascale_b`` (0-d
         f32 host tensors) of every site and the kernels' epilogue vectors.
         Without calibration batches no activation scale exists and the
-        forward is the bf16 one."""
+        forward is the bf16 one. The weights' part runs in the span
+        ``setup:prepare``, the calibration in ``setup:calibrate``."""
         prepared = super().prepare(params, dtype=dtype, device=device)
 
         def w32(name):
@@ -215,36 +217,37 @@ class UNetS2DInt8(UNetS2DInference):
 
         entry, packed, dual, _ = self._site_names()
         std, std_dual = self._std_conv_names(), self._std_dual_names()
-        for name in entry:
-            put(name, "wq4", "wscale4", quantize_weight(
-                pack_conv3_weight_s2(w32(f"{name}/w"))))
-        for name in packed:
-            put(name, "wq", "wscale",
-                quantize_weight(pack_conv3_weight(w32(f"{name}/w"))))
-        for name in dual:
-            w = w32(f"{name}/w")
-            ci = w.shape[2] // 2  # input = concat(skip C, up C)
-            put(name, "wq_a", "wscale_a",
-                quantize_weight(pack_conv3_weight(w[:, :, :ci])))
-            put(name, "wq_b", "wscale_b",
-                quantize_weight(pack_conv3_weight(w[:, :, ci:])))
-        for name in std:
-            put(name, "wq", "wscale", quantize_weight(w32(f"{name}/w")))
-        for name in std_dual:
-            w = w32(f"{name}/w")
-            ca = w.shape[2] - w.shape[3]
-            if ca != w.shape[3]:
-                raise ValueError(f"{name}: concat width {w.shape}")
-            put(name, "wq_a", "wscale_a", quantize_weight(w[:, :, :ca]))
-            put(name, "wq_b", "wscale_b", quantize_weight(w[:, :, ca:]))
-        for name in self._deconv_names():
-            w = w32(f"{name}/w")
-            c, o = w.shape[2], w.shape[3]
-            put(name, "wqm", "wscale", quantize_matrix(
-                np.transpose(w, (2, 0, 1, 3)).reshape(c, 4 * o)))
-        for name in params:  # the int8 epilogues add f32 biases
-            if name.endswith("/b"):
-                prepared[name] = torch.as_tensor(w32(name)).to(device)
+        with trace.span("setup:prepare"):
+            for name in entry:
+                put(name, "wq4", "wscale4", quantize_weight(
+                    pack_conv3_weight_s2(w32(f"{name}/w"))))
+            for name in packed:
+                put(name, "wq", "wscale",
+                    quantize_weight(pack_conv3_weight(w32(f"{name}/w"))))
+            for name in dual:
+                w = w32(f"{name}/w")
+                ci = w.shape[2] // 2  # input = concat(skip C, up C)
+                put(name, "wq_a", "wscale_a",
+                    quantize_weight(pack_conv3_weight(w[:, :, :ci])))
+                put(name, "wq_b", "wscale_b",
+                    quantize_weight(pack_conv3_weight(w[:, :, ci:])))
+            for name in std:
+                put(name, "wq", "wscale", quantize_weight(w32(f"{name}/w")))
+            for name in std_dual:
+                w = w32(f"{name}/w")
+                ca = w.shape[2] - w.shape[3]
+                if ca != w.shape[3]:
+                    raise ValueError(f"{name}: concat width {w.shape}")
+                put(name, "wq_a", "wscale_a", quantize_weight(w[:, :, :ca]))
+                put(name, "wq_b", "wscale_b", quantize_weight(w[:, :, ca:]))
+            for name in self._deconv_names():
+                w = w32(f"{name}/w")
+                c, o = w.shape[2], w.shape[3]
+                put(name, "wqm", "wscale", quantize_matrix(
+                    np.transpose(w, (2, 0, 1, 3)).reshape(c, 4 * o)))
+            for name in params:  # the int8 epilogues add f32 biases
+                if name.endswith("/b"):
+                    prepared[name] = torch.as_tensor(w32(name)).to(device)
         if len(calib_batches):
             self._calibrate(prepared, calib_batches, dtype)
         return prepared
@@ -252,7 +255,13 @@ class UNetS2DInt8(UNetS2DInference):
     def _calibrate(self, p, calib_batches, dtype) -> None:
         """Run the bf16 forward on each batch, record max|x| at every
         quantized site's input (the a and b sides of the duals, the a side
-        on the cropped skip) and store ascale = max(absmax, 1e-6) / 127."""
+        on the cropped skip) and store ascale = max(absmax, 1e-6) / 127;
+        then ``plan``. Runs in the span ``setup:calibrate``."""
+        with trace.span("setup:calibrate"):
+            self._calibrate_scales(p, calib_batches, dtype)
+            self.plan(p)
+
+    def _calibrate_scales(self, p, calib_batches, dtype) -> None:
         entry, packed, dual, _ = self._site_names()
         std, std_dual = self._std_conv_names(), self._std_dual_names()
         dual_a = set(dual) | set(std_dual)
@@ -273,7 +282,6 @@ class UNetS2DInt8(UNetS2DInference):
                    else f"{name}/ascale")
             p[key] = torch.tensor(
                 np.float32(max(rec.get(name, 0.0), 1e-6) / 127.0))
-        self.plan(p)
 
     def _record(self, name, x):
         m = x.detach().abs().amax().float()
@@ -337,7 +345,12 @@ class UNetS2DInt8(UNetS2DInference):
         ``wk`` (the duals' ``wk_a``/``wk_b``), ``qmul``/``qadd``
         (``std_affine``) and the duals' ``qcs_a``/``qcs_b`` for the
         resident skip (``std_dual_scales``), each computed in f32 on the
-        host, then moved to the weights' device."""
+        host, then moved to the weights' device. Runs in the span
+        ``setup:plan``."""
+        with trace.span("setup:plan"):
+            return self._plan(p)
+
+    def _plan(self, p) -> Dict[str, torch.Tensor]:
         entry, packed, dual, _ = self._site_names()
         std_dual = self._std_dual_names()
         q = {}
@@ -407,10 +420,11 @@ class UNetS2DInt8(UNetS2DInference):
     def _encode_packed(self, p, lvl, h):
         if lvl == 0 and self._q(p) and self._fused_level1(h):
             c1, c2 = "conv1_1", "conv1_2"
-            return self.ops8.entry_chain(
-                h, p[f"{c1}/w4"], p[f"{c1}/qmul"], p[f"{c1}/qadd"],
-                p[f"{c2}/wq"], p[f"{c2}/qmul"], p[f"{c2}/qadd"],
-                wk=p[f"{c2}/wk"])
+            with trace.span("fwd", "conv1_1+conv1_2"):
+                return self.ops8.entry_chain(
+                    h, p[f"{c1}/w4"], p[f"{c1}/qmul"], p[f"{c1}/qadd"],
+                    p[f"{c2}/wq"], p[f"{c2}/qmul"], p[f"{c2}/qadd"],
+                    wk=p[f"{c2}/wk"])
         return super()._encode_packed(p, lvl, h)
 
     def _strided(self, p, name, h):

@@ -27,6 +27,8 @@ from typing import Optional
 
 import torch
 
+from segmentation_tpu_torch.utils import trace
+
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = (
@@ -131,10 +133,12 @@ def loaded() -> bool:
 
 
 def library() -> ctypes.CDLL:
-    """The bound kernel library, built on first use."""
+    """The bound kernel library, built (or loaded) on first use, in the
+    span ``setup:kernels``."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        with trace.span("setup:kernels"):
+            lib = ctypes.CDLL(str(build()))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes

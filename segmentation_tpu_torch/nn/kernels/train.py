@@ -31,7 +31,8 @@ f32 parameter's grad. Only ``relu=True`` is taken: every train site has
 it, and the kernels fuse it. The JAX package's recompute-mask variant
 (``SEG_PALLAS_TRAIN=2``) is not ported.
 
-Each forward and backward part runs in a profiler range (``span``), which
+Each backward part runs in the span ``bwd:<site>/<part>``
+(utils/trace.py; the forward's ``fwd:<site>`` is the model's), which
 profile_train.py reads to attribute the step's device time to call sites.
 """
 
@@ -39,7 +40,6 @@ from __future__ import annotations
 
 import torch
 from torch.autograd import Function
-from torch.profiler import record_function
 
 from segmentation_tpu_torch.nn.kernels.conv_bwd import (
     conv2x2_wgrad,
@@ -47,12 +47,7 @@ from segmentation_tpu_torch.nn.kernels.conv_bwd import (
 )
 from segmentation_tpu_torch.nn.kernels.conv_flat import KERNEL_OPS
 from segmentation_tpu_torch.nn.packing import pack2, unpack2, view5
-
-
-def span(name: str):
-    """A profiler range ``seg:<name>`` (profile_train.py attributes the
-    device activities launched inside it to it)."""
-    return record_function(f"seg:{name}")
+from segmentation_tpu_torch.utils import trace
 
 
 def _relu_only(relu: bool) -> None:
@@ -74,9 +69,9 @@ def _conv2x2_grads(ctx, x, w, gm, needs_dx):
     the zero-margined masked cotangent gm [N, h+1, w+1, 4O]."""
     dx = None
     if needs_dx:
-        with span(f"bwd:{ctx.site}/dgrad"):
+        with trace.span("bwd", ctx.site, "/dgrad"):
             dx = ctx.ops.packed_conv2x2_dgrad(gm[:, :-1, :-1], w)
-    with span(f"bwd:{ctx.site}/wgrad"):
+    with trace.span("bwd", ctx.site, "/wgrad"):
         dw = conv2x2_wgrad(x, gm)
     return dx, dw
 
@@ -93,7 +88,7 @@ class _Conv2x2(Function):
     @staticmethod
     def backward(ctx, g):
         x, w, y = ctx.saved_tensors
-        with span(f"bwd:{ctx.site}/mask_bias"):
+        with trace.span("bwd", ctx.site, "/mask_bias"):
             gm, db = ctx.ops.relu_bias_grad(g.contiguous(), y, pad=True)
         dx, dw = _conv2x2_grads(ctx, x, w, gm, ctx.needs_input_grad[0])
         return dx, dw, db, None, None
@@ -117,7 +112,7 @@ class _Conv2x2Pool(Function):
             return None, None, None, None, None
         g = None if g is None else g.contiguous()
         pool = None if g_pool is None else (g_pool.contiguous(), idx)
-        with span(f"bwd:{ctx.site}/mask_bias"):
+        with trace.span("bwd", ctx.site, "/mask_bias"):
             gm, db = ctx.ops.relu_bias_grad(g, y, pool=pool, pad=True)
         dx, dw = _conv2x2_grads(ctx, x, w, gm, ctx.needs_input_grad[0])
         return dx, dw, db, None, None
@@ -137,13 +132,13 @@ class _Conv2x2Dual(Function):
     @staticmethod
     def backward(ctx, g):
         skip, up, wa, wb, y = ctx.saved_tensors
-        with span(f"bwd:{ctx.site}/mask_bias"):
+        with trace.span("bwd", ctx.site, "/mask_bias"):
             gm, db = ctx.ops.relu_bias_grad(g.contiguous(), y, pad=True)
-        with span(f"bwd:{ctx.site}/dgrad"):
+        with trace.span("bwd", ctx.site, "/dgrad"):
             dskip, dup = ctx.ops.packed_conv2x2_dgrad_dual(
                 gm[:, :-1, :-1], wa, wb, skip_shape=tuple(skip.shape),
                 offset=ctx.offset)
-        with span(f"bwd:{ctx.site}/wgrad"):
+        with trace.span("bwd", ctx.site, "/wgrad"):
             dwa = conv2x2_wgrad_crop(skip, gm, ctx.offset)
             dwb = conv2x2_wgrad(up, gm)
         return dskip, dup, dwa, dwb, db, None, None, None
@@ -161,16 +156,16 @@ class _Conv4x4s2(Function):
     @staticmethod
     def backward(ctx, g):
         x, w4, y = ctx.saved_tensors
-        with span(f"bwd:{ctx.site}/mask_bias"):
+        with trace.span("bwd", ctx.site, "/mask_bias"):
             g, db = ctx.ops.relu_bias_grad(g.contiguous(), y)
         gn = g.permute(0, 3, 1, 2)
         xn, wn = x.permute(0, 3, 1, 2), w4.permute(3, 2, 0, 1)
         dx = None
         if ctx.needs_input_grad[0]:
-            with span(f"bwd:{ctx.site}/dgrad"):
+            with trace.span("bwd", ctx.site, "/dgrad"):
                 dx = torch.nn.grad.conv2d_input(xn.shape, wn, gn, stride=2)
                 dx = dx.permute(0, 2, 3, 1).contiguous()
-        with span(f"bwd:{ctx.site}/wgrad"):
+        with trace.span("bwd", ctx.site, "/wgrad"):
             dw = torch.nn.grad.conv2d_weight(xn, wn.shape, gn, stride=2)
         return dx, dw.permute(2, 3, 1, 0), db, None, None
 
@@ -187,11 +182,11 @@ class _MatmulRows(Function):
     @staticmethod
     def backward(ctx, g):
         x, wm, y = ctx.saved_tensors
-        with span(f"bwd:{ctx.site}/mask_bias"):
+        with trace.span("bwd", ctx.site, "/mask_bias"):
             g, db = ctx.ops.relu_bias_grad(g.contiguous(), y)
-        with span(f"bwd:{ctx.site}/dgrad"):
+        with trace.span("bwd", ctx.site, "/dgrad"):
             dx = g @ wm.T
-        with span(f"bwd:{ctx.site}/wgrad"):
+        with trace.span("bwd", ctx.site, "/wgrad"):
             dw = _flat_wgrad(x, g)
         return dx, dw, db, None, None
 
@@ -208,12 +203,12 @@ class _DeconvPacked(Function):
     @staticmethod
     def backward(ctx, g):
         x4, wm, y = ctx.saved_tensors
-        with span(f"bwd:{ctx.site}/mask_bias"):
+        with trace.span("bwd", ctx.site, "/mask_bias"):
             g, db = ctx.ops.relu_bias_grad(g.contiguous(), y)
         n, i, j, c4 = x4.shape
-        with span(f"bwd:{ctx.site}/dgrad"):
+        with trace.span("bwd", ctx.site, "/dgrad"):
             dx = pack2(g @ wm.T).reshape(n, i, j, c4)
-        with span(f"bwd:{ctx.site}/wgrad"):
+        with trace.span("bwd", ctx.site, "/wgrad"):
             xu = unpack2(view5(x4, c4 // 4))  # [N, 2i, 2j, C]
             dw = _flat_wgrad(xu, g)
         return dx, dw, db, None, None

@@ -20,16 +20,26 @@ reads the trace's device activities (kernels, copies, sets) only:
   ``--requests`` x 3 requests;
 - the summed activity time per group: the hand kernels (H1–H8, by kernel
   name), library GEMMs, library convs, copies and the other (elementwise)
-  kernels.
+  kernels;
+- from the program's spans (utils/trace.py; ``span_readings``), in a
+  traced pass of one request at a time: the calls that enqueue work a
+  request, the device's idle time inside a request's span (its dispatch's
+  share of the latency), the device time launched under the standard
+  levels' sites, and the longest idle gaps by span and op; and the set-up
+  spans' own seconds (``prepare``, ``calibrate``, ``plan``, ``kernels``;
+  ``setup_seconds``), from a CPU profile of building the server and its
+  first request.
 
 ``--out`` writes every activity (ms per request, launches per request)
-beside the summary lines.
+and the device ms of each ``fwd:<site>`` beside the summary lines.
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import collections
+import math
 from typing import Dict, Iterable, List, Tuple
 
 # hand kernels by the name of their __global__ function (csrc/*.cu; the
@@ -64,22 +74,25 @@ def group_of(name: str) -> str:
     return "other (elementwise, pools, reductions)"
 
 
+def merge(spans: Iterable[Tuple[float, float]]) -> List[Tuple[float, float]]:
+    """The union of [start, end) intervals as disjoint pieces, in order."""
+    out: List[Tuple[float, float]] = []
+    for s, e in sorted(spans):
+        if out and s <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], e))
+        else:
+            out.append((s, e))
+    return out
+
+
 def union_us(spans: Iterable[Tuple[float, float]]) -> float:
     """Total length of the union of [start, end) intervals."""
-    total, end = 0.0, None
-    for s, e in sorted(spans):
-        if end is None or s >= end:
-            total += e - s
-            end = e
-        elif e > end:
-            total += e - end
-            end = e
-    return total
+    return sum(e - s for s, e in merge(spans))
 
 
 def device_activities(events):
     """The trace's device activities: kernels, copies and sets, not the
-    device-side copies of profiler ranges (``record_function``)."""
+    device-side copies of the program's ranges (``seg:``)."""
     from torch.autograd import DeviceType
 
     return [e for e in events if e.device_type == DeviceType.CUDA
@@ -101,6 +114,121 @@ def breakdown(events, n: int) -> Tuple[float, Dict[str, float], List]:
     rows = sorted(((sum(v) / n / 1e3, len(v) / n, k)
                    for k, v in per_name.items()), reverse=True)
     return union_us(spans) / n / 1e3, dict(groups), rows
+
+
+# the CUDA runtime and driver calls that put work on the device's queue
+LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset",
+                "cudaGraphLaunch")
+
+
+def idle_us(a: float, b: float, pieces) -> float:
+    """The time in [a, b] that no piece of ``merge``'s covers."""
+    i = max(bisect.bisect_right(pieces, (a, math.inf)) - 1, 0)
+    busy = 0.0
+    while i < len(pieces) and pieces[i][0] < b:
+        s, e = pieces[i]
+        busy += max(0.0, min(e, b) - max(s, a))
+        i += 1
+    return (b - a) - busy
+
+
+def seg_of(event, prefix: str = "seg:") -> str:
+    """The innermost program span (``seg:`` range) whose name starts with
+    ``prefix`` at or above ``event``, without its ``seg:``; else None."""
+    p = event
+    while p is not None:
+        if p.name.startswith(prefix):
+            return p.name[4:]
+        p = p.cpu_parent
+    return None
+
+
+def span_readings(events) -> dict:
+    """What the program's spans (utils/trace.py) say of a trace:
+
+    - ``requests``: per ``serve:request`` span, [the work-enqueuing calls
+      (``LAUNCH_CALLS``) that start inside it, the device's idle µs
+      inside it] (one thread dispatches a request);
+    - ``sync_idle_us``: per ``train:sync`` span that a step's
+      ``fwd:loss`` follows, the device's idle µs from the sync's end to
+      the end of that ``fwd:loss``: the refill of an empty queue;
+    - ``site_us``: {site: device µs} of the activities launched under
+      the innermost ``fwd:<site>`` span; ``(no fwd site)`` for the rest.
+    """
+    from torch.autograd import DeviceType
+
+    dev = merge((e.time_range.start, e.time_range.end)
+                for e in device_activities(events))
+    cpu = [e for e in events if e.device_type == DeviceType.CPU]
+    starts = sorted(e.time_range.start for e in cpu
+                    if e.name.startswith(LAUNCH_CALLS))
+    requests = []
+    for r in (e for e in cpu if e.name == "seg:serve:request"):
+        a, b = r.time_range.start, r.time_range.end
+        n = bisect.bisect_left(starts, b) - bisect.bisect_left(starts, a)
+        requests.append([n, idle_us(a, b, dev)])
+    losses = sorted(e.time_range.end for e in cpu
+                    if e.name == "seg:fwd:loss")
+    sync_idle = []
+    for t in sorted(e.time_range.end for e in cpu
+                    if e.name == "seg:train:sync"):
+        i = bisect.bisect_right(losses, t)
+        if i < len(losses):
+            sync_idle.append(idle_us(t, losses[i], dev))
+    site: Dict[str, float] = collections.defaultdict(float)
+    for e in cpu:
+        name = seg_of(e, "seg:fwd:")
+        for k in e.kernels:
+            if not k.name.startswith("seg:"):
+                site[name[4:] if name else "(no fwd site)"] += k.duration
+    return {"requests": requests, "sync_idle_us": sync_idle,
+            "site_us": dict(site)}
+
+
+def gap_names(events, top: int = 10) -> List[List]:
+    """The ``top`` longest device idle gaps, longest first: [``<innermost
+    program span> | <innermost op>`` on the host at the gap's middle (``(no
+    span)`` outside the program's spans), seconds]."""
+    from torch.autograd import DeviceType
+
+    dev = merge((e.time_range.start, e.time_range.end)
+                for e in device_activities(events))
+    gaps = sorted(((a[1], b[0]) for a, b in zip(dev, dev[1:])),
+                  key=lambda g: g[0] - g[1])[:top]
+    cpu = [e for e in events if e.device_type == DeviceType.CPU]
+    out = []
+    for a, b in gaps:
+        t, best, depth = (a + b) / 2, None, -1
+        for e in cpu:
+            if e.time_range.start <= t < e.time_range.end:
+                d, p = 0, e.cpu_parent
+                while p is not None:
+                    d, p = d + 1, p.cpu_parent
+                if d > depth:
+                    best, depth = e, d
+        span = seg_of(best) if best is not None else None
+        op = ("python between ops" if best is None
+              or best.name.startswith("seg:") else best.name)
+        out.append([f"{span or '(no span)'} | {op}", (b - a) / 1e6])
+    return out
+
+
+def setup_seconds(events) -> Dict[str, float]:
+    """{span: seconds} of the trace's ``seg:setup:`` spans, each less the
+    ``setup:`` spans directly inside it (``setup:kernels``, the nvcc build
+    or load, never counts in the span that first needs the kernels)."""
+    setup = [e for e in events if e.name.startswith("seg:setup:")]
+    own = {id(e): e.time_range.elapsed_us() for e in setup}
+    for e in setup:
+        p = e.cpu_parent
+        while p is not None and not p.name.startswith("seg:setup:"):
+            p = p.cpu_parent
+        if p is not None:
+            own[id(p)] -= e.time_range.elapsed_us()
+    out: Dict[str, float] = collections.defaultdict(float)
+    for e in setup:
+        out[e.name[4:]] += own[id(e)] / 1e6
+    return dict(out)
 
 
 def profile(server, reqs):
@@ -156,6 +284,9 @@ def main(argv=None) -> None:
 
     import torch
 
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as trace_profile
+
     from segmentation_tpu_torch.core.rng import generator
     from segmentation_tpu_torch.serving import entry
 
@@ -182,9 +313,24 @@ def main(argv=None) -> None:
     for tag, kw in (("bf16", {}), ("int8", int8),
                     ("int8_4d", {**int8, "padflat": False}),
                     ("int8_fdeconv", {**int8, "quant_deconvs": False})):
-        server, _ = entry("cuda", batch=args.batch, seed=0, **kw)
+        with trace_profile(activities=[ProfilerActivity.CPU]) as prof:
+            server, _ = entry("cuda", batch=args.batch, seed=0, **kw)
+            server(reqs[0])
+            torch.cuda.synchronize()
+        setup = setup_seconds(prof.events())
         wall, dev_ms, groups, rows = profile(server, reqs)
         lat, dispatch = host_clock(server, reqs)
+        with trace_profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA]) as prof:
+            host_clock(server, reqs, rounds=1)
+        spans = span_readings(prof.events())
+        calls = [c for c, _ in spans["requests"]]
+        idle_ms = sum(i for _, i in spans["requests"]) / len(calls) / 1e3
+        entry_, packed, dual, ups = server.model._site_names()
+        fast = set(entry_ + packed + dual + ups) | {"head", "unpack",
+                                                    "(no fwd site)"}
+        std_ms = sum(us for site, us in spans["site_us"].items()
+                     if site.split("+")[0] not in fast) / len(calls) / 1e3
         lines.append(f"[profile] {tag} B={args.batch}: CUDA-event ms per "
                      f"request {wall:.3f}; device ms per request "
                      f"{dev_ms:.3f}; busy share {dev_ms / wall:.3f}; one "
@@ -193,9 +339,22 @@ def main(argv=None) -> None:
         for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
             lines.append(f"[profile] {tag}   {g}: {ms:.3f} ms "
                          f"({ms / dev_ms:.3f} of device time)")
+        lines.append(
+            f"[profile] {tag}   spans, one request at a time: "
+            f"{min(calls)}-{max(calls)} work-enqueuing calls a request; the "
+            f"device idles {idle_ms:.3f} ms inside a request's span; the "
+            f"standard levels' sites launch {std_ms:.3f} device ms")
+        lines.append(f"[profile] {tag}   longest idle gaps: " + "; ".join(
+            f"{name} {sec * 1e3:.3f} ms"
+            for name, sec in gap_names(prof.events(), 3)))
+        lines.append(f"[profile] {tag}   set-up spans' own s: " + ", ".join(
+            f"{name} {sec:.3f}" for name, sec in sorted(setup.items())))
         table += [f"==== {tag}: ms per request, launches per request, "
                   "activity"]
         table += [f"{ms:9.4f} {k:6.2f}  {name[:160]}" for ms, k, name in rows]
+        table += [f"==== {tag}: device ms per request by fwd site"]
+        table += [f"{us / len(calls) / 1e3:9.4f}  {site}" for site, us in
+                  sorted(spans["site_us"].items(), key=lambda kv: -kv[1])]
         del server
         torch.cuda.empty_cache()
     print("\n".join(lines))

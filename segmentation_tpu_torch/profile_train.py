@@ -14,7 +14,13 @@ hooks ``seg:fwd:<site>``, the Functions' backward parts
 ``seg:bwd:<site>/<part>``, the trainer's ``seg:fwd:input``,
 ``seg:fwd:loss`` and ``seg:optimizer``), prefixed in the backward with the
 autograd node that ran it (``ReluBackward0``, ``_Conv2x2Backward``, ...).
-A launch outside every range keeps the name of its outermost op.
+A launch outside every range keeps the name of its outermost op. The
+ranges are the program's spans (utils/trace.py), on while the profiler
+records. The step's ``seg:train:sync`` gives the device's idle time from
+the end of each step's closing ``float(loss)`` sync to the end of the next
+step's ``fwd:loss`` (profile_serving.span_readings), and the longest idle
+gaps are named by the innermost span and op at each (``train:step |
+Optimizer.zero_grad``; profile_serving.gap_names).
 
 Prints, per step: the device ms (the union of the activities' intervals)
 and the CUDA-event ms of the untraced steps, the groups of
@@ -175,14 +181,25 @@ def trace_steps(step, steps: int):
 
 def report(tag: str, wall: float, events, steps: int):
     """The summary lines and the per-(site, activity) table."""
-    from segmentation_tpu_torch.profile_serving import breakdown
+    from segmentation_tpu_torch.profile_serving import (
+        breakdown,
+        gap_names,
+        span_readings,
+    )
 
     dev_ms, groups, acts = breakdown(events, steps)
     _, sites, by_group, share, rest = attribute(events, steps)
+    sync = span_readings(events)["sync_idle_us"]
     lines = [f"[profile_train] {tag}: CUDA-event ms per step {wall:.3f}; "
              f"device ms per step {dev_ms:.3f}; busy share "
              f"{dev_ms / wall:.3f}; attributed to call sites "
-             f"{share:.4f} of device time"]
+             f"{share:.4f} of device time; device idle from a step's "
+             f"loss sync to the next fwd:loss's end "
+             + (", ".join(f"{us / 1e3:.3f}" for us in sync) or "none")
+             + " ms",
+             f"[profile_train] {tag}   longest idle gaps: " + "; ".join(
+                 f"{name} {sec * 1e3:.3f} ms"
+                 for name, sec in gap_names(events, 3))]
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         lines.append(f"[profile_train] {tag}   group {g}: {ms:.3f} ms")
     for s, (ms, k) in sorted(sites.items(), key=lambda kv: -kv[1][0]):

@@ -33,6 +33,7 @@ from segmentation_tpu_torch.interop import params_from_jax
 from segmentation_tpu_torch.models.unet import init_params
 from segmentation_tpu_torch.models.unet_fast import UNetS2DInference
 from segmentation_tpu_torch.models.unet_int8 import UNetS2DInt8
+from segmentation_tpu_torch.utils import trace
 from segmentation_tpu_torch.utils.checkpoint import load_params
 
 
@@ -42,16 +43,21 @@ def flagship_config() -> ModelConfig:
 
 @dataclasses.dataclass
 class Server:
+    """Serves requests, each in the span ``serve:request``
+    (utils/trace.py)."""
+
     model: UNetS2DInference
     params: Dict[str, torch.Tensor]    # f32, standard U-Net layout
     prepared: Dict[str, torch.Tensor]  # packed, compute dtype
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         """x [N, H, W, 3] → class map [N, h, w] u8."""
-        return self.model.apply_argmax(self.prepared, x)
+        with trace.span("serve:request"):
+            return self.model.apply_argmax(self.prepared, x)
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
-        return self.model.apply(self.prepared, x)
+        with trace.span("serve:request"):
+            return self.model.apply(self.prepared, x)
 
 
 def entry(device="cuda", batch: int = 8, *, seed: int = 0,

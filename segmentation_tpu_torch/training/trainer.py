@@ -27,18 +27,21 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from segmentation_tpu_torch.core.config import ModelConfig, TrainConfig
 from segmentation_tpu_torch.nn.shapes import center_crop_or_pad
 from segmentation_tpu_torch.training import losses
 from segmentation_tpu_torch.utils import checkpoint as ckpt
+from segmentation_tpu_torch.utils import trace
 
 Batch = Dict[str, torch.Tensor]
 _ADAM = ((".opt_state[0].mu", "exp_avg"), (".opt_state[0].nu", "exp_avg_sq"))
 
 
 class SegmentationTrainer:
+    """A step runs in the span ``train:step``, its closing loss read in
+    ``train:sync`` (utils/trace.py)."""
+
     def __init__(self, model, dataset=None, test_dataset=None,
                  model_cfg: Optional[ModelConfig] = None,
                  train_cfg: Optional[TrainConfig] = None, device="cuda"):
@@ -94,10 +97,10 @@ class SegmentationTrainer:
         return center_crop_or_pad(y, logits.shape[1], logits.shape[2])
 
     def _loss(self, batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
-        with record_function("seg:fwd:input"):
+        with trace.span("fwd", "input"):
             x = self._to_compute(batch["image"])
         logits = self.model(x)
-        with record_function("seg:fwd:loss"):
+        with trace.span("fwd", "loss"):
             target = self._align_target(batch["mask"], logits)
             xent = losses.segmentation_xentropy(logits, target,
                                                 self.mcfg.n_classes)
@@ -129,11 +132,13 @@ class SegmentationTrainer:
 
     def train_step(self, batch: Optional[Batch] = None) -> Dict[str, float]:
         """One Adam step on ``batch`` (default: the dataset's next)."""
-        loss, _ = self.loss_and_grads(batch)
-        with record_function("seg:optimizer"):
-            self.optimizer.step()
-        self.step += 1
-        xent = float(loss)
+        with trace.span("train:step"):
+            loss, _ = self.loss_and_grads(batch)
+            with trace.span("optimizer"):
+                self.optimizer.step()
+            self.step += 1
+            with trace.span("train:sync"):
+                xent = float(loss)
         return {"seg_xentropy": xent, "seg_loss": xent}
 
     def train_steps(self, n: int) -> Dict[str, float]:

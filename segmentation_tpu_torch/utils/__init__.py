@@ -1,1 +1,1 @@
-"""Checkpoint reading."""
+"""Checkpoint reading, and the spans and counters of the port (trace)."""
