@@ -35,6 +35,17 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                s8 tensor peak (1979 TOP/s), and each mode's sums follow;
                H4 int8's and H8's library column is torch._int_mm of the
                same product (s32 out);
+  3b'.       — H8's bf16 mode (the std levels' 3×3 convs of the bf16
+               forward, single and dual, bias and ReLU fused) at the ten
+               std sites of a 512² request, B = 2, 8 and 64: each against
+               its plain version (one bf16 rounding), then at B = 8 and 64
+               timed in turns against the plain version and two library
+               columns, each a warm F.conv2d on the same NHWC tensors: with
+               the bias and ReLU passes of nn/layers.conv2d's _finish (the
+               dual: the crop, both convs, their sum, bias and ReLU: the
+               path the mode replaced), and the conv alone; beside the
+               bound, the tile and the share of the bf16 tensor peak; then
+               each mode's and the ten sites' sums at each B;
   3c.        — the same for H6 (the packed-conv input grad), single and
                dual, at its six training sites as the step calls it (g the
                window of its zero-margined buffer, the duals' dxa stored
@@ -53,7 +64,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                against pool_select of its own y;
   4. slice   — 4 requests of B = 8 through serving.entry (apply_argmax),
                whose launches alone are counted, then one apply (logits);
-               every kernel must have launched in the requests, the masks
+               every kernel must have launched in the requests (H8 bf16:
+               8 singles and 2 duals a request), the masks
                must agree with the same forward on the plain versions and
                the logits with the f32 plain U-Net;
   4b.        — the int8 slice: serving.entry(int8=True) calibrated on one
@@ -232,6 +244,12 @@ REPLACES["crop_margin_zero"] = (
 # kernels that write in place (the parity runs each on its own copy)
 IN_PLACE = ("crop_margin_zero",)
 REPLACES["std_conv3x3_s8"] = f"{_UI8}:72 int8_conv (XLA)"
+# H8's bf16 mode: the std levels' convs of the bf16 forward (XLA in JAX)
+for k in ("std_conv3x3", "std_conv3x3_dual"):
+    SOURCES[k] = "segmentation_tpu_torch/csrc/std_conv3x3_bf16.cu"
+REPLACES["std_conv3x3"] = f"{_UF}:1045 _std_conv (XLA)"
+REPLACES["std_conv3x3_dual"] = f"{_UF}:1050 _std_dual_conv (XLA)"
+B_BATCH = 64  # the batch cell's request (bench_h100 serve_b64)
 REPLACES["std_conv3x3_dual_s8"] = REPLACES["std_conv3x3_dual_s8_inline"] = \
     f"{_UI8}:104 int8_std_dual_conv (XLA)"
 # each int8 configuration's launches per request (models/unet_int8.py),
@@ -870,7 +888,7 @@ def _packed_gemm_ops(name, args):
         return {kind: 2 * (x.numel() // wm.shape[0]) * wm.shape[0]
                 * wm.shape[1]}
     if name.startswith("std_conv3x3"):  # H8 has no packed form
-        return {kind: _site_work(name, args, {}, ())[1]["s8"]}
+        return {kind: _site_work(name, args, {}, ())[1][kind]}
     dual = name.startswith("packed_conv2x2_dual")
     x, w = args[1 if dual else 0], args[3 if dual else 1]
     n, hp, wp, c4 = x.shape
@@ -912,6 +930,10 @@ def _tile_plan_of(name, args, kw):
         n, h, w, _ = args[0].shape
         s = 2 if kw.get("scatter") else 1
         return ci.rows_s8_plan(n, s * h, s * w)
+    if name in STD_BF16:
+        x, w = (args[1], args[2]) if name.endswith("dual") else args[:2]
+        n, h, wd, _ = x.shape
+        return cf.std_bf16_plan(n, h - 2, wd - 2, w.shape[-1])
     if name.startswith("std_conv3x3"):
         dual = "dual" in name
         n, h, w, _ = args[1 if dual else 0].shape
@@ -934,10 +956,11 @@ SM90_S8 = ("packed_conv2x2_s8", "packed_conv2x2_s8_pool",
            "packed_conv2x2_dual_s8_inline", "strided_conv4x4s2_s8",
            "strided_conv4x4s2_s8_inline", "conv3entry_s8", "rows_matmul_s8",
            "rows_matmul_s8_inline") + STD8
+STD_BF16 = ("std_conv3x3", "std_conv3x3_dual")
 SM90 = ("packed_conv2x2", "packed_conv2x2_pool_index",
         "packed_conv2x2_dual", "strided_conv4x4s2",
         "rows_matmul", "packed_conv2x2_dgrad", "packed_conv2x2_dgrad_dual",
-        "conv3entry_requant", "entry_chain") + SM90_S8
+        "conv3entry_requant", "entry_chain") + SM90_S8 + STD_BF16
 
 
 def _peak_kind(name):
@@ -1089,6 +1112,162 @@ def _kernel_phase(mod, sites):
             del fns, lib
     bound_by = {k: max(v, key=v.get) for k, v in bound_parts.items()}
     return worst, ms, plain_ms, bound, bound_by, library_ms, packed
+
+
+def _std_bf16_sites(n, gen):
+    """H8 bf16's ten sites in one 512² request (n_kernels = 32): (mode,
+    label, args, kwargs), the duals' weights the halves of one concat
+    weight, as the forward passes them."""
+    import torch
+
+    dev = gen.device
+
+    def act(*shape):
+        return torch.rand(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def bias(o):
+        return torch.randn((o,), generator=gen, device=dev) * 0.1
+
+    sites = []
+    for label, (h, c, o) in (("conv3_1", (125, 64, 128)),
+                             ("conv3_2", (123, 128, 128)),
+                             ("conv4_1", (60, 128, 256)),
+                             ("conv4_2", (58, 256, 256)),
+                             ("conv5_1", (28, 256, 512)),
+                             ("conv5_2", (26, 512, 512)),
+                             ("conv6_2", (46, 256, 256)),
+                             ("conv7_2", (86, 128, 128))):
+        sites.append(("std_conv3x3", label, (act(n, h, h, c),
+                                             _wgt(gen, 3, 3, c, o), bias(o)),
+                      {}))
+    for label, (hs, h, c, o) in (("conv6_1", (56, 48, 256, 256)),
+                                 ("conv7_1", (121, 88, 128, 128))):
+        w = _wgt(gen, 3, 3, 2 * c, o)
+        off = ((hs - h) // 2, (hs - h) // 2)
+        sites.append(("std_conv3x3_dual", f"{label} crop {off}",
+                      (act(n, hs, hs, c), act(n, h, h, c), w[:, :, :c],
+                       w[:, :, c:], bias(o)), {"offset": off}))
+    return sites
+
+
+def _std_bf16_library(name, args, kw):
+    """H8 bf16's two library columns on the site's own NHWC tensors: the
+    path the mode replaced (nn/layers.conv2d: cuDNN, then _finish's bias
+    and ReLU, the bias in bf16; the dual: both convs on the cropped skip
+    and on up, their sum, the bias, ReLU) and the conv alone (the dual's
+    two convs)."""
+    import torch
+    import torch.nn.functional as F
+
+    from segmentation_tpu_torch.nn.layers import conv2d
+
+    def nchw(x):
+        return x.permute(0, 3, 1, 2)
+
+    def oihw(w):
+        return w.permute(3, 2, 0, 1)
+
+    b16 = args[-1].to(torch.bfloat16)
+    if name == "std_conv3x3":
+        x, w = args[:2]
+        return (lambda: conv2d(x, w, b16),
+                lambda: F.conv2d(nchw(x), oihw(w)))
+    skip, up, wa, wb = args[:4]
+    oh, ow = kw["offset"]
+    sk = skip[:, oh:oh + up.shape[1], ow:ow + up.shape[2]]
+
+    def unfused():
+        y = conv2d(sk, wa, activation=None) + conv2d(up, wb, activation=None)
+        return torch.relu(y + b16)
+
+    return unfused, lambda: (F.conv2d(nchw(sk), oihw(wa)),
+                             F.conv2d(nchw(up), oihw(wb)))
+
+
+def _std_bf16_parity(label, got, want):
+    """One bf16 rounding apart (tests/test_torch_std_bf16.py): |kernel -
+    plain| <= 2^-7 |plain| + 1e-3 max |plain| elementwise."""
+    err = (got.float() - want.float()).abs()
+    tol = 2.0**-7 * want.float().abs() + 1e-3 * want.float().abs().max()
+    worst = err.max().item()
+    print(f"[std-bf16] {label}: max abs err {worst:.3e}, within one bf16 "
+          f"rounding everywhere: {bool((err <= tol).all())}")
+    if got.dtype != want.dtype or not (err <= tol).all():
+        raise AssertionError(f"{label}: beyond one bf16 rounding")
+    return worst
+
+
+def _std_bf16_phase(cf):
+    """Phase 3b': H8's bf16 mode at its ten sites, parity at B = 2, 8 and
+    64, time at 8 and 64. Returns {B: {mode: {"calls", "worst", "ms",
+    "plain_ms", "library_ms" (with bias and ReLU), "conv_ms" (the conv
+    alone), "bound_ms", "parts", "ops"}}}."""
+    import torch
+
+    from segmentation_tpu_torch.core.rng import generator
+
+    wrappers = {k: getattr(cf, k) for k in STD_BF16}
+    plains = {k: getattr(cf, f"{k}_plain") for k in STD_BF16}
+    out = {}
+    for n in (B_PARITY, B_SERVE, B_BATCH):
+        sums = out.setdefault(n, {})
+        for name, label, args, kw in _std_bf16_sites(n, generator(31 + n,
+                                                                  "cuda")):
+            got = wrappers[name](*args, **kw)
+            want = plains[name](*args, **kw)
+            torch.cuda.synchronize()
+            s = sums.setdefault(name, {
+                "calls": 0, "worst": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                "library_ms": 0.0, "conv_ms": 0.0, "bound_ms": 0.0,
+                "parts": {"bytes": 0.0, "operations": 0.0}, "ops": 0.0})
+            s["calls"] += 1
+            s["worst"] = max(s["worst"], _std_bf16_parity(
+                f"N={n} {name} {label}", got, want))
+            del want
+            if n == B_PARITY:
+                continue
+            lib, conv = _std_bf16_library(name, args, kw)
+            fns = {"plain": lambda: plains[name](*args, **kw),
+                   "kernel": lambda: wrappers[name](*args, **kw),
+                   "library": lib, "conv": conv}
+            for f in fns.values():  # warm: cuDNN's first call of a shape
+                f()
+            t = dict.fromkeys(fns, 0.0)
+            for k in list(fns) + list(fns)[::-1]:  # in turns
+                t[k] += _time_ms(fns[k]) / 2
+            nbytes, ops = _site_work(name, args, kw, (got,))
+            b, by = _bound_ms(nbytes, ops)
+            for k in fns:
+                s["ms" if k == "kernel" else f"{k}_ms"] += t[k]
+            s["bound_ms"] += b
+            s["parts"][by] += b
+            s["ops"] += ops["bf16"]
+            print(f"[std-bf16] time B={n} {name} {label}: {t['kernel']:.4f}"
+                  f" ms, plain {t['plain']:.4f} ms, library conv + bias + "
+                  f"ReLU {t['library']:.4f} ms, conv alone {t['conv']:.4f} "
+                  f"ms, bound {b:.4f} ms ({by})"
+                  f"{_tile_note(name, args, kw, t['kernel'], b)}")
+            del fns, lib, conv, got
+        if n == B_PARITY:
+            continue
+        for name, s in sums.items():
+            print(f"[std-bf16] B={n} {name} over its {s['calls']} sites: "
+                  f"{s['ms']:.4f} ms, plain {s['plain_ms']:.4f} ms, library "
+                  f"conv + bias + ReLU {s['library_ms']:.4f} ms, conv alone "
+                  f"{s['conv_ms']:.4f} ms, bound {s['bound_ms']:.4f} ms "
+                  f"({s['bound_ms'] / s['ms']:.3f} of it reached)")
+        tot = {k: sum(s[k] for s in sums.values())
+               for k in ("ms", "library_ms", "conv_ms", "bound_ms", "ops")}
+        peak = tot["ops"] / PEAK_OPS_S["bf16"] * 1e3
+        print(f"[std-bf16] B={n} the ten sites: {tot['ms']:.4f} ms "
+              f"({peak / tot['ms']:.3f} of the bf16 tensor peak, "
+              f"{tot['ops'] / 1e12:.4f} TFLOP), library conv + bias + ReLU "
+              f"{tot['library_ms']:.4f} ms ({peak / tot['library_ms']:.3f}),"
+              f" conv alone {tot['conv_ms']:.4f} ms "
+              f"({peak / tot['conv_ms']:.3f}); the kernels "
+              f"{'beat' if tot['ms'] <= tot['conv_ms'] else 'lose to'} the "
+              f"convs alone by {abs(tot['conv_ms'] - tot['ms']):.4f} ms")
+    return out
 
 
 def _serve(server, reqs, reset):
@@ -1344,9 +1523,11 @@ def _train_phase(cf, cb, tg):
         with census:
             k_ms, k_peak, launches = _train_throughput(kern, big, "kernels",
                                                        reset, counts)
-        missing = [k for k, v in launches.items() if v == 0]
+        missing = [k for k, v in launches.items()
+                   if (v == 0) != (k in cf.SERVE_ONLY)]
         if missing:
-            raise AssertionError(f"train kernels never launched: {missing}")
+            raise AssertionError(f"train kernels never launched, or "
+                                 f"serving's launched: {missing}")
         print(f"[train] kernels B={B_TRAIN}: calls of the plain versions and "
               f"glue in the timed steps {census.counts} (the old _mask is "
               f"gone)")
@@ -1633,9 +1814,11 @@ def _data_phase(cf, cb, tg, tiles):
               f"{metrics['seg_loss']:.6f}; launches {launches}")
         if not math.isfinite(metrics["seg_loss"]):
             raise AssertionError(f"data path: non-finite loss {metrics}")
-        missing = [k for k, v in launches.items() if v == 0]
+        missing = [k for k, v in launches.items()
+                   if (v == 0) != (k in cf.SERVE_ONLY)]
         if missing:
-            raise AssertionError(f"data path: never launched {missing}")
+            raise AssertionError(f"data path: never launched, or "
+                                 f"serving's launched: {missing}")
         if launches["crop_normalize"] != 5:
             raise AssertionError("H7 did not launch once a step (image and "
                                  "mask together)")
@@ -1872,6 +2055,8 @@ def main() -> None:
               f"bound {bound[k]:.4f} ms ({bound[k] / ms[k]:.3f} of it "
               f"reached), packed GEMM {gemm} "
               f"({_peak_words(packed[k], ms[k])})")
+    std_bf16 = _std_bf16_phase(cf)
+    torch.cuda.empty_cache()
     exact = _entry_modes_agree(B_SERVE, generator(99, "cuda"))
     print(f"[kernels] B={B_SERVE} H5 against conv3entry_requant + H1 pool: "
           f"{'equal code for code' if exact else 'within one code'}")
@@ -1892,6 +2077,10 @@ def main() -> None:
                if v == 0 and k not in cf.TRAIN_ONLY]
     if missing:
         raise AssertionError(f"kernels never launched on the path: {missing}")
+    h8 = {k: counts[k] for k in STD_BF16}
+    if h8 != {"std_conv3x3": 8 * len(reqs), "std_conv3x3_dual": 2 * len(reqs)}:
+        raise AssertionError(f"H8 bf16 launches {h8} for {len(reqs)} "
+                             f"requests")
     oh, ow = server.model.output_hw((HW, HW))
     _check_masks(masks, (B_SERVE, oh, ow))
     if tuple(logits.shape) != (B_SERVE, oh, ow, 2):
@@ -2030,6 +2219,11 @@ def main() -> None:
     library_ms["crop_normalize"] = None  # no one PyTorch call computes it
     for k, s in std8.items():  # H8's path modes: a request's own launches
         worst[k], ms[k], plain_ms[k] = s["worst"], s["ms"], s["plain_ms"]
+        bound[k], library_ms[k] = s["bound_ms"], s["library_ms"]
+        bound_by[k] = max(s["parts"], key=s["parts"].get)
+    for k, s in std_bf16[B_SERVE].items():  # H8 bf16: its ten sites, B = 8
+        worst[k] = max(std_bf16[n][k]["worst"] for n in std_bf16)
+        ms[k], plain_ms[k] = s["ms"], s["plain_ms"]
         bound[k], library_ms[k] = s["bound_ms"], s["library_ms"]
         bound_by[k] = max(s["parts"], key=s["parts"].get)
     kernels = []

@@ -11,10 +11,13 @@ levels (C = k, 2k) and their two decoder blocks in the packed layout
   crop + concat + 3×3 conv                   = concat-free dual conv (H2)
   1×1 head + argmax, n_classes = 2           = sign of one dot (H1)
 
-Levels 3–5, upconv1/2 and the 1×1 head of ``apply`` stay plain PyTorch
-ops, as the JAX package leaves them to XLA. This is the JAX 4-D ``apply``
-topology; the padded-flat (PadFlat/PF2) layouts and their gates are TPU
-devices and are not ported. Each packed site calls one op of ``ops``:
+The standard levels (3–5) run unpacked: their 3×3 convs on H8's bf16
+mode (``ops.std_conv3x3``, ``ops.std_conv3x3_dual``: bias and ReLU fused,
+the decoder's skip cropped in the kernel's loads), where the JAX package
+leaves them to XLA; upconv1/2, the std pool and the 1×1 head of ``apply``
+stay plain PyTorch ops. This is the JAX 4-D ``apply`` topology; the
+padded-flat (PadFlat/PF2) layouts and their gates are TPU devices and are
+not ported. Each packed site calls one op of ``ops``:
 the hand kernels by default, their plain versions with ``PLAIN_OPS``.
 Every conv site goes through a hook method (``_strided``, ``_conv_pool``,
 ``_dual``, ...), which the int8 subclass (models/unet_int8.py) and the
@@ -29,7 +32,8 @@ params, whose forward packs the weights differentiably (a gather of the
 packed site a ``torch.autograd.Function`` of nn/kernels/train.py (H1–H4
 forward, H6 input grads, the glue kernels of nn/kernels/train_glue.py),
 each level's pool fused into its conv with an argmax index, as
-``pool4_select`` computes it.
+``pool4_select`` computes it; its standard levels keep autograd through
+nn/layers.conv2d (H8 has no backward).
 """
 
 from __future__ import annotations
@@ -239,12 +243,25 @@ class UNetS2DInference:
                 ups.append(f"upconv{i + 1}")
         return entry, packed, dual, ups
 
+    def _std_conv_names(self):
+        """The standard levels' 3×3 convs, the decoder's duals included."""
+        L, pl_ = self.levels, self.packed_levels
+        names = []
+        for lvl in range(pl_, L):
+            names += [f"conv{lvl + 1}_1", f"conv{lvl + 1}_2"]
+        names += [f"conv{L + 1}_1", f"conv{L + 1}_2"]
+        for i, lvl in enumerate(reversed(range(L))):
+            if lvl >= pl_:
+                names += [f"conv{L + 2 + i}_1", f"conv{L + 2 + i}_2"]
+        return names
+
     def prepare(self, params: Dict[str, torch.Tensor],
                 dtype: torch.dtype = torch.float32,
                 device=None) -> Dict[str, torch.Tensor]:
         """Pack the packed-site weights once (host-side numpy), cast every
-        weight to ``dtype`` and tile the packed sites' biases to [4O] f32
-        (the kernels' operand types). Runs in the span ``setup:prepare``."""
+        weight to ``dtype``, tile the packed sites' biases to [4O] f32 and
+        keep the std convs' biases f32 (the kernels' operand types). Runs
+        in the span ``setup:prepare``."""
         if self.levels < 1:
             raise ValueError("the s2d U-Net needs at least one level")
 
@@ -283,6 +300,8 @@ class UNetS2DInference:
             for name in entry + packed + dual + ups:
                 out[f"{name}/b4"] = tile_bias4(put(f32(f"{name}/b"),
                                                    torch.float32))
+            for name in self._std_conv_names():
+                out[f"{name}/b"] = put(f32(f"{name}/b"), torch.float32)
             if self.cfg.n_classes == 2:
                 wd, bd = head_diff(put(f32("output/w"), torch.float32),
                                    put(f32("output/b"), torch.float32))
@@ -329,16 +348,15 @@ class UNetS2DInference:
         )
 
     def _std_conv(self, p, name, h):
-        return conv2d(h, p[f"{name}/w"], p[f"{name}/b"])
+        return self.ops.std_conv3x3(h, p[f"{name}/w"], p[f"{name}/b"])
 
     def _std_dual_conv(self, p, name, skip, h):
-        # concat-free: conv(concat(sk, h), w) =
-        #              conv(sk, w[:C]) + conv(h, w[C:]), sk the crop of skip
-        sk = std_crop(skip, h)
-        w, ci = p[f"{name}/w"], sk.shape[-1]
-        y = conv2d(sk, w[:, :, :ci], activation=None) \
-            + conv2d(h, w[:, :, ci:], activation=None)
-        return torch.relu(y + p[f"{name}/b"].to(y.dtype))
+        # concat-free: conv(concat(sk, h), w) = conv(sk, w[:C]) +
+        # conv(h, w[C:]), sk the crop of skip, read in place by the kernel
+        w, ci = p[f"{name}/w"], skip.shape[-1]
+        return self.ops.std_conv3x3_dual(
+            skip, h, w[:, :, :ci], w[:, :, ci:], p[f"{name}/b"],
+            offset=std_crop_offset(skip, h))
 
     def _pool(self, h):
         return max_pool(h, 2)
@@ -448,7 +466,9 @@ class UNetS2DTrain(UNetS2DInference):
     (conv1_1, C = 3) is H3's gathered mode, bias and ReLU fused (the JAX
     package leaves it to XLA); each level's conv and pool are one H1 launch
     (conv2x2_pool_t), and each dual site reads its skip uncropped through
-    the crop offset, as H2 does in serving.
+    the crop offset, as H2 does in serving. The standard levels keep
+    autograd through nn/layers.conv2d (cuDNN, then the bias and ReLU
+    passes): serving's H8 has no backward.
 
     The Functions' backward passes run their parts in the spans
     ``bwd:<site>/<part>`` (nn/kernels/train.py), beside the forward's
@@ -474,6 +494,18 @@ class UNetS2DTrain(UNetS2DInference):
         return kt.conv2x2_dual_t(skip, h4, p[f"{name}/w2a"],
                                  p[f"{name}/w2b"], p[f"{name}/b4"],
                                  offset=offset, ops=self.ops, site=name)
+
+    def _std_conv(self, p, name, h):
+        return conv2d(h, p[f"{name}/w"], p[f"{name}/b"])
+
+    def _std_dual_conv(self, p, name, skip, h):
+        # concat-free: conv(concat(sk, h), w) =
+        #              conv(sk, w[:C]) + conv(h, w[C:]), sk the crop of skip
+        sk = std_crop(skip, h)
+        w, ci = p[f"{name}/w"], sk.shape[-1]
+        y = conv2d(sk, w[:, :, :ci], activation=None) \
+            + conv2d(h, w[:, :, ci:], activation=None)
+        return torch.relu(y + p[f"{name}/b"].to(y.dtype))
 
 
 class UNetS2D(nn.Module):

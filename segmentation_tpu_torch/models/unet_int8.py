@@ -175,17 +175,6 @@ class UNetS2DInt8(UNetS2DInference):
         ``quant_deconvs``)."""
         return self._site_names()[3] if self.quant_deconvs else []
 
-    def _std_conv_names(self):
-        L, pl_ = self.levels, self.packed_levels
-        names = []
-        for lvl in range(pl_, L):
-            names += [f"conv{lvl + 1}_1", f"conv{lvl + 1}_2"]
-        names += [f"conv{L + 1}_1", f"conv{L + 1}_2"]
-        for i, lvl in enumerate(reversed(range(L))):
-            if lvl >= pl_:
-                names += [f"conv{L + 2 + i}_1", f"conv{L + 2 + i}_2"]
-        return names
-
     def _std_dual_names(self):
         L, pl_ = self.levels, self.packed_levels
         return [f"conv{L + 2 + i}_1"

@@ -52,6 +52,8 @@ _SIGNATURES = {
     "seg_std_conv3x3_s8": [_P] * 5 + [_I] * 8 + [_P],
     "seg_std_conv3x3_dual_s8": [_P] * 8 + [_I] * 9 + [_F] * 3 + [_I] * 2
     + [_P],
+    "seg_std_conv3x3": [_P] * 4 + [_I] * 9 + [_P],
+    "seg_std_conv3x3_dual": [_P] * 6 + [_I] * 13 + [_P],
     "seg_entry_chain": [_P] * 9 + [_I] * 5 + [_P],
     "seg_packed_conv2x2_dgrad": [_P] * 5 + [_I] * 13 + [_P],
     "seg_crop_normalize": [_P] * 7 + [_I] * 7 + [_P],

@@ -1,4 +1,5 @@
-"""The four packed-site kernels of the U-Net serving forward.
+"""The packed-site kernels of the U-Net serving forward, and H8's bf16
+mode at its standard levels.
 
 Each op has a wrapper and a plain PyTorch version of the same function.
 The wrapper launches its CUDA kernel (``csrc/<name>.cu``) for a CUDA
@@ -13,17 +14,29 @@ There is no fallback from a failed launch. Each launch adds one to
   H3 strided_conv4x4s2   4×4/2 conv, unpacked [N,H,W,C] → packed 4O
   H4 rows_matmul         per-pixel [C] → [4O] (2×2/2 deconv), identity or
                          slot-scatter store
+  H8 std_conv3x3         the std levels' 3×3 VALID conv, unpacked NHWC
+  H8 std_conv3x3_dual    the std decoder's concat-free first conv: the skip
+                         cropped in its loads, one f32 accumulator
 
 They replace the Pallas kernels of segmentation_tpu/nn/pallas/conv_flat.py
 (padded-flat and paired-column layouts, which exist for the TPU's tiles);
 every kernel here reads and writes plain NHWC. Every op ends in bias +
 ReLU (every packed site of the forward does). Kernel operands: bf16
-activations and weights, f32 bias; every tensor contiguous. All four run
-on the Hopper mainloop (csrc/sm90_igemm.cuh, with the output side of
-csrc/packed_conv2x2_fwd.cuh): their operands are TMA sources, 16-byte
+activations and weights, f32 bias; every tensor contiguous but H8's
+weights (views of the HWIO weight: the dual's halves of the concat
+weight). All run on the Hopper mainloop (csrc/sm90_igemm.cuh, H1–H4 with
+the output side of csrc/packed_conv2x2_fwd.cuh, H8 with its own in
+csrc/std_conv3x3_bf16.cu): their operands are TMA sources, 16-byte
 aligned (H3's x only where TMA boxes it, ``tiles.strided_boxable``; else
 the kernel gathers it), and their output tiles are planned here by
-``tiles.tile_plan`` (``_fwd_plan``).
+``tiles.tile_plan`` (``_fwd_plan``, ``std_bf16_plan``).
+
+H8's bf16 mode replaces no Pallas kernel: the JAX package leaves the
+standard levels' convs to XLA (segmentation_tpu/models/unet_fast.py
+_std_conv :1045, _std_dual_conv :1050). It computes their function with
+one rounding: the f32 sum of the bf16 products, the f32 bias, ReLU,
+rounded once to bf16 (XLA's path in the JAX package rounds the conv's
+output, then the bias add: the two agree within those roundings).
 """
 
 from __future__ import annotations
@@ -58,9 +71,13 @@ from segmentation_tpu_torch.nn.kernels.tiles import (
 from segmentation_tpu_torch.nn.packing import crop_packed, unpack2
 
 NAMES = ("packed_conv2x2", "packed_conv2x2_dual", "strided_conv4x4s2",
-         "rows_matmul", "packed_conv2x2_pool_index")
+         "rows_matmul", "packed_conv2x2_pool_index", "std_conv3x3",
+         "std_conv3x3_dual")
 # the training route's modes, which no server runs
 TRAIN_ONLY = ("packed_conv2x2_pool_index",)
+# the serving forward's modes, which the training route does not run (its
+# std levels keep autograd through nn/layers.conv2d)
+SERVE_ONLY = ("std_conv3x3", "std_conv3x3_dual")
 launches = dict.fromkeys(NAMES, 0)
 
 
@@ -139,6 +156,23 @@ def rows_matmul_plain(x, wm, b4, *, scatter=False):
     return _epilogue(torch.matmul(x, wm.to(x.dtype)), b4, x.dtype)
 
 
+def std_conv3x3_plain(x, w, b):
+    """H8 bf16's function: the f32 sum of the products of x [N,H,W,C] and
+    w [3,3,C,O] (VALID), + b in f32, ReLU, rounded once to x's dtype. In
+    f32 it is nn/layers.conv2d(x, w, b) exactly."""
+    return _epilogue(_conv_nhwc(x.float(), w, 1), b, x.dtype)
+
+
+def std_conv3x3_dual_plain(skip, up, wa, wb, b, *, offset):
+    """H8 bf16 dual's function: conv(crop(skip), wa) + conv(up, wb) summed
+    in f32, the skip read at the crop origin ``offset``; + b, ReLU, one
+    rounding to up's dtype."""
+    oh, ow = offset
+    sk = skip[:, oh : oh + up.shape[1], ow : ow + up.shape[2]]
+    acc = _conv_nhwc(sk.float(), wa, 1) + _conv_nhwc(up.float(), wb, 1)
+    return _epilogue(acc, b, up.dtype)
+
+
 # ------------------------------------------------------------ kernel wrappers
 def _o4_ok(o4, name):
     if o4 not in (128, 256):
@@ -176,6 +210,25 @@ def rows_plan(x, o4, scatter):
     if scatter:
         return _fwd_plan(n, 2 * h, 2 * w, o4, halo=0, step=8)
     return _fwd_plan(n, h, w, o4, halo=0)
+
+
+def std_bf16_tile(o: int):
+    """(NB, BM, W_MAX) of H8's bf16 tiles for O output channels
+    (csrc/std_conv3x3_bf16.cu StdBf16Tiles): column tiles of NB = 256
+    where that divides O (O = 512: two a pixel tile), else 128; BM GEMM
+    rows a tile (256 at NB = 128, two m64n128 a consumer warpgroup; 128 at
+    NB = 256, one m64n256), the single's and the dual's alike (one
+    accumulator); rows of the tile's halo box at most W_MAX wide."""
+    nb = 256 if o % 256 == 0 else 128
+    return nb, 256 if nb == 128 else 128, 128
+
+
+def std_bf16_plan(n, ho, wo, o):
+    """H8 bf16's output tiles: th · (tw + 2) <= BM GEMM rows (two junk
+    columns a row: the nine taps are row shifts of one halo box), tw + 2
+    <= W_MAX."""
+    _, bm, w_max = std_bf16_tile(o)
+    return tile_plan(n, ho, wo, bm, halo=2, max_w=w_max)
 
 
 def packed_conv2x2(x, w2, b4, *, pool=False, pool_index=False, head=None,
@@ -333,10 +386,97 @@ def rows_matmul(x, wm, b4, *, scatter=False):
     return y
 
 
+def _std_weight(w, name, c, o, dev):
+    """An H8 bf16 weight operand: a [3, 3, C, O] bf16 view whose rows of O
+    are contiguous and whose taps are evenly spaced (the HWIO weight, or a
+    half of the dual's concat weight)."""
+    if w.device != dev or w.dtype != torch.bfloat16 or \
+            tuple(w.shape) != (3, 3, c, o):
+        raise ValueError(f"{name}: {tuple(w.shape)} {w.dtype} on "
+                         f"{w.device}, expected (3, 3, {c}, {o}) bf16 on "
+                         f"{dev}")
+    if w.stride(3) != 1 or w.stride(2) != o or w.stride(0) != 3 * w.stride(1):
+        raise ValueError(f"{name}: strides {w.stride()} are not a view of "
+                         f"an HWIO weight")
+
+
+def _std_shape_ok(name, x, o):
+    _, h, w, c = x.shape
+    if c % 8 or o % 128 or h < 3 or w < 3:
+        raise ValueError(f"{name}: bad input shape {tuple(x.shape)} (C % 8 "
+                         f"== 0) for O = {o} (O % 128 == 0)")
+
+
+def std_conv3x3(x, w, b):
+    """H8 bf16: x [N,H,W,C] bf16, w [3,3,C,O] bf16 (a view whose rows are
+    contiguous), b [O] f32 → relu(conv(x, w) + b) [N,H-2,W-2,O] bf16,
+    rounded once."""
+    if _on_cpu(x):
+        return std_conv3x3_plain(x, w, b)
+    n, h, wd, c = x.shape
+    o = w.shape[-1]
+    dev = x.device
+    _std_shape_ok("std_conv3x3", x, o)
+    _require(x, "x", torch.bfloat16, x.shape, dev)
+    _std_weight(w, "w", c, o, dev)
+    _require(b, "b", torch.float32, (o,), dev)
+    aligned("std_conv3x3", x, w, b)
+    plan = std_bf16_plan(n, h - 2, wd - 2, o)
+    y = torch.empty((n, h - 2, wd - 2, o), dtype=torch.bfloat16, device=dev)
+    with torch.cuda.device(dev):
+        err = _build.library().seg_std_conv3x3(
+            _ptr(x), _ptr(w), _ptr(b), _ptr(y), n, h, wd, c, o, w.stride(1),
+            w.stride(0), plan.th, plan.tw, _stream(x),
+        )
+    _build.check(err, "std_conv3x3")
+    launches["std_conv3x3"] += 1
+    return y
+
+
+def std_conv3x3_dual(skip, up, wa, wb, b, *, offset: Tuple[int, int]):
+    """H8 bf16 dual: skip [N,hs,ws,C], up [N,H,W,C] bf16 → relu(conv(crop(
+    skip), wa) + conv(up, wb) + b) [N,H-2,W-2,O] bf16, the skip read at the
+    crop origin ``offset`` (no copy); wa, wb [3,3,C,O] the skip's and up's
+    halves of the concat weight (views, equal strides); b [O] f32."""
+    if _on_cpu(up):
+        return std_conv3x3_dual_plain(skip, up, wa, wb, b, offset=offset)
+    n, h, wd, c = up.shape
+    _, hs, ws, _ = skip.shape
+    o = wa.shape[-1]
+    oh, ow = (int(v) for v in offset)
+    dev = up.device
+    _std_shape_ok("std_conv3x3_dual", up, o)
+    if oh < 0 or ow < 0 or oh + h > hs or ow + wd > ws:
+        raise ValueError(f"std_conv3x3_dual: crop {offset} of "
+                         f"{tuple(skip.shape)} does not cover "
+                         f"{tuple(up.shape)}")
+    _require(up, "up", torch.bfloat16, up.shape, dev)
+    _require(skip, "skip", torch.bfloat16, (n, hs, ws, c), dev)
+    _std_weight(wa, "wa", c, o, dev)
+    _std_weight(wb, "wb", c, o, dev)
+    if wa.stride() != wb.stride():
+        raise ValueError(f"std_conv3x3_dual: wa strides {wa.stride()} != "
+                         f"wb strides {wb.stride()}")
+    _require(b, "b", torch.float32, (o,), dev)
+    aligned("std_conv3x3_dual", skip, up, wa, wb, b)
+    plan = std_bf16_plan(n, h - 2, wd - 2, o)
+    y = torch.empty((n, h - 2, wd - 2, o), dtype=torch.bfloat16, device=dev)
+    with torch.cuda.device(dev):
+        err = _build.library().seg_std_conv3x3_dual(
+            _ptr(skip), _ptr(up), _ptr(wa), _ptr(wb), _ptr(b), _ptr(y), n,
+            hs, ws, h, wd, c, o, oh, ow, wa.stride(1), wa.stride(0), plan.th,
+            plan.tw, _stream(up),
+        )
+    _build.check(err, "std_conv3x3_dual")
+    launches["std_conv3x3_dual"] += 1
+    return y
+
+
 class Ops(NamedTuple):
-    """The packed-site ops a model runs through: the four forward ops, and
-    what training runs besides: the input grads of the 2×2 sites (H6,
-    conv_bwd.py) and the glue of every site's backward (train_glue.py)."""
+    """The ops a model runs through: the four packed-site forward ops, H8's
+    bf16 std-level convs (serving only), and what training runs besides:
+    the input grads of the 2×2 sites (H6, conv_bwd.py) and the glue of
+    every site's backward (train_glue.py)."""
 
     packed_conv2x2: Callable
     packed_conv2x2_dual: Callable
@@ -345,12 +485,15 @@ class Ops(NamedTuple):
     packed_conv2x2_dgrad: Callable
     packed_conv2x2_dgrad_dual: Callable
     relu_bias_grad: Callable
+    std_conv3x3: Callable
+    std_conv3x3_dual: Callable
 
 
 KERNEL_OPS = Ops(packed_conv2x2, packed_conv2x2_dual, strided_conv4x4s2,
                  rows_matmul, packed_conv2x2_dgrad, packed_conv2x2_dgrad_dual,
-                 relu_bias_grad)
+                 relu_bias_grad, std_conv3x3, std_conv3x3_dual)
 PLAIN_OPS = Ops(packed_conv2x2_plain, packed_conv2x2_dual_plain,
                 strided_conv4x4s2_plain, rows_matmul_plain,
                 packed_conv2x2_dgrad_plain, packed_conv2x2_dgrad_dual_plain,
-                relu_bias_grad_plain)
+                relu_bias_grad_plain, std_conv3x3_plain,
+                std_conv3x3_dual_plain)

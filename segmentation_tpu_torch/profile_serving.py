@@ -43,8 +43,9 @@ import math
 from typing import Dict, Iterable, List, Tuple
 
 # hand kernels by the name of their __global__ function (csrc/*.cu; the
-# train step's glue of train_glue.cu as its own groups); the dual's and the
-# dgrad's names hold the plain conv's, so they are matched first
+# train step's glue of train_glue.cu as its own groups; H8's bf16 and s8
+# modes apart); the dual's and the dgrad's names hold the plain conv's, so
+# they are matched first
 HAND = (("entry_chain", "H5 entry_chain"),
         ("packed_conv2x2_dgrad", "H6 packed_conv2x2_dgrad"),
         ("packed_conv2x2_dual", "H2 packed_conv2x2_dual"),
@@ -52,6 +53,8 @@ HAND = (("entry_chain", "H5 entry_chain"),
         ("strided_conv4x4s2", "H3 strided_conv4x4s2"),
         ("rows_matmul", "H4 rows_matmul"),
         ("crop_normalize", "H7 crop_normalize"),
+        ("std_conv3x3_bf16", "H8 std_conv3x3 bf16"),
+        ("std_conv3x3_dual_bf16", "H8 std_conv3x3 bf16"),
         ("std_conv3x3", "H8 std_conv3x3_s8"),
         ("relu_bias_grad", "glue relu_bias_grad"),
         ("bias_reduce", "glue relu_bias_grad"),

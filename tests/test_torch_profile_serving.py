@@ -36,6 +36,10 @@ from segmentation_tpu_torch import profile_serving as ps
      "segk::StdTiles<128, false, false, true>)", "H8 std_conv3x3_s8"),
     ("void segk::std_conv3x3_dual_s8_kernel<256, true, false, false>("
      "segk::StdTiles<256, true, false, false>)", "H8 std_conv3x3_s8"),
+    ("void segk::std_conv3x3_bf16_kernel<256, false>("
+     "segk::StdBf16Tiles<256, false>)", "H8 std_conv3x3 bf16"),
+    ("void segk::std_conv3x3_dual_bf16_kernel<128, true>("
+     "segk::StdBf16Tiles<128, true>)", "H8 std_conv3x3 bf16"),
     ("void segk::(anonymous namespace)::crop_normalize_kernel<"
      "__nv_bfloat16>(unsigned char const*, ...)", "H7 crop_normalize"),
     ("cutlass_80_wmma_tensorop_i161616gemm_s8_32x32_128x1_tn_align16",

@@ -38,6 +38,7 @@ from segmentation_tpu.models import unet_int8 as jq
 from segmentation_tpu.nn.pallas import conv_flat as jcf
 from segmentation_tpu_torch.models import unet_int8 as tq
 from segmentation_tpu_torch.models.unet_int8 import _affine
+from segmentation_tpu_torch.nn.kernels import conv_flat as cf
 from segmentation_tpu_torch.nn.kernels import conv_int8 as ci
 
 KC = 128
@@ -311,17 +312,26 @@ def test_emulated_std_dual_matches_plain(np_rng, c, o, offset, sides,
 
 # ------------------------------------------------------------ tile plans
 @pytest.mark.parametrize("o,dual", [(128, False), (256, False),
-                                    (512, False), (128, True), (256, True)])
+                                    (512, False), (128, True), (256, True),
+                                    (128, "bf16"), (256, "bf16"),
+                                    (512, "bf16")])
 @pytest.mark.parametrize("shape", [(8, 123, 123), (8, 121, 121), (8, 58, 58),
                                    (8, 56, 56), (8, 26, 26), (8, 24, 24),
                                    (8, 44, 44), (8, 84, 84), (8, 46, 46),
-                                   (8, 86, 86), (3, 1, 298), (2, 17, 1)])
+                                   (8, 86, 86), (3, 1, 298), (2, 17, 1),
+                                   (64, 121, 121), (64, 24, 24)])
 def test_std_plan_covers_every_output_once(shape, o, dual):
-    """At the int8 request's sites (B = 8) and odd shapes: every output
+    """At the request's sites (B = 8 and 64) and odd shapes: every output
     pixel in exactly one tile, each tile within the kernel's GEMM rows and
-    row width, TMA's 256 a side."""
-    nb, bm, w_max = ci.std_tile(o, dual)
-    plan = ci.std_plan(*shape, o, dual)
+    row width, TMA's 256 a side. ``dual``: H8 s8's single (False) or dual
+    (True) plan, or "bf16", the bf16 mode's (conv_flat.std_bf16_plan; one
+    accumulator, so its dual tiles as its single)."""
+    if dual == "bf16":
+        nb, bm, w_max = cf.std_bf16_tile(o)
+        plan = cf.std_bf16_plan(*shape, o)
+    else:
+        nb, bm, w_max = ci.std_tile(o, dual)
+        plan = ci.std_plan(*shape, o, dual)
     assert plan.th * (plan.tw + 2) <= bm and plan.tw + 2 <= w_max
     assert plan.th + 2 <= 256
     hits = torch.zeros(shape, dtype=torch.int32)
