@@ -8,13 +8,16 @@ weights and inputs drawn on the device from ``--seed``, warms up every
 shape the window uses (set-up, timed as ``setup_s``), drives the window
 for ``--seconds`` (drive.py), then holds a sample of what the window
 produced against the plain reference (check.py). ``--trace 1`` also
-traces a short window after the timed one (devtrace.py) and reports the
-cell's per-layer metrics instead of its end-to-end ones. The last line of
-standard output is the result as one JSON object; the compared numbers
-and their limits are the last lines of standard error.
+traces a short window after the timed one (devtrace.py), then builds a
+served cell's server a second time under a profiler of the host alone for
+the program's set-up spans, and reports the cell's per-layer metrics
+instead of its end-to-end ones. The last line of standard output is the
+result as one JSON object; the compared numbers and their limits are the
+last lines of standard error.
 
 Without a CUDA device, or with fewer than the cell asks for, it exits
-with code 2 and prints no result. ``--rehearse`` runs the same path on
+with code 2 and prints no result; where the process holds JAX or the JAX
+package once the windows have closed, with code 3. ``--rehearse`` runs the same path on
 the CPU at a tiny size on the kernels' plain versions, to check paths,
 arguments and the line's keys; it measures nothing, and every metric
 reads null.
@@ -50,6 +53,9 @@ CALIB_STREAM = 4
 REHEARSAL = {"input_dims": [188, 188], "n_kernels": 8}
 REHEARSAL_MIX = {"batch": 2, "pool": 4, "sample": 2, "reference_block": 2,
                  "rate": 20}
+# top-level modules the measured process may not hold: the JAX reference
+# package and what it runs on
+JAX_MODULES = {"jax", "jaxlib", "flax", "segmentation_tpu"}
 
 
 def _card() -> str:
@@ -105,6 +111,11 @@ def serve(cell, seed, seconds, trace, device, plain):
                                       rec["window"]["sample"],
                                       "gap_ratio" in cell.limits)
     rec["failed"] = check.failed_requests(rec["stats"], cell.limits)
+    if trace:
+        # after the windows: a profiler session, even of the host alone,
+        # slowed B = 8's launches in every window after it in the process
+        rec["trace"]["setup_s_by_span"] = devtrace.setup_spans(
+            lambda: systems.server(cfg, params, calib, plain))
     return rec, check.worst(rec["stats"])
 
 
@@ -214,10 +225,16 @@ def main(argv=None) -> int:
     rec, values = (train if mode == "train" else serve)(
         cell, args.seed, args.seconds, args.trace, device, args.rehearse)
     batch = cell.mix["batch"]
+    rec["cfg"], rec["batch"] = cell.cfg, batch
     rec["least_s"] = work.least_seconds(cell.cfg, mode, batch)
     rec["compute_s"] = work.unit_compute_seconds(cell.cfg, mode, batch)
     correct, line = _line(cell, rec, values, args.trace, device,
                           args.rehearse)
+    loaded = sorted({m.split(".")[0] for m in sys.modules} & JAX_MODULES)
+    if loaded:
+        print(f"run.py: the process holds {', '.join(loaded)}",
+              file=sys.stderr)
+        return 3
     for name, c in line["checks"].items():
         print(f"check {name}: {c['value']!r} (limit {c['limit']!r})",
               file=sys.stderr)

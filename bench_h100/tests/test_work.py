@@ -74,3 +74,91 @@ def test_least_time_bounds_compute_and_bytes(mode, batch):
         nbytes = (work.train_bytes(cfg, batch) if mode == "train"
                   else work.serve_bytes(cfg, batch))
         assert least >= nbytes / work.PEAK_BYTES
+
+
+def _bench():
+    with open(CONFIGS.parents[1] / "BENCHMARK.json") as f:
+        return json.load(f)
+
+
+def _program_sites(cfg, mode):
+    """The site spans the program opens for a cell (PERF.md §3's span
+    table): one per layer, the int8 route's fused level 1, serving's head
+    folded into conv9_2, and the sites that compute no published layer."""
+    names = [l["name"] for l in work.layers(cfg)]
+    sites = [n for n in names if n != "output"]
+    if mode == "train":
+        return sites + ["head", "std_pool", "input", "loss", "pack_weights"]
+    if cfg["route"]["kind"] == "int8":
+        sites = ["conv1_1+conv1_2"] + sites[2:]
+    return [s if s != "conv9_2" else "conv9_2+head" for s in sites] + [
+        "std_pool", "unpack"]
+
+
+def _site_ops(cfg, sites, parts):
+    ops = {}
+    for site in sites:
+        for layer in work.site_layers(cfg, site):
+            for part in parts:
+                ops[layer["precision"]] = (ops.get(layer["precision"], 0.0)
+                                           + work.part_ops(layer, part))
+    return ops
+
+
+@pytest.mark.parametrize("workload", [w["name"]
+                                      for w in _bench()["workloads"]])
+def test_sites_partition_each_cells_work(workload):
+    """Over the sites of a cell's spans, the forward parts sum to
+    forward_ops and, in training, forward + dgrad + wgrad to train_ops."""
+    entry = [w for w in _bench()["workloads"] if w["name"] == workload][0]
+    cfg = _cfg(entry["config"])
+    mode = "train" if entry["traffic"].startswith("train") else "serve"
+    sites = _program_sites(cfg, mode)
+    got = _site_ops(cfg, sites, ["fwd"])
+    assert got == pytest.approx(work.forward_ops(cfg))
+    if mode == "train":
+        assert _site_ops(cfg, sites, work.PARTS) == pytest.approx(
+            work.train_ops(cfg))
+
+
+def test_sites_without_a_layer_name_none():
+    cfg = _cfg("unet512_bf16")
+    for site in ("std_pool", "unpack", "input", "loss", "pack_weights",
+                 "(no site)"):
+        assert work.site_layers(cfg, site) == []
+    assert [l["name"] for l in work.site_layers(cfg, "conv9_2+head")] == [
+        "conv9_2", "output"]
+    assert [l["name"] for l in work.site_layers(cfg, "head")] == ["output"]
+
+
+@pytest.mark.parametrize("part", work.PARTS)
+def test_a_sites_least_time_bounds_compute_and_bytes(part):
+    cfg = _cfg("unet512_int8")
+    for layer in work.layers(cfg):
+        least = work.layer_least_s(layer, part, 64)
+        assert least >= work.part_ops(layer, part) * 64 / work.PEAK_OPS[
+            layer["precision"]]
+        assert least >= work.layer_bytes(layer, part, 64) / work.PEAK_BYTES
+    assert work.layer_least_s(work.layers(cfg)[0], "dgrad", 64) == 0.0
+
+
+def test_a_fused_chain_skips_its_intermediate():
+    """H5's conv1_1+conv1_2 neither writes nor reads conv1_1's output, so
+    the chain's bound lies under the sum of its layers' and over its
+    compute bound."""
+    cfg = _cfg("unet512_int8")
+    c1, c2 = work.site_layers(cfg, "conv1_1+conv1_2")
+    chain = work.site_least_s(cfg, "conv1_1+conv1_2", "fwd", 64)
+    assert chain < (work.layer_least_s(c1, "fwd", 64)
+                    + work.layer_least_s(c2, "fwd", 64))
+    assert chain >= sum(work.layer_ops(l) * 64 / work.PEAK_OPS[
+        l["precision"]] for l in (c1, c2))
+
+
+def test_h8_sites_least_time_at_b64():
+    """The ten std 3x3 conv sites of a bf16 B = 64 request: 1.96 ms, all
+    bound by the bf16 peak."""
+    cfg = _cfg("unet512_bf16")
+    least = sum(work.site_least_s(cfg, s, "fwd", 64)
+                for s in STD_SINGLE + STD_DUAL)
+    assert least * 1e3 == pytest.approx(1.958, abs=0.001)

@@ -14,6 +14,16 @@ Bytes are the function's inputs, weights and outputs, each once: a
 served request reads its bf16 image batch and the weights in their served
 formats and writes the u8 class map; a train step reads the u8 image and
 mask batch and reads and writes the f32 params and both Adam moments.
+
+A site (one ``seg:fwd:<site>`` or ``seg:bwd:<site>/<part>`` span of the
+program) computes the layers ``site_layers`` names; its least time
+(``site_least_s``) is that of its published function at one precision
+per layer: a fused chain reads its first layer's input and writes its last
+layer's output, and an intermediate never counts. A ``dgrad`` part has the
+forward's operations, reads the output gradient and the weight and writes
+the input gradient (the image's first layer has none); a ``wgrad`` part has
+the forward's operations, reads the input and the output gradient and
+writes the weight gradient.
 """
 
 from __future__ import annotations
@@ -23,6 +33,8 @@ from typing import Dict, List
 PEAK_OPS = {"bf16": 989e12, "s8": 1979e12}   # dense tensor-core peaks, /s
 PEAK_BYTES = 3.35e12                          # HBM3, bytes/s
 WEIGHT_BYTES = {"bf16": 2, "s8": 1}
+PARTS = ("fwd", "dgrad", "wgrad")
+TAPS = {"conv3": 9, "conv1": 1, "deconv2": 4}   # weights a (cin, cout) pair
 
 
 def layers(cfg: dict) -> List[dict]:
@@ -35,7 +47,8 @@ def layers(cfg: dict) -> List[dict]:
     out = []
 
     def add(name, kind, cin, cout, hi, wi, ho, wo):
-        out.append({"name": name, "kind": kind, "cin": cin, "cout": cout,
+        out.append({"name": name, "index": len(out), "kind": kind,
+                    "cin": cin, "cout": cout,
                     "in": (hi, wi), "out": (ho, wo),
                     "precision": prec.get(name, prec["default"])})
 
@@ -95,8 +108,7 @@ def weight_count(cfg: dict) -> Dict[str, int]:
     """{precision: weights}, and ``"bias"``: the biases."""
     out: Dict[str, int] = {"bias": 0}
     for layer in layers(cfg):
-        taps = {"conv3": 9, "conv1": 1, "deconv2": 4}[layer["kind"]]
-        n = taps * layer["cin"] * layer["cout"]
+        n = TAPS[layer["kind"]] * layer["cin"] * layer["cout"]
         out[layer["precision"]] = out.get(layer["precision"], 0) + n
         out["bias"] += layer["cout"]
     return out
@@ -138,3 +150,75 @@ def unit_compute_seconds(cfg: dict, mode: str, batch: int) -> float:
     measured against)."""
     per = train_ops(cfg) if mode == "train" else forward_ops(cfg)
     return compute_seconds({p: n * batch for p, n in per.items()})
+
+
+def site_layers(cfg: dict, site: str) -> List[dict]:
+    """The layers that a span's site computes: ``conv1_1+conv1_2`` both
+    convs, ``head`` the 1×1 ``output``; a site that computes no published
+    layer (``std_pool``, ``unpack``, ``input``, ``loss``, ``pack_weights``,
+    ``(no site)``) none."""
+    by_name = {l["name"]: l for l in layers(cfg)}
+    names = ["output" if n == "head" else n for n in site.split("+")]
+    return [by_name[n] for n in names if n in by_name]
+
+
+def part_ops(layer: dict, part: str) -> float:
+    """Operations of one sample of a layer's ``part``: each part has the
+    forward's, but the image's layer has no input gradient."""
+    if part not in PARTS:
+        raise ValueError(f"unknown part {part!r}")
+    return 0.0 if part == "dgrad" and layer["index"] == 0 else layer_ops(
+        layer)
+
+
+def _tensor_bytes(layer: dict, side: str, batch: int) -> float:
+    """A layer's input (``in``) or output (``out``) batch in its precision;
+    the head's output as the u8 class map that serving writes, the least
+    any implementation must."""
+    (h, w), e = layer[side], WEIGHT_BYTES[layer["precision"]]
+    if side == "out" and layer["name"] == "output":
+        return batch * h * w
+    return batch * h * w * layer["cin" if side == "in" else "cout"] * e
+
+
+def _weight_bytes(layer: dict) -> float:
+    e = WEIGHT_BYTES[layer["precision"]]
+    return TAPS[layer["kind"]] * layer["cin"] * layer["cout"] * e
+
+
+def layer_bytes(layer: dict, part: str, batch: int) -> float:
+    """Bytes a layer's ``part`` must move for ``batch`` samples: the
+    forward reads x, the weight and the f32 bias and writes y; the dgrad
+    reads dy and the weight and writes dx; the wgrad reads x and dy and
+    writes dw."""
+    x, y = _tensor_bytes(layer, "in", batch), _tensor_bytes(layer, "out",
+                                                            batch)
+    w = _weight_bytes(layer)
+    if part == "fwd":
+        return x + w + 4 * layer["cout"] + y
+    if part == "dgrad":
+        return 0.0 if layer["index"] == 0 else y + w + x
+    if part == "wgrad":
+        return x + y + w
+    raise ValueError(f"unknown part {part!r}")
+
+
+def layer_least_s(layer: dict, part: str, batch: int) -> float:
+    """max(operations ÷ the precision's peak, bytes ÷ HBM's) of a layer's
+    ``part`` for ``batch`` samples."""
+    ops = part_ops(layer, part) * batch / PEAK_OPS[layer["precision"]]
+    return max(ops, layer_bytes(layer, part, batch) / PEAK_BYTES)
+
+
+def site_least_s(cfg: dict, site: str, part: str, batch: int) -> float:
+    """The least time of a site's ``part`` for ``batch`` samples. A fused
+    forward chain is one function: its operations at each layer's peak,
+    and its first input, every weight and bias and its last output once."""
+    chain = site_layers(cfg, site)
+    if part != "fwd" or len(chain) < 2:
+        return sum(layer_least_s(l, part, batch) for l in chain)
+    ops = sum(layer_ops(l) * batch / PEAK_OPS[l["precision"]] for l in chain)
+    nbytes = (_tensor_bytes(chain[0], "in", batch)
+              + _tensor_bytes(chain[-1], "out", batch)
+              + sum(_weight_bytes(l) + 4 * l["cout"] for l in chain))
+    return max(ops, nbytes / PEAK_BYTES)
