@@ -62,6 +62,18 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                duals' skip gradients, bit for bit; H1's train pool-index mode
                (phase 3's sites) holds its pool and index bit for bit
                against pool_select of its own y;
+  3d.        — n_kernels 64 (the paper's widths): level 2's 4O = 512
+               modes (H1 plain, pool and pool index, H2 with the skip's
+               per-slot boxes, H3 boxed, H4's identity, H6 single and dual
+               at 4C = 512) and the glue at 512 channels, at their 512²
+               sites, checked and timed as in 3 and 3c (N = 2 and B = 8),
+               each mode's sums on their own lines; then B = 16 train steps
+               and B = 8 requests of the n64 model, the launch counts reset
+               before the counted ones: every mode of each path must launch,
+               the train path must run no plain code, a mask may differ from
+               the plain versions' only within the bf16 margin; the modes'
+               JSON line
+               ("kernels_n64") follows the kernels' line;
   4. slice   — 4 requests of B = 8 through serving.entry (apply_argmax),
                whose launches alone are counted, then one apply (logits);
                every kernel must have launched in the requests (H8 bf16:
@@ -132,6 +144,7 @@ import time
 import zlib
 
 B_PARITY, B_SERVE, HW = 2, 8, 512
+B_N64 = 16  # phase 3d's n_kernels 64 train steps
 ACT_SCALE = 1 / 16.0  # the inline-quantize sites' act_scale (inverse 16)
 # bf16 outputs: the kernel and the plain version round the same f32 sum
 # (in another order, and the plain one sometimes twice) to 8 mantissa bits
@@ -364,8 +377,9 @@ def _sites(n, gen):
     ]
 
 
-def _dgrad_sites(n, gen):
-    """H6's six sites in one 512² train step (n_kernels = 32), as the step
+def _dgrad_sites(n, gen, o4=256):
+    """H6's six sites in one 512² train step (n_kernels = 32; level 2's 4C
+    and 4O are ``o4``), as the step
     calls it: a ReLU-masked bf16 cotangent g [n, hg, wg, 4O] (zero on about
     half the elements), the window of its zero-margined buffer [n, hg+1,
     wg+1, 4O] (train_glue.relu_bias_grad's), and the sites' bf16 packed
@@ -390,11 +404,11 @@ def _dgrad_sites(n, gen):
     single, dual = "packed_conv2x2_dgrad", "packed_conv2x2_dgrad_dual"
     return [
         (single, "conv1_2", (cot(n, 254, 254, 128), w(128, 128)), {}),
-        (single, "conv2_2", (cot(n, 125, 125, 256), w(256, 256)), {}),
+        (single, "conv2_2", (cot(n, 125, 125, o4), w(o4, o4)), {}),
         (dual, "conv8_1 into the skip's crop (41,41)",
-         (cot(n, 83, 83, 256), w(256, 256), w(256, 256)),
-         {"skip_shape": (n, 125, 125, 256), "offset": (41, 41)}),
-        (single, "conv8_2", (cot(n, 82, 82, 256), w(256, 256)), {}),
+         (cot(n, 83, 83, o4), w(o4, o4), w(o4, o4)),
+         {"skip_shape": (n, 125, 125, o4), "offset": (41, 41)}),
+        (single, "conv8_2", (cot(n, 82, 82, o4), w(o4, o4)), {}),
         (dual, "conv9_1 into the skip's crop (90,90)",
          (cot(n, 163, 163, 128), w(128, 128), w(128, 128)),
          {"skip_shape": (n, 254, 254, 128), "offset": (90, 90)}),
@@ -402,9 +416,9 @@ def _dgrad_sites(n, gen):
     ]
 
 
-def _glue_sites(n, gen):
+def _glue_sites(n, gen, o4=256):
     """The glue kernels at the ten packed sites of one 512² train step
-    (n_kernels = 32): relu_bias_grad on a cotangent g and a post-ReLU
+    (n_kernels = 32; level 2's 4O is ``o4``): relu_bias_grad on a cotangent g and a post-ReLU
     output y (zero on about half the elements) of each site's shape, in
     the site's mode (the level sites with the pool's gradient and index,
     the 2×2 sites into the zero-margined buffer); crop_margin_zero on the
@@ -431,20 +445,73 @@ def _glue_sites(n, gen):
         (rbg, "conv1_1", gy(n, 255, 255, 128), {}),
         (rbgp, "conv1_2", gy(n, 254, 254, 128),
          {"pool": pool(n, 254, 254, 128), **pad}),
-        (rbg, "conv2_1", gy(n, 126, 126, 256), {}),
-        (rbgp, "conv2_2", gy(n, 125, 125, 256),
-         {"pool": pool(n, 125, 125, 256), **pad}),
-        (rbg, "upconv3", gy(n, 84, 84, 256), {}),
-        (rbg, "conv8_1", gy(n, 83, 83, 256), pad),
-        (rbg, "conv8_2", gy(n, 82, 82, 256), pad),
+        (rbg, "conv2_1", gy(n, 126, 126, o4), {}),
+        (rbgp, "conv2_2", gy(n, 125, 125, o4),
+         {"pool": pool(n, 125, 125, o4), **pad}),
+        (rbg, "upconv3", gy(n, 84, 84, o4), {}),
+        (rbg, "conv8_1", gy(n, 83, 83, o4), pad),
+        (rbg, "conv8_2", gy(n, 82, 82, o4), pad),
         (rbg, "upconv4", gy(n, 164, 164, 128), {}),
         (rbg, "conv9_1", gy(n, 163, 163, 128), pad),
         (rbg, "conv9_2", gy(n, 162, 162, 128), pad),
         ("crop_margin_zero", "conv8_1's skip (41,41)",
-         (bf(n, 125, 125, 256), 84, 84, (41, 41)), {}),
+         (bf(n, 125, 125, o4), 84, 84, (41, 41)), {}),
         ("crop_margin_zero", "conv9_1's skip (90,90)",
          (bf(n, 254, 254, 128), 164, 164, (90, 90)), {}),
     ]
+
+
+def _sites_n64(n, gen):
+    """Level 2's 4O = 512 sites of one 512² forward at n_kernels = 64 (the
+    paper's widths; two column tiles of 256 a pixel tile): H3 boxed
+    (conv2_1), H1 with the pool and the train pool index (conv2_2) and
+    plain (conv8_2), H4's identity (upconv3), H2 with the skip's per-slot
+    boxes at the odd phase (conv8_1)."""
+    import torch
+
+    dev = gen.device
+
+    def act(*shape):
+        return torch.rand(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def bias(o4):
+        return torch.randn((o4,), generator=gen, device=dev) * 0.1
+
+    return [
+        ("strided_conv4x4s2", "conv2_1 C=64", (act(n, 254, 254, 64),
+                                               _wgt(gen, 4, 4, 64, 512),
+                                               bias(512)), {}),
+        ("packed_conv2x2", "conv2_2 +pool", (act(n, 126, 126, 512),
+                                             _wgt(gen, 2, 2, 512, 512),
+                                             bias(512)), {"pool": True}),
+        ("packed_conv2x2_pool_index", "conv2_2 train pool index",
+         (act(n, 126, 126, 512), _wgt(gen, 2, 2, 512, 512), bias(512)),
+         {"pool_index": True}),
+        ("rows_matmul", "upconv3 identity", (act(n, 84, 84, 256),
+                                             _wgt(gen, 256, 512), bias(512)),
+         {"scatter": False}),
+        ("packed_conv2x2_dual", "conv8_1 odd phase (41,41)",
+         (act(n, 125, 125, 512), act(n, 84, 84, 512),
+          _wgt(gen, 2, 2, 512, 512), _wgt(gen, 2, 2, 512, 512), bias(512)),
+         {"offset": (41, 41)}),
+        ("packed_conv2x2", "conv8_2", (act(n, 83, 83, 512),
+                                       _wgt(gen, 2, 2, 512, 512), bias(512)),
+         {}),
+    ]
+
+
+def _dgrad_sites_n64(n, gen):
+    """H6's three 4C = 512 sites of a 512² train step at n_kernels = 64, as
+    _dgrad_sites makes them (conv8_1 into the skip's crop (41, 41))."""
+    sites = _dgrad_sites(n, gen, o4=512)
+    return [sites[i] for i in (1, 2, 3)]  # conv2_2, conv8_1, conv8_2
+
+
+def _glue_sites_n64(n, gen):
+    """The glue at level 2's six sites of a 512² train step at n_kernels =
+    64 (512 channels), as _glue_sites makes them."""
+    sites = _glue_sites(n, gen, o4=512)
+    return [sites[i] for i in (2, 3, 4, 5, 6, 10)]
 
 
 def _sites8(n, gen):
@@ -1559,6 +1626,96 @@ def _train_phase(cf, cb, tg):
     return launches, (k_ms, k_peak, p_ms, p_peak, dev_ms / wall)
 
 
+def _n64_path_phase(cf, cb, tg):
+    """Phase 3d's launches on the main path at n_kernels = 64: B_N64 train
+    steps (one untimed, then the launch counts reset, then two, with the
+    glue census of phase 6) and B_SERVE requests (one untimed, then the
+    counts reset, then two, masks against the plain versions'); every
+    kernel mode of each path must launch and the kernel path run no plain
+    code. Returns {path: launches}."""
+    import dataclasses
+
+    import torch
+
+    from segmentation_tpu_torch.core.config import TrainConfig
+    from segmentation_tpu_torch.core.rng import generator
+    from segmentation_tpu_torch.data.synthetic import SyntheticSegmentation
+    from segmentation_tpu_torch.models.unet_fast import (
+        UNetS2D,
+        UNetS2DInference,
+    )
+    from segmentation_tpu_torch.serving import Server, flagship_config
+    from segmentation_tpu_torch.training.trainer import SegmentationTrainer
+
+    cfg = dataclasses.replace(flagship_config(), n_kernels=64)
+    census = _glue_census()
+
+    def reset():
+        cf.reset_launches()
+        cb.reset_launches()
+        tg.reset_launches()
+        census.reset()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = SegmentationTrainer(
+            UNetS2D(cfg, seed=0, ops=cf.KERNEL_OPS), device="cuda",
+            train_cfg=TrainConfig(save_dir=tmp))
+        batch = trainer._place(SyntheticSegmentation(B_N64, cfg.hw,
+                                                     seed=2).get_batch())
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        with census:
+            reset()
+            losses = [trainer.train_step(batch)["seg_loss"]
+                      for _ in range(2)]
+        train = {**cf.launches, **cb.launches, **tg.launches}
+        params = trainer.model.param_dict()
+        del trainer, batch
+    missing = [k for k, v in train.items() if (v == 0) != (k in cf.SERVE_ONLY)]
+    crops = census.counts.pop(WGRAD_CROP)
+    print(f"[n64] train B={B_N64}: 2 steps, loss {losses}, launches {train}; "
+          f"plain code {census.counts}, wgrad crops {crops}")
+    if missing or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"n64 train kernels never launched, or "
+                             f"serving's launched: {missing}; {losses}")
+    if any(census.counts.values()) or crops != train["packed_conv2x2_dual"]:
+        raise AssertionError(f"the n64 kernel path ran {census.counts}")
+    torch.cuda.empty_cache()
+
+    model = UNetS2DInference(cfg)
+    server = Server(model, params, model.prepare(params, dtype=torch.bfloat16,
+                                                 device="cuda"))
+    gen = generator(64, "cuda")
+    reqs = [torch.rand((B_SERVE, HW, HW, 3), generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in range(3)]
+    server(reqs[0])
+    torch.cuda.synchronize()
+    reset()
+    masks = [server(x) for x in reqs[1:]]
+    serve = dict(cf.launches)
+    # the masks against the plain versions': a pixel may flip only where
+    # the plain logits' margin lies within the bf16 tolerance (REL_TOL *
+    # max |logits|); three steps from the init leave the loss at ln 2, the
+    # two logits near a tie, so the share bound is the head site's
+    plain = Server(UNetS2DInference(cfg, ops=cf.PLAIN_OPS), server.params,
+                   server.prepared)
+    agree, wide = 1.0, 0
+    for x, m in zip(reqs[1:], masks):
+        logits = plain.logits(x).float()
+        margin = (logits[..., 1] - logits[..., 0]).abs()
+        diff = plain(x) != m
+        agree = min(agree, 1.0 - diff.float().mean().item())
+        wide += int((margin[diff] > REL_TOL * logits.abs().max()).sum())
+    print(f"[n64] serve B={B_SERVE}: 2 requests, launches {serve}; masks vs "
+          f"plain-version forward min agreement {agree:.6f} "
+          f"(>= {SITE_MASK_AGREE}), flips beyond the bf16 margin {wide}")
+    missing = [k for k, v in serve.items() if v == 0 and k not in cf.TRAIN_ONLY]
+    if missing or agree < SITE_MASK_AGREE or wide:
+        raise AssertionError(f"n64 serving: never launched {missing}, "
+                             f"agreement {agree}, {wide} wide flips")
+    return {"train_n64": train, "serve_n64": serve}
+
+
 # ------------------------------------------------------------- 7. data path
 def _data_tiles(n):
     """n seeded TILE² staging tiles, SyntheticSegmentation's discs as bytes:
@@ -2055,6 +2212,23 @@ def main() -> None:
               f"bound {bound[k]:.4f} ms ({bound[k] / ms[k]:.3f} of it "
               f"reached), packed GEMM {gemm} "
               f"({_peak_words(packed[k], ms[k])})")
+    # ---- 3d. n_kernels 64: level 2's 4O = 512 modes --------------------
+    torch.cuda.empty_cache()
+    tables64 = _kernel_phase(cf, _sites_n64)
+    for mod, sites in ((cb, _dgrad_sites_n64), (tg, _glue_sites_n64)):
+        for table, part in zip(tables64, _kernel_phase(mod, sites)):
+            table.update(part)
+    for k in SM90:
+        if tables64[1].get(k):
+            _, ms64, plain64, bound64, _, lib64, packed64 = tables64
+            lib = "none" if lib64[k] is None else f"{lib64[k]:.4f} ms"
+            print(f"[kernels] n64 {k} B={B_SERVE} over its 4O = 512 sites: "
+                  f"{ms64[k]:.4f} ms, plain {plain64[k]:.4f} ms, library "
+                  f"{lib}, bound {bound64[k]:.4f} ms ({bound64[k] / ms64[k]:.3f}"
+                  f" of it reached), "
+                  f"{_peak_words(packed64[k], ms64[k])}")
+    by_path64 = _n64_path_phase(cf, cb, tg)
+    torch.cuda.empty_cache()
     std_bf16 = _std_bf16_phase(cf)
     torch.cuda.empty_cache()
     exact = _entry_modes_agree(B_SERVE, generator(99, "cuda"))
@@ -2237,6 +2411,16 @@ def main() -> None:
             "bound_ms": bound[k], "bound_by": bound_by[k],
             "library_ms": library_ms[k], "launches_by_path": paths})
     print(json.dumps({"kernels": kernels}))
+    # n_kernels 64's 4O = 512 modes: the sites of phase 3d, the launches of
+    # its own train steps and requests
+    worst64, ms64, plain64, bound64, by64, lib64, _ = tables64
+    print(json.dumps({"kernels_n64": [
+        {"name": k, "launches_by_path": {tag: c[k] for tag, c in
+                                         by_path64.items() if k in c},
+         "max_abs_err": worst64[k], "ms": ms64[k], "plain_ms": plain64[k],
+         "bound_ms": bound64[k], "bound_by": by64[k],
+         "library_ms": lib64[k]}
+        for k in cf.NAMES + cb.NAMES + tg.NAMES if ms64[k]]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -9,6 +9,8 @@
 //         gathered by the producer warpgroup's idle warps and quantized as
 //         they store it (act_inv, the inline-quantize mode: the Pallas
 //         multiply rule, once per K block).
+// 4O = 128, 256 and, bf16 without the head, 512 (n_kernels 64's level 2:
+// two column tiles a pixel tile, packed_conv2x2_fwd.cuh).
 // Options: the fused 2x2/2 max pool (slot-max, [N, hp-1, wp-1, O], in the
 // output's type), with the pool's int8 index for training (bf16: the first
 // slot that attains the max, pool4_select's rule, so that its backward
@@ -96,8 +98,8 @@ int conv2x2_s8_modes(const Conv2x2S8& a, bool requant) {
 // o4]); bias [o4] f32; y [n, hp-1, wp-1, o4] bf16 or null; pool [.., o4/4]
 // bf16 or null; idx [.., o4/4] int8 (with pool and without the head) or
 // null; wd [o4, 4] bf16, bd [4] f32 and mask [.., 4] u8, or all null; (th,
-// tw) the output tile from tiles.tile_plan (th (tw + 1) GEMM rows). Every
-// pointer 16-byte aligned.
+// tw) the output tile from tiles.tile_plan (th (tw + 1) GEMM rows); o4 =
+// 128 or 256, or 512 without the head. Every pointer 16-byte aligned.
 extern "C" int seg_packed_conv2x2(const void* x, const void* w,
                                   const void* bias, void* y, void* pool,
                                   void* idx, const void* wd, const void* bd,
@@ -131,6 +133,10 @@ extern "C" int seg_packed_conv2x2(const void* x, const void* w,
       FwdTiles<256, false, kPool | kPoolIdx> p{};
       return run(p);
     }
+    if (o4 == 512) {
+      FwdTiles<512, false, kPool | kPoolIdx> p{};
+      return run(p);
+    }
     return (int)cudaErrorInvalidValue;
   }
   if (o4 == 128) {
@@ -147,6 +153,13 @@ extern "C" int seg_packed_conv2x2(const void* x, const void* w,
       case kPool: { FwdTiles<256, false, kPool> p{}; return run(p); }
       case kHead: { FwdTiles<256, false, kHead> p{}; return run(p); }
       default: { FwdTiles<256, false, kPool | kHead> p{}; return run(p); }
+    }
+  }
+  if (o4 == 512) {
+    switch (epi) {
+      case 0: { FwdTiles<512, false, 0> p{}; return run(p); }
+      case kPool: { FwdTiles<512, false, kPool> p{}; return run(p); }
+      default: return (int)cudaErrorInvalidValue;  // no head at 4O = 512
     }
   }
   return (int)cudaErrorInvalidValue;

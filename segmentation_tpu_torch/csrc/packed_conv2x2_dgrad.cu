@@ -46,7 +46,14 @@
 //    128 rows, two m64n128); 4C = 256: BM = 128 (each consumer 64 rows,
 //    m64n256); dual 4C = 128: BM = 128 over NB = 256 columns [wa | wb];
 //    dual 4C = 256: BM = 64, one consumer per half (m64n256 each) from the
-//    same A slots, so g is read once for both.
+//    same A slots, so g is read once for both. 4C = 512 (n_kernels 64's
+//    level 2): more than one wgmma's 256 columns a side, so each pixel tile
+//    is CT = 2 column tiles of CW = 256 channels of dx (dxa and dxb alike),
+//    each taken as the 4C = 256 tiles are (single: BM = 128; dual: BM =
+//    64, a consumer a side); B is a [256, 64] box of the weight's rows a
+//    side. The epilogue stores plain values, so a column tile is a plain
+//    run of channels; a pixel tile's column tiles are consecutive tiles of
+//    the walk, so its halo box of g is read from L2 the second time.
 //  - The epilogue rounds to bf16 (__float2bfloat16, nearest even), moves
 //    each warp's fragment through stmatrix and stores 4 rows x 128
 //    contiguous bytes per instruction, skipping junk rows and rows outside
@@ -64,7 +71,10 @@ using sm90::bf16;
 
 template <int C4, bool DUAL>
 struct DgradTiles {
-  static constexpr int NB = DUAL ? 2 * C4 : C4;
+  // column tiles of a pixel tile, and a side's channels CW in each
+  static constexpr int CT = C4 > 256 ? C4 / 256 : 1;
+  static constexpr int CW = C4 / CT;
+  static constexpr int NB = DUAL ? 2 * CW : CW;
   static constexpr bool SPLIT_N = NB == 512;
   static constexpr int NI = SPLIT_N ? 256 : NB;
   static constexpr int MI = NI == 128 ? 2 : 1;
@@ -101,8 +111,10 @@ struct DgradTiles {
     if (DUAL) sm90::prefetch_map(&wbmap);
   }
   // tile t -> image n and its first pixel (i0, j0): tiles.tile_plan's
-  // map, row-major over [N, tiles_h, tiles_w]
+  // map, row-major over [N, tiles_h, tiles_w], each pixel tile's CT column
+  // tiles in a row
   __device__ void origin(int t, int& n, int& i0, int& j0) const {
+    if constexpr (CT > 1) t /= CT;
     n = t / tiles_hw;
     const int r = t - n * tiles_hw;
     const int ti = r / tiles_w;
@@ -114,11 +126,14 @@ struct DgradTiles {
     origin(t, n, i0, j0);
     sm90::tma_load_4d(a, &gmap, bar, 64 * k, j0 - 1, i0 - 1, n);
   }
+  // tile t's first channel of dx (of each side)
+  __device__ int c0(int t) const { return CT > 1 ? CW * (t % CT) : 0; }
   // the B rows [wa | wb] of (K block, tap), one box per weight
-  __device__ void load_b(int, int k, int tap, uint8_t* b,
+  __device__ void load_b(int t, int k, int tap, uint8_t* b,
                          uint64_t* bar) const {
-    sm90::tma_load_2d(b, &wamap, bar, 64 * k, tap * C4);
-    if (DUAL) sm90::tma_load_2d(b + C4 * 128, &wbmap, bar, 64 * k, tap * C4);
+    const int row = tap * C4 + c0(t);
+    sm90::tma_load_2d(b, &wamap, bar, 64 * k, row);
+    if (DUAL) sm90::tma_load_2d(b + CW * 128, &wbmap, bar, 64 * k, row);
   }
   __device__ void store(int t, int cg, float (&acc)[MI][NI / 2],
                         uint8_t* scratch, uint8_t*) const {
@@ -127,15 +142,17 @@ struct DgradTiles {
     const int w = tw + 1;
     const int m0 = (SPLIT_N ? 0 : cg * 64 * MI) + 16 * ((threadIdx.x >> 5) & 3);
     bf16* const out = SPLIT_N && cg ? dxb : dxa;
+    const int ch0 = c0(t);
     // row `row` of the warp's 16 in m64 group mi is GEMM row m = a w + b
     sm90::store_acc<NI, MI>(acc, scratch,
-                            [&](int mi, int row, int col) -> bf16* {
+                            [&](int mi, int row, int lc) -> bf16* {
       const int m = m0 + 64 * mi + row;
       const int a = m / w, b = m - a * w;
       const int i = i0 + a, j = j0 + b;
       if (a >= th || b >= tw || i >= hx || j >= wx) return nullptr;
       const long long pix = ((long long)n * hx + i) * wx + j;
-      if (DUAL && !SPLIT_N && col >= C4) return dxb + pix * C4 + col - C4;
+      if (DUAL && !SPLIT_N && lc >= CW) return dxb + pix * C4 + ch0 + lc - CW;
+      const int col = ch0 + lc;  // the channel of dx
       if (DUAL && out == dxa) {  // through the crop: 8 channels of one slot
         constexpr int CS = C4 / 4;
         const int s = col / CS, yy = oh + (s >> 1), xx = ow + (s & 1);
@@ -174,7 +191,7 @@ int dgrad(const DgradArgs& a, cudaStream_t stream) {
       (cuuint64_t)o4 * 2 * a.g_cols * a.g_rows};
   const cuuint32_t gbox[4] = {64, (cuuint32_t)tw + 1, (cuuint32_t)th + 1, 1};
   const cuuint64_t wdims[2] = {(cuuint64_t)o4, (cuuint64_t)(4 * C4)};
-  const cuuint32_t wbox[2] = {64, (cuuint32_t)C4};
+  const cuuint32_t wbox[2] = {64, (cuuint32_t)P::CW};
   const void *g = a.g, *wa = a.wa, *wb = a.wb;
   int e = sm90::make_map_strided(&p.gmap, g, 4, gdims, gstrides, gbox);
   if (e == 0) e = sm90::make_map(&p.wamap, wa, 2, wdims, wbox);
@@ -192,7 +209,7 @@ int dgrad(const DgradArgs& a, cudaStream_t stream) {
   p.tw = tw;
   p.tiles_w = (p.wx + tw - 1) / tw;
   p.tiles_hw = p.tiles_w * ((p.hx + th - 1) / th);
-  p.n_tiles = n * p.tiles_hw;
+  p.n_tiles = n * p.tiles_hw * P::CT;
   p.kb = (o4 + 63) / 64;
   return sm90::launch(packed_conv2x2_dgrad_kernel<C4, DUAL>, p, stream);
 }
@@ -204,8 +221,8 @@ int dgrad(const DgradArgs& a, cudaStream_t stream) {
 // dxa (and dxb) [n, hg+1, wg+1, c4] bf16, the dual's dxa in a buffer [n,
 // hpa, wpa, c4] at the unpacked crop offset (oh, ow) (hpa = hg + 1, wpa =
 // wg + 1 and (0, 0) where it is not cropped; the single mode takes only
-// that); (th, tw) the output tile from tiles.tile_plan (th (tw + 1) GEMM
-// rows). Every pointer 16-byte aligned.
+// that); c4 = 128, 256 or 512; (th, tw) the output tile from
+// tiles.tile_plan (th (tw + 1) GEMM rows). Every pointer 16-byte aligned.
 extern "C" int seg_packed_conv2x2_dgrad(const void* g, const void* wa,
                                         const void* wb, void* dxa, void* dxb,
                                         int n, int hg, int wg, int o4, int c4,
@@ -215,8 +232,8 @@ extern "C" int seg_packed_conv2x2_dgrad(const void* g, const void* wa,
   using namespace segk;
   const bool dual = wb != nullptr;
   const bool crop = hpa != hg + 1 || wpa != wg + 1 || oh != 0 || ow != 0;
-  if (o4 < 8 || o4 % 8 || (c4 != 128 && c4 != 256) || n < 1 || hg < 1 ||
-      wg < 1 || th < 1 || tw < 1 || th > 255 || tw > 255 ||
+  if (o4 < 8 || o4 % 8 || (c4 != 128 && c4 != 256 && c4 != 512) || n < 1 ||
+      hg < 1 || wg < 1 || th < 1 || tw < 1 || th > 255 || tw > 255 ||
       dual != (dxb != nullptr) || g_rows < hg || g_cols < wg ||
       (crop && !dual) || oh < 0 || ow < 0 || oh + 2 * (hg + 1) > 2 * hpa ||
       ow + 2 * (wg + 1) > 2 * wpa)
@@ -226,5 +243,7 @@ extern "C" int seg_packed_conv2x2_dgrad(const void* g, const void* wa,
   cudaStream_t s = (cudaStream_t)stream;
   if (c4 == 128)
     return dual ? dgrad<128, true>(a, s) : dgrad<128, false>(a, s);
-  return dual ? dgrad<256, true>(a, s) : dgrad<256, false>(a, s);
+  if (c4 == 256)
+    return dual ? dgrad<256, true>(a, s) : dgrad<256, false>(a, s);
+  return dual ? dgrad<512, true>(a, s) : dgrad<512, false>(a, s);
 }

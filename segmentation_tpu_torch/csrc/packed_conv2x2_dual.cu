@@ -30,7 +30,9 @@
 // int8-resident and inline-quantize (act_scale_a, act_scale_b) modes.
 //
 // Bound on the H100: bytes, as H1's (K = 2 * 4 * 4C against 4O columns,
-// the output the size of one input). The s8 mode keeps both accumulators
+// the output the size of one input). bf16 at 4O = 512 (n_kernels 64's
+// conv8_1, C % 64 == 0 or an even crop): two column tiles a pixel tile
+// (packed_conv2x2_fwd.cuh). The s8 mode keeps both accumulators
 // in registers: m64n128 a side, the tile's rows split between the
 // consumers at 4O = 128, its columns at 4O = 256 (64-row tiles). An inline
 // side reads 2 bytes an element where a resident side reads 1.
@@ -91,7 +93,8 @@ int dual_s8_sides(const DualS8& a) {
 // skip [n, hpa, wpa, c4], up [n, hp, wp, c4] bf16 (c4 % 32 == 0); wa, wb
 // [4*c4, o4] bf16; bias [o4] f32; y [n, hp-1, wp-1, o4] bf16; (oh, ow) the
 // unpacked crop offset, which the skip covers; (th, tw) the output tile
-// from tiles.tile_plan. Every pointer 16-byte aligned.
+// from tiles.tile_plan; o4 = 128 or 256, or 512 where the skip is boxed (C
+// % 64 == 0 or an even offset). Every pointer 16-byte aligned.
 extern "C" int seg_packed_conv2x2_dual(const void* skip, const void* up,
                                        const void* wa, const void* wb,
                                        const void* bias, void* y, int n,
@@ -135,6 +138,10 @@ extern "C" int seg_packed_conv2x2_dual(const void* skip, const void* up,
       return run(p);
     }
     FwdTiles<256, true> p{};
+    return run(p);
+  }
+  if (o4 == 512 && !(odd && !slot)) {
+    FwdTiles<512, true> p{};
     return run(p);
   }
   return (int)cudaErrorInvalidValue;

@@ -61,6 +61,14 @@
 //    (one m64n256 is 128 registers): at 4O = 128 the consumers split each
 //    tile's rows (m64n128 a side), at 4O = 256 each takes all 64 rows of a
 //    tile and half its columns (SPLIT_N, m64n128 a side).
+//  - 4O = 512 (bf16 only; n_kernels 64's level 2): more than one wgmma's
+//    256 columns, so each pixel tile is CT = 2 column tiles of NB = 256,
+//    taken as the 4O = 256 tiles are. Column tile ct holds channels 64 ct
+//    .. 64 ct + 63 of all four slots: four 64-column blocks of the output,
+//    O = 4O / 4 apart (B: one [64, 64] weight box each). So a thread still
+//    holds a channel's four slots, and the pool and its index mean what
+//    they mean at 4O = 256. A pixel tile's column tiles are consecutive
+//    tiles of the walk, so its halo box is read from L2 the second time.
 //  - Epilogue: bf16: f32 bias, ReLU, round to bf16 (nearest even). int8:
 //    the affine in f32 in the reference's order, ReLU, then round half to
 //    even and clip to +-127 (s8) or round to bf16. Then the mask head (a
@@ -115,7 +123,11 @@ struct FwdOut {
   static_assert((EPI & kHead) == 0 || std::is_same_v<OutT, bf16>,
                 "the head reads the bf16 value");
   static_assert((EPI & kPoolIdx) == 0 || (EPI & kPool) != 0, "pool index");
-  static constexpr int NB = O4;
+  // column tiles of a pixel tile, and the columns NB of each (see the top)
+  static constexpr int CT = O4 > 256 ? O4 / 256 : 1;
+  static constexpr int NB = O4 / CT;
+  static_assert(CT == 1 || (!INT8 && (EPI & kHead) == 0),
+                "column tiles: the bf16 modes without the head");
   static constexpr bool SPLIT_N = SIDES == 2 && O4 == 256;
   static constexpr int NI = SPLIT_N ? 128 : NB;
   static constexpr int MI = NI == 128 && SIDES == 1 ? 2 : 1;
@@ -156,13 +168,24 @@ struct FwdOut {
 
   __device__ int tiles() const { return n_tiles; }
   // tile t -> image n and its first output pixel (i0, j0): tiles.tile_plan's
-  // map, row-major over [N, tiles_h, tiles_w]
+  // map, row-major over [N, tiles_h, tiles_w], each pixel tile's CT column
+  // tiles in a row
   __device__ void origin(int t, int& n, int& i0, int& j0) const {
+    if constexpr (CT > 1) t /= CT;
     n = t / tiles_hw;
     const int r = t - n * tiles_hw;
     const int ti = r / tiles_w;
     i0 = ti * th;
     j0 = (r - ti * tiles_w) * tw;
+  }
+
+  // tile t's column tile
+  __device__ static int ctile(int t) { return CT > 1 ? t % CT : 0; }
+  // the output column of column c of column tile ct (c's 64-column block
+  // is slot c / 64)
+  __device__ static int col(int ct, int c) {
+    if constexpr (CT == 1) return c;
+    return (c >> 6) * (O4 / 4) + 64 * ct + (c & 63);
   }
 
   // the flat output pixel of GEMM row m of tile (n, i0, j0), or -1 for a
@@ -265,10 +288,11 @@ struct FwdOut {
     }
     // fragment: acc[mi][4 jn + 2 h + e] is row m0 + 64 mi + lane / 4 + 8 h,
     // column 8 jn + 2 q + e
+    const int ct = ctile(t);
 #pragma unroll
     for (int jn = 0; jn < NI / 8; ++jn) {
       const float2 b2 = __ldg(reinterpret_cast<const float2*>(bias) +
-                              4 * jn + q);
+                              col(ct, 8 * jn) / 2 + q);
 #pragma unroll
       for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
@@ -351,6 +375,7 @@ struct FwdOut {
     const int warp = (threadIdx.x >> 5) & 3;
     const int m0 = (PINGPONG || SPLIT_N ? 0 : cg * 64 * MI) + 16 * warp;
     const int c0 = SPLIT_N ? cg * NI : 0;  // the consumer's first column
+    const int ct = ctile(t);
     const bool issuer = (threadIdx.x & 127) == 0;  // a consumer's thread 0
     // the pool's staging: the consumer's four scratch blocks
     uint8_t* const pstage = scratch - warp * sm90::kScratch;
@@ -420,7 +445,7 @@ struct FwdOut {
                         as_f32(acc[mi][4 * (jn + 3 * JO) + 2 * h + e])));
             OutT* const dst = TMA_STORE
                 ? reinterpret_cast<OutT*>(pstage) + r * O
-                : pool + pix * O;
+                : pool + pix * (O4 / 4) + O * ct;
             if constexpr (std::is_same_v<OutT, s8>)
               *reinterpret_cast<uint16_t*>(dst + 8 * jn + 2 * q) =
                   (uint16_t)sm90::pack_s8x2(v[0], v[1]);
@@ -446,8 +471,9 @@ struct FwdOut {
                 id2 |= id << (8 * e);
               }
               if (pix >= 0)
-                *reinterpret_cast<uint16_t*>(pool_idx + pix * O + 8 * jn +
-                                             2 * q) = (uint16_t)id2;
+                *reinterpret_cast<uint16_t*>(pool_idx + pix * (O4 / 4) +
+                                             O * ct + 8 * jn + 2 * q) =
+                    (uint16_t)id2;
             }
           }
         }
@@ -469,7 +495,7 @@ struct FwdOut {
     } else if (y != nullptr) {
       auto dst = [&](int mi, int row, int col) -> OutT* {
         const long long pix = pixel(n, i0, j0, m0 + 64 * mi + row);
-        return pix < 0 ? nullptr : y + pix * NB + c0 + col;
+        return pix < 0 ? nullptr : y + pix * O4 + this->col(ct, c0 + col);
       };
       if constexpr (std::is_same_v<OutT, s8>)
         sm90::store_acc_s8<NI, MI>(acc, scratch, dst);
@@ -489,7 +515,7 @@ struct FwdOut {
     tw = tw_;
     tiles_w = (wo + tw - 1) / tw;
     tiles_hw = tiles_w * ((ho + th - 1) / th);
-    n_tiles = n * tiles_hw;
+    n_tiles = n * tiles_hw * CT;
     if constexpr (TMA_STORE) {  // y and the pool as [th, tw] boxes
       constexpr CUtensorMapDataType type =
           OUT_BYTES == 1 ? sm90::kMapS8 : sm90::kMapBf16;
@@ -627,9 +653,9 @@ struct FwdTiles : FwdOut<O4, EPI, 1> {
         [&](uint4 lo, uint4 hi) { return quant16(lo, hi, inv); });
   }
   // the B rows of (K block, tap): bf16, 64 rows of w viewed as [4 * 4C,
-  // 4O], one box per 64 columns; s8, the 128 K bytes of every column of
-  // the K-major wk [4O, 4 * 4C]
-  __device__ void load_b(int, int kb, int tap, uint8_t* b,
+  // 4O], one box per 64 columns of the column tile; s8, the 128 K bytes of
+  // every column of the K-major wk [4O, 4 * 4C]
+  __device__ void load_b(int t, int kb, int tap, uint8_t* b,
                          uint64_t* bar) const {
     const bool skip_side = DUAL && kb < kps;
     const CUtensorMap* m = skip_side ? &wsmap : &wmap;
@@ -639,7 +665,8 @@ struct FwdTiles : FwdOut<O4, EPI, 1> {
     } else {
 #pragma unroll
       for (int j = 0; j < NB / 64; ++j)
-        sm90::tma_load_2d(b + j * sm90::kMnBox, m, bar, 64 * j, row);
+        sm90::tma_load_2d(b + j * sm90::kMnBox, m, bar,
+                          Out::col(Out::ctile(t), 64 * j), row);
     }
   }
 };

@@ -49,7 +49,9 @@
 //    are TMA's zeros against A's zero channels.
 //  - Output: FwdOut's. 4O = 128 (upconv4): ping-pong consumers, TMA stores
 //    from a staging tile; 4O = 256 (upconv3): tiles split between the
-//    consumers, register stores.
+//    consumers, register stores; 4O = 512 (upconv3 at n_kernels 64,
+//    identity only): two column tiles of 256 a pixel tile, each a channel
+//    block of the four slots (FwdOut::col).
 //
 // Bound on the H100: K = C = 64..128 against 4O = 128..256 outputs per
 // pixel, so the output store dominates (4O elements per pixel against C
@@ -99,10 +101,12 @@ struct RowsTiles : FwdOut<O4, 0, 0> {
       sm90::tma_load_4d(a, &xmap, bar, 64 * k, j0, i0, n);
     }
   }
-  __device__ void load_b(int, int k, int, uint8_t* b, uint64_t* bar) const {
+  __device__ void load_b(int t, int k, int, uint8_t* b,
+                         uint64_t* bar) const {
 #pragma unroll
     for (int j = 0; j < NB / 64; ++j)
-      sm90::tma_load_2d(b + j * sm90::kMnBox, &wmap, bar, 64 * j, 64 * k);
+      sm90::tma_load_2d(b + j * sm90::kMnBox, &wmap, bar,
+                        Out::col(Out::ctile(t), 64 * j), 64 * k);
   }
 };
 
@@ -281,8 +285,8 @@ int rows_s8_modes(const void* x, const void* wk, const void* mul,
 // x [n, ho, wo, c] (identity) or [n, ho/2, wo/2, 4c] (scatter) bf16,
 // c % 8 == 0; w [c, o4] bf16; bias [o4] f32; y [n, ho, wo, o4] bf16; (th,
 // tw) the output tile from tiles.tile_plan (th tw <= 128 GEMM rows; the
-// scatter: tw even, a multiple of 8 where th > 1). Every pointer 16-byte
-// aligned.
+// scatter: tw even, a multiple of 8 where th > 1); o4 = 128 or 256, 512
+// for the identity. Every pointer 16-byte aligned.
 extern "C" int seg_rows_matmul(const void* x, const void* w,
                                const void* bias, void* y, int n, int ho,
                                int wo, int c, int o4, int scatter, int th,
@@ -300,6 +304,8 @@ extern "C" int seg_rows_matmul(const void* x, const void* w,
     return scatter
                ? run_rows<256, true>(x, w, bias, y, n, ho, wo, c, th, tw, s)
                : run_rows<256, false>(x, w, bias, y, n, ho, wo, c, th, tw, s);
+  if (o4 == 512 && !scatter)
+    return run_rows<512, false>(x, w, bias, y, n, ho, wo, c, th, tw, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -52,7 +52,9 @@
 //    w4.
 //  - Output: FwdOut's. 4O = 128 (conv1_1): ping-pong consumers and TMA
 //    stores from a staging tile; 4O = 256 (conv2_1): tiles split between
-//    the consumers, register stores.
+//    the consumers, register stores; 4O = 512 (conv2_1 at n_kernels 64,
+//    boxed only): two column tiles of 256 a pixel tile, each B row's four
+//    64-column boxes a channel block of the four slots (FwdOut::col).
 //
 // The int8 design (StridedS8Tiles). A K block of s8 is 128 channels, the
 // bf16 row's 128 bytes, but a row parity's 2C = 64 s8 channels (conv2_1)
@@ -163,8 +165,8 @@ struct StridedTiles : FwdOut<O4, EPI, MODE == kBox ? 1 : 0> {
     }
   }
   // the B rows of (K block, tap): 64 rows of w4 viewed as [16C, 4O], one
-  // box per 64 columns
-  __device__ void load_b(int, int kb, int tap, uint8_t* b,
+  // box per 64 columns of the column tile
+  __device__ void load_b(int t, int kb, int tap, uint8_t* b,
                          uint64_t* bar) const {
     int row = 64 * kb;
     if (BOX) {
@@ -174,7 +176,8 @@ struct StridedTiles : FwdOut<O4, EPI, MODE == kBox ? 1 : 0> {
     }
 #pragma unroll
     for (int j = 0; j < NB / 64; ++j)
-      sm90::tma_load_2d(b + j * sm90::kMnBox, &wmap, bar, 64 * j, row);
+      sm90::tma_load_2d(b + j * sm90::kMnBox, &wmap, bar,
+                        Out::col(Out::ctile(t), 64 * j), row);
   }
 };
 
@@ -406,8 +409,8 @@ int strided_s8_modes(const StridedS8Args& a) {
 // x [n, h, w, c] bf16 (h, w >= 4); w [16*c, o4] bf16 (HWIO [4, 4, c, o4]);
 // bias [o4] f32; y [n, (h-2)/2, (w-2)/2, o4] bf16; (th, tw) the output tile
 // from tiles.tile_plan: th (tw + 1) GEMM rows where x is boxed
-// (strided_mode), th tw where it is gathered. w, bias and y 16-byte
-// aligned.
+// (strided_mode), th tw where it is gathered. o4 = 128 or 256; 512 where x
+// is boxed. w, bias and y 16-byte aligned.
 extern "C" int seg_strided_conv4x4s2(const void* x, const void* w,
                                      const void* bias, void* y, int n,
                                      int h, int wdt, int c, int o4, int th,
@@ -422,6 +425,9 @@ extern "C" int seg_strided_conv4x4s2(const void* x, const void* w,
   if (o4 == 256)
     return strided_modes<256, 0>(x, w, bias, nullptr, nullptr, y, n, h, wdt,
                                  c, th, tw, s);
+  if (o4 == 512 && strided_mode(x, h, wdt, c) == kBox)
+    return run_strided<512, kBox, 0>(x, w, bias, nullptr, nullptr, y, n, h,
+                                     wdt, c, th, tw, s);
   return (int)cudaErrorInvalidValue;
 }
 

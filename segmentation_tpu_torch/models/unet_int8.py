@@ -56,6 +56,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from segmentation_tpu_torch.models.unet import unet_param_shapes
 from segmentation_tpu_torch.models.unet_fast import (
     UNetS2DInference,
     pack_conv3_weight,
@@ -280,6 +281,17 @@ class UNetS2DInt8(UNetS2DInference):
 
     # ---- the int8-resident scale graph -----------------------------------
     def __post_init__(self):
+        shapes = dict(unet_param_shapes(self.cfg, self.levels))
+        entry, packed, dual, _ = self._site_names()
+        wide = max(4 * shapes[f"{s}/w"][-1] for s in entry + packed + dual)
+        if wide > max(conv_int8.O4_S8):
+            raise ValueError(
+                f"UNetS2DInt8: n_kernels {self.cfg.n_kernels} puts 4O = "
+                f"{wide} at a packed site; the s8 modes of H1-H4 "
+                f"(packed_conv2x2_s8, packed_conv2x2_dual_s8, "
+                f"strided_conv4x4s2_s8, rows_matmul_s8) take 4O = "
+                f"{' or '.join(map(str, conv_int8.O4_S8))} only: serve this "
+                f"width with UNetS2DInference (bf16)")
         self._out_keys = self._scale_graph()
 
     def _scale_graph(self) -> Dict[str, str]:

@@ -112,8 +112,10 @@ def conv2x2_wgrad_crop(skip, gp, offset):
 def tile_rows(c4: int, dual: bool) -> int:
     """The kernel's tile of output pixels (its wgmma rows) for 4C and the
     mode: 4C = 128 → 256, 4C = 256 → 128, dual 4C = 128 → 128 (over
-    [wa | wb]), dual 4C = 256 → 64 (one consumer per half)."""
-    ncols = c4 * (2 if dual else 1)
+    [wa | wb]), dual 4C = 256 → 64 (one consumer per half); 4C = 512 as
+    4C = 256, in each of a pixel tile's two column tiles of 256 channels
+    a side (``DgradTiles::c0``)."""
+    ncols = min(c4, 256) * (2 if dual else 1)
     return {128: 256, 256: 128, 512: 64}[ncols]
 
 
@@ -135,9 +137,10 @@ def _dgrad(name, g, ws, skip_shape=None, offset=(0, 0)):
     n, hg, wg, o4 = g.shape
     c4 = ws[0].shape[2]
     dev = g.device
-    if c4 not in (128, 256) or o4 % 8 or min(n, hg, wg) < 1:
+    if c4 not in (128, 256, 512) or o4 % 8 or min(n, hg, wg) < 1:
         raise ValueError(f"{name}: g {tuple(g.shape)}, 4C = {c4}; the "
-                         f"kernel takes 4C = 128 or 256 and 4O % 8 == 0")
+                         f"kernel takes 4C = 128 or 256, or 512, and 4O "
+                         f"% 8 == 0")
     if g.device != dev or g.dtype != torch.bfloat16:
         raise TypeError(f"{name}: g must be bf16 on {dev}")
     rows, cols = _pitch(name, g)

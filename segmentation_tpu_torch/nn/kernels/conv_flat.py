@@ -174,14 +174,34 @@ def std_conv3x3_dual_plain(skip, up, wa, wb, b, *, offset):
 
 
 # ------------------------------------------------------------ kernel wrappers
-def _o4_ok(o4, name):
-    if o4 not in (128, 256):
-        raise ValueError(f"{name}: 4O = {o4}; the kernel takes 128 or 256")
+CUDA_ERROR_INVALID_VALUE = 1  # cudaErrorInvalidValue
+
+# 4O of H1–H4's bf16 modes. 512 (n_kernels 64's level 2) is two column
+# tiles of 256 a pixel tile (csrc/packed_conv2x2_fwd.cuh); which modes have
+# it is the dispatchers' rule alone (_check_o4)
+O4_BF16 = (128, 256, 512)
+
+
+def _o4_ok(o4, name, widths=O4_BF16):
+    if o4 not in widths:
+        raise ValueError(f"{name}: 4O = {o4}; the kernel takes "
+                         f"{' or '.join(map(str, widths))}")
+
+
+def _check_o4(err, name, o4):
+    """``_build.check``, with a 4O past 256 that the mode's dispatcher has
+    no instantiation for (it returns cudaErrorInvalidValue before any
+    launch) raised as the ValueError it is."""
+    if err == CUDA_ERROR_INVALID_VALUE and o4 > 256:
+        raise ValueError(f"{name}: this mode has no 4O = {o4} (the "
+                         f"dispatcher's rule: 128 or 256 only)")
+    _build.check(err, name)
 
 
 # H1–H4's output tile, its wgmma rows (FwdOut::BM): at 4O = 128 a consumer
 # warpgroup takes a whole tile (two m64n128; the two take turns), at 4O =
-# 256 each takes 64 of its rows (m64n256)
+# 256 each takes 64 of its rows (m64n256), at 4O = 512 likewise in each of
+# a pixel tile's two column tiles
 FWD_TILE_ROWS = 128
 
 
@@ -280,7 +300,7 @@ def packed_conv2x2(x, w2, b4, *, pool=False, pool_index=False, head=None,
             plan.tw, _stream(x),
         )
     name = "packed_conv2x2_pool_index" if pool_index else "packed_conv2x2"
-    _build.check(err, name)
+    _check_o4(err, name, o4)
     launches[name] += 1
     outs = [t for t in (y, mask, pooled, idx) if t is not None]
     return outs[0] if len(outs) == 1 else tuple(outs)
@@ -320,7 +340,7 @@ def packed_conv2x2_dual(skip, up, w2a, w2b, b4, *, offset: Tuple[int, int]):
             n, hpa, wpa, hp, wp, c4, o4, oh, ow, plan.th, plan.tw,
             _stream(up),
         )
-    _build.check(err, "packed_conv2x2_dual")
+    _check_o4(err, "packed_conv2x2_dual", o4)
     launches["packed_conv2x2_dual"] += 1
     return y
 
@@ -351,7 +371,7 @@ def strided_conv4x4s2(x, w4, b4):
             _ptr(x), _ptr(w4), _ptr(b4), _ptr(y), n, h, w, c, o4, plan.th,
             plan.tw, _stream(x),
         )
-    _build.check(err, "strided_conv4x4s2")
+    _check_o4(err, "strided_conv4x4s2", o4)
     launches["strided_conv4x4s2"] += 1
     return y
 
@@ -381,7 +401,7 @@ def rows_matmul(x, wm, b4, *, scatter=False):
             _ptr(x), _ptr(wm), _ptr(b4), _ptr(y), n, ho, wo, c, o4,
             int(scatter), plan.th, plan.tw, _stream(x),
         )
-    _build.check(err, "rows_matmul")
+    _check_o4(err, "rows_matmul", o4)
     launches["rows_matmul"] += 1
     return y
 

@@ -101,6 +101,9 @@ from segmentation_tpu_torch.nn.kernels.tiles import (
 )
 from segmentation_tpu_torch.nn.packing import crop_packed, unpack2
 
+# 4O of the s8 modes of H1–H4 (no column tiles: 4O = 512 is bf16 only)
+O4_S8 = (128, 256)
+
 # the kernel modes, each with its launch count: resident s8 operands, the
 # pool of H1, the inline-quantize modes, the image entry's modes
 NAMES = ("entry_chain", "packed_conv2x2_s8", "packed_conv2x2_s8_pool",
@@ -403,7 +406,7 @@ def packed_conv2x2_s8(x, wq, mul, add, *, requant=True, pool=False,
     n, hp, wp, c4 = x.shape
     o4 = wq.shape[-1]
     dev = x.device
-    _o4_ok(o4, "packed_conv2x2_s8")
+    _o4_ok(o4, "packed_conv2x2_s8", O4_S8)
     if c4 % 16 or hp < 2 or wp < 2:
         raise ValueError(f"packed_conv2x2_s8: bad input shape "
                          f"{tuple(x.shape)}")
@@ -461,7 +464,7 @@ def packed_conv2x2_dual_s8(skip, up, wqa, wqb, cs_a, cs_b, mul, add, *,
     o4 = wqa.shape[-1]
     oh, ow = (int(v) for v in offset)
     dev = up.device
-    _o4_ok(o4, "packed_conv2x2_dual_s8")
+    _o4_ok(o4, "packed_conv2x2_dual_s8", O4_S8)
     if c4 % 64 or hp < 2 or wp < 2:
         raise ValueError(
             f"packed_conv2x2_dual_s8: bad input shape {tuple(up.shape)}")
@@ -510,7 +513,7 @@ def _strided_s8(x, wq4, mul, add, act_scale, mode, wk4):
     n, h, w, c = x.shape
     o4 = wq4.shape[-1]
     dev = x.device
-    _o4_ok(o4, mode)
+    _o4_ok(o4, mode, O4_S8)
     if h < 4 or w < 4:
         raise ValueError(f"{mode}: input {tuple(x.shape)} < 4x4")
     inv = _operand(x, "x", x.shape, act_scale, dev)
@@ -574,7 +577,7 @@ def conv3entry_requant(x, w4, mul, add):
     n, h, w, c = x.shape
     o4 = w4.shape[-1]
     dev = x.device
-    _o4_ok(o4, "conv3entry_requant")
+    _o4_ok(o4, "conv3entry_requant", O4_S8)
     if c != 3 or h < 4 or w < 4:
         raise ValueError(f"conv3entry_requant: bad input shape "
                          f"{tuple(x.shape)}")
@@ -615,7 +618,7 @@ def rows_matmul_s8(x, wqm, mul, add, *, scatter=False, act_scale=None,
     n, hi, wi, cx = x.shape
     c, o4 = wqm.shape
     dev = x.device
-    _o4_ok(o4, "rows_matmul_s8")
+    _o4_ok(o4, "rows_matmul_s8", O4_S8)
     ho, wo = (2 * hi, 2 * wi) if scatter else (hi, wi)
     if cx != (4 * c if scatter else c) or c % 16:
         raise ValueError(f"rows_matmul_s8: x {tuple(x.shape)} vs wqm "

@@ -12,7 +12,11 @@ its weight rows, the rows inside dx stored) must equal JAX's Pallas dgrads
 (``conv2x2_dgrad_padflat``, ``conv2x2_dgrad_dual_padflat``, interpret
 mode) in f32 at rtol = atol = 1e-4, as tests/test_torch_train_kernels.py
 holds the plain versions. 4O = 72 (a partial K block), which the Pallas
-kernels do not take, is held against the plain version instead.
+kernels do not take, is held against the plain version instead. At 4C =
+512 (n_kernels 64's level 2) each pixel tile is walked as two column tiles
+of 256 channels of dx a side (``DgradTiles::c0``): the walk must store
+every (pixel, channel) once and the emulation takes B's rows a column tile
+at a time.
 """
 
 import jax.numpy as jnp
@@ -31,7 +35,8 @@ from segmentation_tpu.nn.pallas.conv_flat_bwd import (
 )
 from segmentation_tpu_torch.nn.kernels import conv_bwd as cb
 
-MODES = [(128, False), (256, False), (128, True), (256, True)]
+MODES = [(128, False), (256, False), (128, True), (256, True),
+         (512, False), (512, True)]
 # dx [N, hx, wx] at the six 512² sites (B = 8) with each site's mode
 SITES = {"conv1_2": ((8, 255, 255), (128, False)),
          "conv2_2": ((8, 126, 126), (256, False)),
@@ -85,12 +90,43 @@ def test_card_cases_leave_ragged_last_tiles(c4, dual):
     assert (hg + 1) % plan.th and (wg + 1) % plan.tw, plan
 
 
+def _column_tiles(c4):
+    """dx's channels of each column tile of a pixel tile, a side, in the
+    kernel's walk (tile t is column tile t % CT of pixel tile t // CT):
+    every channel at 4C <= 256, runs of 256 at 4C = 512 (DgradTiles::c0)."""
+    cw = min(c4, 256)
+    return [list(range(c0, c0 + cw)) for c0 in range(0, c4, cw)]
+
+
+# dx [N, hx, wx] of level 2's 4C = 512 sites at 512² (N = 1, n_kernels 64)
+# with each site's mode, a ragged one and one pixel
+WIDE = {"conv2_2": ((1, 126, 126), False), "conv8_1": ((1, 84, 84), True),
+        "conv8_2": ((1, 83, 83), False), "ragged": ((3, 19, 44), True),
+        "one pixel": ((2, 1, 1), False)}
+
+
+@pytest.mark.parametrize("site", list(WIDE))
+def test_column_tiles_store_every_output_once(site):
+    (n, hx, wx), dual = WIDE[site]
+    plan = cb.tile_plan(n, hx, wx, cb.tile_rows(512, dual))
+    ctiles = _column_tiles(512)
+    hits = np.zeros((n, hx, wx, 512), np.uint8)
+    for t in range(plan.count * len(ctiles)):
+        b, i0, j0 = plan.origin(t // len(ctiles))
+        hits[b, i0:i0 + plan.th, j0:j0 + plan.tw,
+             ctiles[t % len(ctiles)]] += 1
+    assert (hits == 1).all()
+
+
 def _emulate(g, ws, plan):
-    """The kernel's arithmetic on its own loads: f32, one tile at a time."""
+    """The kernel's arithmetic on its own loads: f32, one pixel tile and
+    column tile at a time (B: the tile's run of each side's rows)."""
     n, hg, wg, o4 = g.shape
     c4 = ws[0].shape[2]
     wcat = torch.cat(list(ws), dim=2)  # B rows [wa | wb]: [2, 2, NB, 4O]
     nb = wcat.shape[2]
+    ctiles = [[side * c4 + c for side in range(len(ws)) for c in cols]
+              for cols in _column_tiles(c4)]
     outs = torch.full((n, plan.hx, plan.wx, nb), float("nan"))
     kb = -(-o4 // 64)
     gk = torch.zeros(n, hg, wg, kb * 64)  # channels past 4O: TMA's zeros
@@ -99,9 +135,10 @@ def _emulate(g, ws, plan):
     wk[..., :o4] = wcat
     th, wrow = plan.th, plan.tw + 1  # GEMM row m = a · wrow + b
     rows = th * wrow
-    for t in range(plan.count):
-        b, i0, j0 = plan.origin(t)
-        acc = torch.zeros(rows, nb)
+    for t in range(plan.count * len(ctiles)):
+        b, i0, j0 = plan.origin(t // len(ctiles))
+        cols = ctiles[t % len(ctiles)]
+        acc = torch.zeros(rows, len(cols))
         for k in range(kb):
             ks = slice(64 * k, 64 * k + 64)
             # the halo box [th + 1, tw + 1] at (i0 - 1, j0 - 1), zero outside
@@ -116,10 +153,10 @@ def _emulate(g, ws, plan):
             for tap in range(4):
                 u, v = tap >> 1, tap & 1
                 shift = (1 - u) * wrow + 1 - v
-                acc += halo[shift:shift + rows] @ wk[u, v, :, ks].T
-        acc = acc.view(th, wrow, nb)[:, :plan.tw]  # the junk column goes
+                acc += halo[shift:shift + rows] @ wk[u, v, cols, ks].T
+        acc = acc.view(th, wrow, -1)[:, :plan.tw]  # the junk column goes
         hi, wi = min(th, plan.hx - i0), min(plan.tw, plan.wx - j0)
-        outs[b, i0:i0 + hi, j0:j0 + wi] = acc[:hi, :wi]
+        outs[b, i0:i0 + hi, j0:j0 + wi][..., cols] = acc[:hi, :wi]
     assert not outs.isnan().any()  # every pixel was stored
     return [outs[..., c4 * s:c4 * (s + 1)] for s in range(len(ws))]
 
@@ -133,7 +170,7 @@ def _operands(rng, n, hx, wx, c4, o4, nw):
 
 # dx shapes whose plans have several tiles per image, ragged ones included
 EMULATED = [(2, 19, 37, 128, 128), (1, 11, 21, 256, 256),
-            (3, 17, 23, 128, 128)]
+            (3, 17, 23, 128, 128), (2, 13, 17, 512, 256)]
 
 
 @pytest.mark.parametrize("n,hx,wx,c4,o4", EMULATED)

@@ -11,15 +11,24 @@ channel, and an odd offset with C % 64 != 0 gathers the block chunk by
 chunk. B is the packed weight viewed as [4 · 4C, 4O], 64 rows a K block
 and tap, read MN-major.
 
-Here the plan must cover every output pixel exactly once, a torch
-emulation of those loads (``_emulate``) must equal JAX's Pallas kernels
-(``conv2x2_padflat`` plain, with pool and with head;
-``conv2x2_dual_padflat`` with even ``a_offset`` and odd ``a_slot_phase``,
-4C = 128 and 256; interpret mode) in f32 at rtol = atol = 1e-4, as
-tests/test_torch_kernels.py holds the plain versions; partial K blocks,
-which the Pallas kernels do not take, are held against the port's plain
-version. Masks may differ only where the head's f32 margin is within
-summation-order noise. Last, the MN-major descriptor's strides (read from
+At 4O = 512 (n_kernels 64's level 2) a wgmma product is at most 256
+columns wide, so each pixel tile is walked as two column tiles of 256
+(``FwdOut::ctile``, ``FwdOut::col``): column tile ct holds channels 64 ct
+.. 64 ct + 63 of each of the four slots, so that one thread's pool sees a
+channel's four slots.
+
+Here the plan must cover every output pixel exactly once, the column
+tiles every (pixel, column) of a 4O = 512 output once, and a torch
+emulation of those loads (``_emulate``, column tile by column tile) must
+equal JAX's Pallas kernels (``conv2x2_padflat`` plain, with pool, with
+head, and with the pool's index as JAX's ``_pool4_argmax`` takes it from
+the Pallas y; ``conv2x2_dual_padflat`` with even ``a_offset`` and odd
+``a_slot_phase``, 4C = 128 to 512, 4O = 128 to 512; interpret mode) in f32
+at rtol = atol = 1e-4, as tests/test_torch_kernels.py holds the plain
+versions; partial K blocks, which the Pallas kernels do not take, are held
+against the port's plain version. Masks may differ only where the head's
+f32 margin is within summation-order noise, pool indices only where two
+slots lie within it. Last, the MN-major descriptor's strides (read from
 csrc/sm90_igemm.cuh) must address every element of a k16 step where TMA's
 128-byte swizzle put it.
 """
@@ -32,6 +41,7 @@ import numpy as np
 import pytest
 import torch
 
+from segmentation_tpu.models.unet_fast import _pool4_argmax
 from segmentation_tpu.nn.pallas.conv_flat import (
     conv2x2_dual_padflat,
     conv2x2_padflat,
@@ -91,6 +101,45 @@ def test_card_cases_leave_ragged_last_tiles():
     last tile short in both directions."""
     plan = tile_plan(1, 43, 64, cf.FWD_TILE_ROWS)
     assert 43 % plan.th and 64 % plan.tw, plan
+
+
+# the output grids of level 2's 4O = 512 sites at 512² (N = 1, n_kernels
+# 64), a ragged one and one pixel
+WIDE = {"conv2_1": (1, 126, 126), "conv2_2": (1, 125, 125),
+        "upconv3": (1, 84, 84), "conv8_1": (1, 83, 83),
+        "conv8_2": (1, 82, 82), "ragged": (3, 19, 44),
+        "one pixel": (2, 1, 1)}
+
+
+def _column_tiles(o4):
+    """The output columns of each column tile of a pixel tile, in the
+    kernels' walk (tile t is column tile t % CT of pixel tile t // CT):
+    every column at 4O <= 256; at 4O = 512 channels 64 ct .. 64 ct + 63 of
+    each of the four slots (FwdOut::col)."""
+    if o4 <= 256:
+        return [list(range(o4))]
+    o = o4 // 4
+    return [[s * o + c for s in range(4) for c in range(c0, c0 + 64)]
+            for c0 in range(0, o, 64)]
+
+
+@pytest.mark.parametrize("site", list(WIDE))
+def test_column_tiles_store_every_output_once(site):
+    """Over the walk every (pixel, column) of a 4O = 512 output is stored
+    exactly once, and each column tile holds 64 channels of all four
+    slots."""
+    n, ho, wo = WIDE[site]
+    plan = tile_plan(n, ho, wo, cf.FWD_TILE_ROWS)
+    ctiles = _column_tiles(512)
+    for ct, cols in enumerate(ctiles):
+        assert sorted(cols) == [s * 128 + c for s in range(4)
+                                for c in range(64 * ct, 64 * ct + 64)]
+    hits = np.zeros((n, ho, wo, 512), np.uint8)
+    for t in range(plan.count * len(ctiles)):
+        b, i0, j0 = plan.origin(t // len(ctiles))
+        hits[b, i0:i0 + plan.th, j0:j0 + plan.tw,
+             ctiles[t % len(ctiles)]] += 1
+    assert (hits == 1).all()
 
 
 # ------------------------------------------------------------ the emulation
@@ -153,18 +202,25 @@ def _b_rows(w, kb, tap):
 
 
 def _emulate(x, w, b, plan, *, skip=None, wa=None, offset=(0, 0),
-             pool=False, head=None):
-    """The kernel's arithmetic on its own loads, in f32, one tile at a
-    time: (y, mask, pooled) as the kernel stores them (y f32 here)."""
+             pool=False, pool_index=False, head=None):
+    """The kernel's arithmetic on its own loads, in f32, one pixel tile and
+    column tile at a time, the pool and its index over the column tile's
+    four slots: (y, mask, pooled, idx) as the kernel stores them (y f32
+    here)."""
     n, hp, wp, c4 = x.shape
     o4 = w.shape[-1]
     kps = -(-c4 // 64)
     th, wrow = plan.th, plan.tw + 1  # GEMM row m = a · wrow + b
     rows = th * wrow
-    y = torch.full((n, plan.hx, plan.wx, o4), float("nan"))
-    for t in range(plan.count):
-        bn, i0, j0 = plan.origin(t)
-        acc = torch.zeros(rows, o4)
+    ctiles = _column_tiles(o4)
+    shp = (n, plan.hx, plan.wx)
+    y = torch.full(shp + (o4,), float("nan"))
+    pooled = torch.full(shp + (o4 // 4,), float("nan"))
+    idx = torch.full(shp + (o4 // 4,), -1, dtype=torch.int8)
+    for t in range(plan.count * len(ctiles)):
+        bn, i0, j0 = plan.origin(t // len(ctiles))
+        ct, cols = t % len(ctiles), ctiles[t % len(ctiles)]
+        acc = torch.zeros(rows, len(cols))
         sides = [(x, w, lambda kb: _box(x, bn, i0, j0, th, wrow,
                                          list(range(64 * kb, 64 * kb + 64))))]
         if skip is not None:
@@ -175,10 +231,21 @@ def _emulate(x, w, b, plan, *, skip=None, wa=None, offset=(0, 0),
                 a = load(kb)
                 for tap in range(4):
                     shift = (tap >> 1) * wrow + (tap & 1)
-                    acc += a[shift:shift + rows] @ _b_rows(ws, kb, tap)
-        acc = torch.relu(acc + b).view(th, wrow, o4)[:, :plan.tw]
+                    acc += a[shift:shift + rows] @ _b_rows(ws, kb, tap)[:, cols]
+        acc = torch.relu(acc + b[cols]).view(th, wrow, -1)[:, :plan.tw]
         hi, wi = min(th, plan.hx - i0), min(plan.tw, plan.wx - j0)
-        y[bn, i0:i0 + hi, j0:j0 + wi] = acc[:hi, :wi]
+        acc = acc[:hi, :wi]
+        y[bn, i0:i0 + hi, j0:j0 + wi][..., cols] = acc
+        # the pool: the first slot above every earlier one (strict >)
+        s4 = acc.reshape(hi, wi, 4, -1)
+        best = s4[:, :, 0].clone()
+        first = torch.zeros(best.shape, dtype=torch.int8)
+        for sl in range(1, 4):
+            first[s4[:, :, sl] > best] = sl
+            best = torch.maximum(best, s4[:, :, sl])
+        ch = slice(ct * s4.shape[-1], (ct + 1) * s4.shape[-1])
+        pooled[bn, i0:i0 + hi, j0:j0 + wi, ch] = best
+        idx[bn, i0:i0 + hi, j0:j0 + wi, ch] = first
     assert not y.isnan().any()  # every pixel was stored
     outs = [y]
     if head is not None:
@@ -186,8 +253,10 @@ def _emulate(x, w, b, plan, *, skip=None, wa=None, offset=(0, 0),
         yb = y.to(torch.bfloat16).float()
         outs.append(((yb @ wd.to(torch.bfloat16).float() + bd) > 0)
                     .to(torch.uint8))
-    if pool:
-        outs.append(y.reshape(*y.shape[:3], 4, o4 // 4).amax(3))
+    if pool or pool_index:
+        outs.append(pooled)
+    if pool_index:
+        outs.append(idx)
     return outs
 
 
@@ -208,14 +277,30 @@ def _mask_close(got, want, y, wd, bd):
     assert diff.mean() < 1e-3
 
 
+def _index_close(got, want, y):
+    """Pool indices equal except where the two slots' f32 values lie
+    within summation-order noise of each other."""
+    got, want = np.asarray(got), np.asarray(want)
+    s4 = np.asarray(y).reshape(*y.shape[:3], 4, -1)
+    diff = got != want
+    a = np.take_along_axis(s4, got[..., None, :].astype(np.int64), 3)[..., 0, :]
+    b = np.take_along_axis(s4, want[..., None, :].astype(np.int64), 3)[..., 0, :]
+    assert np.all(np.abs(a - b)[diff] <= TOL)
+    assert diff.mean() < 1e-3
+
+
 # output grids whose plans have several tiles per image, ragged ones
-# included: (N, hp, wp) of x, 4C, 4O
+# included: (N, hp, wp) of x, 4C, 4O; 4O = 512 in every mode it has (no
+# head: the head is level 1's)
 EMULATED = [(2, 20, 38, 128, 128), (1, 12, 22, 256, 256),
-            (2, 18, 24, 128, 256)]
+            (2, 18, 24, 128, 256), (2, 10, 16, 256, 512)]
+MODES = [shape + (mode,) for shape in EMULATED
+         for mode in ("plain", "pool", "head")
+         if not (mode == "head" and shape[-1] == 512)]
+MODES += [shape + ("pool_index",) for shape in EMULATED]
 
 
-@pytest.mark.parametrize("mode", ["plain", "pool", "head"])
-@pytest.mark.parametrize("n,hp,wp,c4,o4", EMULATED)
+@pytest.mark.parametrize("n,hp,wp,c4,o4,mode", MODES)
 def test_emulated_boxes_match_pallas_conv2x2(np_rng, n, hp, wp, c4, o4,
                                              mode):
     x = np_rng.standard_normal((n, hp, wp, c4)).astype(np.float32)
@@ -230,6 +315,9 @@ def test_emulated_boxes_match_pallas_conv2x2(np_rng, n, hp, wp, c4, o4,
                            w_real=wp, s=s, r_block=4, interpret=True, **kw)
     want = want if isinstance(want, tuple) else (want,)
     want = [np.asarray(unpad_rows(v, s, hp - 1, wp - 1)) for v in want]
+    if mode == "pool_index":  # JAX's train pool: index from the Pallas y
+        kw = {"pool_index": True}
+        want += [np.asarray(v) for v in _pool4_argmax(jnp.asarray(want[0]))]
     plan = tile_plan(n, hp - 1, wp - 1, cf.FWD_TILE_ROWS)
     assert plan.count > n  # several tiles per image
     if mode == "head":
@@ -240,15 +328,20 @@ def test_emulated_boxes_match_pallas_conv2x2(np_rng, n, hp, wp, c4, o4,
     np.testing.assert_allclose(got[0].numpy(), want[0], rtol=TOL, atol=TOL)
     if mode == "head":
         _mask_close(got[1], want[1], got[0], wd, bd)
-    if mode == "pool":
+    if mode in ("pool", "pool_index"):
         np.testing.assert_allclose(got[1].numpy(), want[1], rtol=TOL,
                                    atol=TOL)
+    if mode == "pool_index":
+        _index_close(got[2], want[2], got[0])
 
 
 # (up's N, hp, wp), the skip 4 packed pixels larger, 4C, 4O, offset
+# (4O = 512: where the skip is boxed, an even offset or C % 64 == 0 at an
+# odd one, as conv8_1's (41, 41) at n_kernels 64)
 DUAL = [((2, 14, 30), 128, 128, (4, 2)), ((2, 14, 30), 128, 128, (3, 5)),
         ((1, 9, 21), 128, 256, (6, 3)), ((1, 12, 22), 256, 256, (4, 6)),
-        ((2, 12, 22), 256, 256, (5, 7)), ((1, 18, 20), 256, 128, (2, 1))]
+        ((2, 12, 22), 256, 256, (5, 7)), ((1, 18, 20), 256, 128, (2, 1)),
+        ((1, 10, 18), 128, 512, (4, 6)), ((2, 12, 16), 256, 512, (3, 5))]
 
 
 @pytest.mark.parametrize("shape,c4,o4,offset", DUAL)
@@ -278,7 +371,7 @@ def test_emulated_boxes_match_pallas_dual(np_rng, shape, c4, o4, offset):
 
 
 @pytest.mark.parametrize("c4", [8, 72])
-@pytest.mark.parametrize("o4", [128, 256])
+@pytest.mark.parametrize("o4", [128, 256, 512])
 def test_emulated_partial_k_block_matches_plain(np_rng, c4, o4):
     """4C = 72: the second K block holds 8 channels and 56 zeros, its B
     rows the next tap's; 4C = 8: one block of 8 channels."""
