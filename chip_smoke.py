@@ -54,7 +54,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                and the share of the packed form's tensor peak (its GEMM's
                operations over 989 TFLOP/s), then each mode's sums; and
                the train step's glue kernels (train_glue.cu) at the ten
-               packed train sites: relu_bias_grad (the level sites' pool
+               packed train sites and the ten std sites (unpadded):
+               relu_bias_grad (the level sites' pool
                mode, the 2×2 sites' zero-margined buffers) bit for bit its
                plain version's but db, within its bound of the exact sum
                (the depth of the kernel's f32 sums), which a db of zeros or
@@ -65,13 +66,16 @@ Phases (each prints its lines; any failure raises and exits non-zero):
   3d.        — n_kernels 64 (the paper's widths): level 2's 4O = 512
                modes (H1 plain, pool and pool index, H2 with the skip's
                per-slot boxes, H3 boxed, H4's identity, H6 single and dual
-               at 4C = 512) and the glue at 512 channels, at their 512²
+               at 4C = 512) and the glue at 512 channels and at the std
+               sites' doubled widths, at their 512²
                sites, checked and timed as in 3 and 3c (N = 2 and B = 8),
                each mode's sums on their own lines; then B = 16 train steps
                and B = 8 requests of the n64 model, the launch counts reset
                before the counted ones: every mode of each path must launch,
                the train path must run no plain code, a mask may differ from
-               the plain versions' only within the bf16 margin; the modes'
+               the plain versions' only within the bf16 margin; then H8's
+               bf16 mode at the std sites' n64 widths (C and O 128 to
+               1024) as in 3b'; the modes'
                JSON line
                ("kernels_n64") follows the kernels' line;
   4. slice   — 4 requests of B = 8 through serving.entry (apply_argmax),
@@ -263,6 +267,13 @@ for k in ("std_conv3x3", "std_conv3x3_dual"):
 REPLACES["std_conv3x3"] = f"{_UF}:1045 _std_conv (XLA)"
 REPLACES["std_conv3x3_dual"] = f"{_UF}:1050 _std_dual_conv (XLA)"
 B_BATCH = 64  # the batch cell's request (bench_h100 serve_b64)
+# the std levels' ten 3×3 sites of a 512² forward at n_kernels = 32:
+# (label, input H = W (the dual's up), C, O, the dual's skip H or None)
+STD_SITES = (("conv3_1", 125, 64, 128, None), ("conv3_2", 123, 128, 128, None),
+             ("conv4_1", 60, 128, 256, None), ("conv4_2", 58, 256, 256, None),
+             ("conv5_1", 28, 256, 512, None), ("conv5_2", 26, 512, 512, None),
+             ("conv6_2", 46, 256, 256, None), ("conv7_2", 86, 128, 128, None),
+             ("conv6_1", 48, 256, 256, 56), ("conv7_1", 88, 128, 128, 121))
 REPLACES["std_conv3x3_dual_s8"] = REPLACES["std_conv3x3_dual_s8_inline"] = \
     f"{_UI8}:104 int8_std_dual_conv (XLA)"
 # each int8 configuration's launches per request (models/unet_int8.py),
@@ -422,7 +433,9 @@ def _glue_sites(n, gen, o4=256):
     output y (zero on about half the elements) of each site's shape, in
     the site's mode (the level sites with the pool's gradient and index,
     the 2×2 sites into the zero-margined buffer); crop_margin_zero on the
-    duals' skip gradients."""
+    duals' skip gradients; then relu_bias_grad unpadded at the ten std
+    sites' outputs [n, h, w, O] (std_conv3x3_t's backward), their widths
+    scaled as level 2's (``o4`` / 256)."""
     import torch
 
     dev = gen.device
@@ -458,7 +471,8 @@ def _glue_sites(n, gen, o4=256):
          (bf(n, 125, 125, o4), 84, 84, (41, 41)), {}),
         ("crop_margin_zero", "conv9_1's skip (90,90)",
          (bf(n, 254, 254, 128), 164, 164, (90, 90)), {}),
-    ]
+    ] + [(rbg, label, gy(n, h - 2, h - 2, o * o4 // 256), {})
+         for label, h, _, o, _ in STD_SITES]
 
 
 def _sites_n64(n, gen):
@@ -509,9 +523,10 @@ def _dgrad_sites_n64(n, gen):
 
 def _glue_sites_n64(n, gen):
     """The glue at level 2's six sites of a 512² train step at n_kernels =
-    64 (512 channels), as _glue_sites makes them."""
+    64 (512 channels) and at the ten std sites (O 256 to 1024), as
+    _glue_sites makes them."""
     sites = _glue_sites(n, gen, o4=512)
-    return [sites[i] for i in (2, 3, 4, 5, 6, 10)]
+    return [sites[i] for i in (2, 3, 4, 5, 6, 10)] + sites[12:]
 
 
 def _sites8(n, gen):
@@ -1181,10 +1196,10 @@ def _kernel_phase(mod, sites):
     return worst, ms, plain_ms, bound, bound_by, library_ms, packed
 
 
-def _std_bf16_sites(n, gen):
-    """H8 bf16's ten sites in one 512² request (n_kernels = 32): (mode,
-    label, args, kwargs), the duals' weights the halves of one concat
-    weight, as the forward passes them."""
+def _std_bf16_sites(n, gen, width=1):
+    """H8 bf16's ten sites in one 512² request (STD_SITES; n_kernels = 32,
+    C and O times ``width``): (mode, label, args, kwargs), the duals'
+    weights the halves of one concat weight, as the forward passes them."""
     import torch
 
     dev = gen.device
@@ -1196,19 +1211,13 @@ def _std_bf16_sites(n, gen):
         return torch.randn((o,), generator=gen, device=dev) * 0.1
 
     sites = []
-    for label, (h, c, o) in (("conv3_1", (125, 64, 128)),
-                             ("conv3_2", (123, 128, 128)),
-                             ("conv4_1", (60, 128, 256)),
-                             ("conv4_2", (58, 256, 256)),
-                             ("conv5_1", (28, 256, 512)),
-                             ("conv5_2", (26, 512, 512)),
-                             ("conv6_2", (46, 256, 256)),
-                             ("conv7_2", (86, 128, 128))):
-        sites.append(("std_conv3x3", label, (act(n, h, h, c),
-                                             _wgt(gen, 3, 3, c, o), bias(o)),
-                      {}))
-    for label, (hs, h, c, o) in (("conv6_1", (56, 48, 256, 256)),
-                                 ("conv7_1", (121, 88, 128, 128))):
+    for label, h, c, o, hs in STD_SITES:
+        c, o = c * width, o * width
+        if hs is None:
+            sites.append(("std_conv3x3", label, (act(n, h, h, c),
+                                                 _wgt(gen, 3, 3, c, o),
+                                                 bias(o)), {}))
+            continue
         w = _wgt(gen, 3, 3, 2 * c, o)
         off = ((hs - h) // 2, (hs - h) // 2)
         sites.append(("std_conv3x3_dual", f"{label} crop {off}",
@@ -1251,22 +1260,23 @@ def _std_bf16_library(name, args, kw):
                              F.conv2d(nchw(up), oihw(wb)))
 
 
-def _std_bf16_parity(label, got, want):
+def _std_bf16_parity(label, got, want, tag="std-bf16"):
     """One bf16 rounding apart (tests/test_torch_std_bf16.py): |kernel -
     plain| <= 2^-7 |plain| + 1e-3 max |plain| elementwise."""
     err = (got.float() - want.float()).abs()
     tol = 2.0**-7 * want.float().abs() + 1e-3 * want.float().abs().max()
     worst = err.max().item()
-    print(f"[std-bf16] {label}: max abs err {worst:.3e}, within one bf16 "
+    print(f"[{tag}] {label}: max abs err {worst:.3e}, within one bf16 "
           f"rounding everywhere: {bool((err <= tol).all())}")
     if got.dtype != want.dtype or not (err <= tol).all():
         raise AssertionError(f"{label}: beyond one bf16 rounding")
     return worst
 
 
-def _std_bf16_phase(cf):
-    """Phase 3b': H8's bf16 mode at its ten sites, parity at B = 2, 8 and
-    64, time at 8 and 64. Returns {B: {mode: {"calls", "worst", "ms",
+def _std_bf16_phase(cf, width=1):
+    """Phase 3b': H8's bf16 mode at its ten sites (C and O times
+    ``width``: 2 is n_kernels 64's, phase 3d), parity at B = 2, 8 and 64,
+    time at 8 and 64. Returns {B: {mode: {"calls", "worst", "ms",
     "plain_ms", "library_ms" (with bias and ReLU), "conv_ms" (the conv
     alone), "bound_ms", "parts", "ops"}}}."""
     import torch
@@ -1275,11 +1285,11 @@ def _std_bf16_phase(cf):
 
     wrappers = {k: getattr(cf, k) for k in STD_BF16}
     plains = {k: getattr(cf, f"{k}_plain") for k in STD_BF16}
-    out = {}
+    out, tag = {}, "std-bf16" if width == 1 else f"std-bf16 n{32 * width}"
     for n in (B_PARITY, B_SERVE, B_BATCH):
         sums = out.setdefault(n, {})
-        for name, label, args, kw in _std_bf16_sites(n, generator(31 + n,
-                                                                  "cuda")):
+        for name, label, args, kw in _std_bf16_sites(
+                n, generator(31 + n, "cuda"), width):
             got = wrappers[name](*args, **kw)
             want = plains[name](*args, **kw)
             torch.cuda.synchronize()
@@ -1289,7 +1299,7 @@ def _std_bf16_phase(cf):
                 "parts": {"bytes": 0.0, "operations": 0.0}, "ops": 0.0})
             s["calls"] += 1
             s["worst"] = max(s["worst"], _std_bf16_parity(
-                f"N={n} {name} {label}", got, want))
+                f"N={n} {name} {label}", got, want, tag))
             del want
             if n == B_PARITY:
                 continue
@@ -1309,7 +1319,7 @@ def _std_bf16_phase(cf):
             s["bound_ms"] += b
             s["parts"][by] += b
             s["ops"] += ops["bf16"]
-            print(f"[std-bf16] time B={n} {name} {label}: {t['kernel']:.4f}"
+            print(f"[{tag}] time B={n} {name} {label}: {t['kernel']:.4f}"
                   f" ms, plain {t['plain']:.4f} ms, library conv + bias + "
                   f"ReLU {t['library']:.4f} ms, conv alone {t['conv']:.4f} "
                   f"ms, bound {b:.4f} ms ({by})"
@@ -1318,7 +1328,7 @@ def _std_bf16_phase(cf):
         if n == B_PARITY:
             continue
         for name, s in sums.items():
-            print(f"[std-bf16] B={n} {name} over its {s['calls']} sites: "
+            print(f"[{tag}] B={n} {name} over its {s['calls']} sites: "
                   f"{s['ms']:.4f} ms, plain {s['plain_ms']:.4f} ms, library "
                   f"conv + bias + ReLU {s['library_ms']:.4f} ms, conv alone "
                   f"{s['conv_ms']:.4f} ms, bound {s['bound_ms']:.4f} ms "
@@ -1326,7 +1336,7 @@ def _std_bf16_phase(cf):
         tot = {k: sum(s[k] for s in sums.values())
                for k in ("ms", "library_ms", "conv_ms", "bound_ms", "ops")}
         peak = tot["ops"] / PEAK_OPS_S["bf16"] * 1e3
-        print(f"[std-bf16] B={n} the ten sites: {tot['ms']:.4f} ms "
+        print(f"[{tag}] B={n} the ten sites: {tot['ms']:.4f} ms "
               f"({peak / tot['ms']:.3f} of the bf16 tensor peak, "
               f"{tot['ops'] / 1e12:.4f} TFLOP), library conv + bias + ReLU "
               f"{tot['library_ms']:.4f} ms ({peak / tot['library_ms']:.3f}),"
@@ -1590,11 +1600,9 @@ def _train_phase(cf, cb, tg):
         with census:
             k_ms, k_peak, launches = _train_throughput(kern, big, "kernels",
                                                        reset, counts)
-        missing = [k for k, v in launches.items()
-                   if (v == 0) != (k in cf.SERVE_ONLY)]
+        missing = [k for k, v in launches.items() if v == 0]
         if missing:
-            raise AssertionError(f"train kernels never launched, or "
-                                 f"serving's launched: {missing}")
+            raise AssertionError(f"train kernels never launched: {missing}")
         print(f"[train] kernels B={B_TRAIN}: calls of the plain versions and "
               f"glue in the timed steps {census.counts} (the old _mask is "
               f"gone)")
@@ -1671,13 +1679,13 @@ def _n64_path_phase(cf, cb, tg):
         train = {**cf.launches, **cb.launches, **tg.launches}
         params = trainer.model.param_dict()
         del trainer, batch
-    missing = [k for k, v in train.items() if (v == 0) != (k in cf.SERVE_ONLY)]
+    missing = [k for k, v in train.items() if v == 0]
     crops = census.counts.pop(WGRAD_CROP)
     print(f"[n64] train B={B_N64}: 2 steps, loss {losses}, launches {train}; "
           f"plain code {census.counts}, wgrad crops {crops}")
     if missing or not all(map(math.isfinite, losses)):
-        raise AssertionError(f"n64 train kernels never launched, or "
-                             f"serving's launched: {missing}; {losses}")
+        raise AssertionError(f"n64 train kernels never launched: "
+                             f"{missing}; {losses}")
     if any(census.counts.values()) or crops != train["packed_conv2x2_dual"]:
         raise AssertionError(f"the n64 kernel path ran {census.counts}")
     torch.cuda.empty_cache()
@@ -1971,11 +1979,9 @@ def _data_phase(cf, cb, tg, tiles):
               f"{metrics['seg_loss']:.6f}; launches {launches}")
         if not math.isfinite(metrics["seg_loss"]):
             raise AssertionError(f"data path: non-finite loss {metrics}")
-        missing = [k for k, v in launches.items()
-                   if (v == 0) != (k in cf.SERVE_ONLY)]
+        missing = [k for k, v in launches.items() if v == 0]
         if missing:
-            raise AssertionError(f"data path: never launched, or "
-                                 f"serving's launched: {missing}")
+            raise AssertionError(f"data path: never launched: {missing}")
         if launches["crop_normalize"] != 5:
             raise AssertionError("H7 did not launch once a step (image and "
                                  "mask together)")
@@ -2212,7 +2218,7 @@ def main() -> None:
               f"bound {bound[k]:.4f} ms ({bound[k] / ms[k]:.3f} of it "
               f"reached), packed GEMM {gemm} "
               f"({_peak_words(packed[k], ms[k])})")
-    # ---- 3d. n_kernels 64: level 2's 4O = 512 modes --------------------
+    # ---- 3d. n_kernels 64: level 2's 4O = 512 modes, H8 at O ≤ 1024 ----
     torch.cuda.empty_cache()
     tables64 = _kernel_phase(cf, _sites_n64)
     for mod, sites in ((cb, _dgrad_sites_n64), (tg, _glue_sites_n64)):
@@ -2228,6 +2234,8 @@ def main() -> None:
                   f" of it reached), "
                   f"{_peak_words(packed64[k], ms64[k])}")
     by_path64 = _n64_path_phase(cf, cb, tg)
+    torch.cuda.empty_cache()
+    std_bf16_64 = _std_bf16_phase(cf, width=2)
     torch.cuda.empty_cache()
     std_bf16 = _std_bf16_phase(cf)
     torch.cuda.empty_cache()
@@ -2411,9 +2419,14 @@ def main() -> None:
             "bound_ms": bound[k], "bound_by": bound_by[k],
             "library_ms": library_ms[k], "launches_by_path": paths})
     print(json.dumps({"kernels": kernels}))
-    # n_kernels 64's 4O = 512 modes: the sites of phase 3d, the launches of
-    # its own train steps and requests
+    # n_kernels 64's 4O = 512 modes and H8 bf16 at its widths: the sites of
+    # phase 3d, the launches of its own train steps and requests
     worst64, ms64, plain64, bound64, by64, lib64, _ = tables64
+    for k, s in std_bf16_64[B_SERVE].items():  # H8 bf16: its ten sites, B = 8
+        worst64[k] = max(std_bf16_64[n][k]["worst"] for n in std_bf16_64)
+        ms64[k], plain64[k] = s["ms"], s["plain_ms"]
+        bound64[k], lib64[k] = s["bound_ms"], s["library_ms"]
+        by64[k] = max(s["parts"], key=s["parts"].get)
     print(json.dumps({"kernels_n64": [
         {"name": k, "launches_by_path": {tag: c[k] for tag, c in
                                          by_path64.items() if k in c},

@@ -32,8 +32,8 @@ params, whose forward packs the weights differentiably (a gather of the
 packed site a ``torch.autograd.Function`` of nn/kernels/train.py (H1–H4
 forward, H6 input grads, the glue kernels of nn/kernels/train_glue.py),
 each level's pool fused into its conv with an argmax index, as
-``pool4_select`` computes it; its standard levels keep autograd through
-nn/layers.conv2d (H8 has no backward).
+``pool4_select`` computes it; each standard level's 3×3 conv one too (H8
+forward, the glue's mask and bias grad, cuDNN's dgrad and wgrad).
 """
 
 from __future__ import annotations
@@ -56,11 +56,7 @@ from segmentation_tpu_torch.nn.kernels.conv_flat import (
     pool_select,
 )
 from segmentation_tpu_torch.nn.kernels.train_glue import pool_scatter
-from segmentation_tpu_torch.nn.layers import (
-    conv2d,
-    conv2d_transpose,
-    max_pool,
-)
+from segmentation_tpu_torch.nn.layers import conv2d_transpose, max_pool
 from segmentation_tpu_torch.nn.packing import (  # noqa: F401 (re-export)
     crop_packed,
     pack2,
@@ -466,9 +462,11 @@ class UNetS2DTrain(UNetS2DInference):
     (conv1_1, C = 3) is H3's gathered mode, bias and ReLU fused (the JAX
     package leaves it to XLA); each level's conv and pool are one H1 launch
     (conv2x2_pool_t), and each dual site reads its skip uncropped through
-    the crop offset, as H2 does in serving. The standard levels keep
-    autograd through nn/layers.conv2d (cuDNN, then the bias and ReLU
-    passes): serving's H8 has no backward.
+    the crop offset, as H2 does in serving. The standard levels' 3×3 convs
+    run H8's bf16 mode as serving does, under std_conv3x3_t and
+    std_conv3x3_dual_t (the dual's skip read at its crop origin), whose
+    backward masks and sums the bias grad in one glue pass and leaves the
+    dgrad and wgrad to cuDNN; upconv1–2 and the std pool keep autograd.
 
     The Functions' backward passes run their parts in the spans
     ``bwd:<site>/<part>`` (nn/kernels/train.py), beside the forward's
@@ -496,16 +494,13 @@ class UNetS2DTrain(UNetS2DInference):
                                  offset=offset, ops=self.ops, site=name)
 
     def _std_conv(self, p, name, h):
-        return conv2d(h, p[f"{name}/w"], p[f"{name}/b"])
+        return kt.std_conv3x3_t(h, p[f"{name}/w"], p[f"{name}/b"],
+                                ops=self.ops, site=name)
 
     def _std_dual_conv(self, p, name, skip, h):
-        # concat-free: conv(concat(sk, h), w) =
-        #              conv(sk, w[:C]) + conv(h, w[C:]), sk the crop of skip
-        sk = std_crop(skip, h)
-        w, ci = p[f"{name}/w"], sk.shape[-1]
-        y = conv2d(sk, w[:, :, :ci], activation=None) \
-            + conv2d(h, w[:, :, ci:], activation=None)
-        return torch.relu(y + p[f"{name}/b"].to(y.dtype))
+        return kt.std_conv3x3_dual_t(skip, h, p[f"{name}/w"], p[f"{name}/b"],
+                                     offset=std_crop_offset(skip, h),
+                                     ops=self.ops, site=name)
 
 
 class UNetS2D(nn.Module):

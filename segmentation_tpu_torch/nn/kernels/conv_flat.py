@@ -75,9 +75,6 @@ NAMES = ("packed_conv2x2", "packed_conv2x2_dual", "strided_conv4x4s2",
          "std_conv3x3_dual")
 # the training route's modes, which no server runs
 TRAIN_ONLY = ("packed_conv2x2_pool_index",)
-# the serving forward's modes, which the training route does not run (its
-# std levels keep autograd through nn/layers.conv2d)
-SERVE_ONLY = ("std_conv3x3", "std_conv3x3_dual")
 launches = dict.fromkeys(NAMES, 0)
 
 
@@ -163,10 +160,20 @@ def std_conv3x3_plain(x, w, b):
     return _epilogue(_conv_nhwc(x.float(), w, 1), b, x.dtype)
 
 
+def _std_crop_ok(name, skip, up, offset):
+    """The std dual's crop of ``skip`` at ``offset`` covers ``up``."""
+    oh, ow = offset
+    if (oh < 0 or ow < 0 or oh + up.shape[1] > skip.shape[1]
+            or ow + up.shape[2] > skip.shape[2]):
+        raise ValueError(f"{name}: crop {offset} of {tuple(skip.shape)} "
+                         f"does not cover {tuple(up.shape)}")
+
+
 def std_conv3x3_dual_plain(skip, up, wa, wb, b, *, offset):
     """H8 bf16 dual's function: conv(crop(skip), wa) + conv(up, wb) summed
     in f32, the skip read at the crop origin ``offset``; + b, ReLU, one
     rounding to up's dtype."""
+    _std_crop_ok("std_conv3x3_dual", skip, up, offset)
     oh, ow = offset
     sk = skip[:, oh : oh + up.shape[1], ow : ow + up.shape[2]]
     acc = _conv_nhwc(sk.float(), wa, 1) + _conv_nhwc(up.float(), wb, 1)
@@ -466,10 +473,7 @@ def std_conv3x3_dual(skip, up, wa, wb, b, *, offset: Tuple[int, int]):
     oh, ow = (int(v) for v in offset)
     dev = up.device
     _std_shape_ok("std_conv3x3_dual", up, o)
-    if oh < 0 or ow < 0 or oh + h > hs or ow + wd > ws:
-        raise ValueError(f"std_conv3x3_dual: crop {offset} of "
-                         f"{tuple(skip.shape)} does not cover "
-                         f"{tuple(up.shape)}")
+    _std_crop_ok("std_conv3x3_dual", skip, up, (oh, ow))
     _require(up, "up", torch.bfloat16, up.shape, dev)
     _require(skip, "skip", torch.bfloat16, (n, hs, ws, c), dev)
     _std_weight(wa, "wa", c, o, dev)
@@ -494,9 +498,9 @@ def std_conv3x3_dual(skip, up, wa, wb, b, *, offset: Tuple[int, int]):
 
 class Ops(NamedTuple):
     """The ops a model runs through: the four packed-site forward ops, H8's
-    bf16 std-level convs (serving only), and what training runs besides:
-    the input grads of the 2×2 sites (H6, conv_bwd.py) and the glue of
-    every site's backward (train_glue.py)."""
+    bf16 std-level convs (serving's and training's), and what training
+    runs besides: the input grads of the 2×2 sites (H6, conv_bwd.py) and
+    the glue of every site's backward (train_glue.py)."""
 
     packed_conv2x2: Callable
     packed_conv2x2_dual: Callable

@@ -1,13 +1,14 @@
-"""Trainable packed sites (segmentation_tpu.nn.pallas.train).
+"""Trainable conv sites (segmentation_tpu.nn.pallas.train).
 
-Six ``torch.autograd.Function``s over one ``Ops`` (the hand kernels H1–H4,
-H6 and the glue kernels of train_glue.py by default, their plain versions
-with ``PLAIN_OPS``). Each forward runs one packed-site op of ``ops`` and
-saves its input(s), the weight cast to the input's dtype, and its output,
-as the JAX wrappers' save-output variant does. Each backward masks the
-cotangent with y > 0 (every train site ends in a ReLU, and y > 0 exactly
-where the pre-activation is) and sums the bias gradient in one pass
-(``ops.relu_bias_grad``), then:
+Eight ``torch.autograd.Function``s over one ``Ops`` (the hand kernels
+H1–H4, H6, H8's bf16 mode and the glue kernels of train_glue.py by
+default, their plain versions with ``PLAIN_OPS``): six at the packed
+sites, two at the standard levels' 3×3 convs. Each forward runs one op of
+``ops`` and saves its input(s), the weight cast to the input's dtype, and
+its output, as the JAX wrappers' save-output variant does. Each backward
+masks the cotangent with y > 0 (every train site ends in a ReLU, and y > 0
+exactly where the pre-activation is) and sums the bias gradient in one
+pass (``ops.relu_bias_grad``), then:
 
   conv2x2_t        dx by H6, dw by conv2x2_wgrad, both reading the masked
                    cotangent in place in its zero-margined buffer
@@ -24,6 +25,17 @@ where the pre-activation is) and sums the bias gradient in one pass
   conv4x4s2_t      dx and dw plain (torch.nn.grad; XLA in the JAX package)
   matmul_rows_t    dx = g wmᵀ, dwm = xᵀ g
   deconv_packed_t  the same on the unpacked input, dx packed again
+  std_conv3x3_t    the std levels' 3×3 conv, unpacked NHWC (H8 forward,
+                   bias and ReLU fused; the JAX package leaves these convs
+                   to XLA): dx and dw by cuDNN
+                   (aten.convolution_backward) from the masked cotangent
+                   in its channels-last layout, as stored
+  std_conv3x3_dual_t  the std decoder's concat-free first conv, the skip
+                   uncropped and read by H8 at its crop origin; dskip the
+                   skip-side dgrad placed in the crop window of a
+                   skip-sized zero gradient, dw the two sides' wgrads (the
+                   skip's from a copy of its crop) joined as the concat
+                   weight's
 
 dx keeps the input's dtype and dw comes back in it too (bf16 in training,
 as the JAX package's transpose of a bf16 conv); autograd casts dw to the
@@ -214,6 +226,96 @@ class _DeconvPacked(Function):
         return dx, dw, db, None, None
 
 
+# aten.convolution_backward's arguments of a VALID 3×3 conv after the
+# tensors: bias sizes, stride, padding, dilation, transposed, output
+# padding, groups
+_CONV3X3 = (None, [1, 1], [0, 0], [1, 1], False, [0, 0], 1)
+
+
+def _nchw(t):
+    """The NCHW view of an NHWC tensor (channels-last, no copy)."""
+    return t.permute(0, 3, 1, 2)
+
+
+def _oihw(w):
+    """An HWIO weight as the channels-last OIHW tensor cuDNN reads (a copy
+    of the weight, made once a backward)."""
+    return w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+
+
+def _std_dgrad(gn, xn, wn):
+    """dx [N, H, W, C] of a VALID 3×3 conv from the masked cotangent gn
+    (an NCHW view of the channels-last gm). ``xn`` gives dx's shape and
+    layout (channels-last NCHW, so no layout copy is made); its values are
+    not read."""
+    dx = torch.ops.aten.convolution_backward(
+        gn, xn, wn, *_CONV3X3, [True, False, False])[0]
+    return dx.permute(0, 2, 3, 1).contiguous()
+
+
+def _std_wgrad(gn, xn, wn):
+    """dw [3, 3, C, O] (HWIO) of a VALID 3×3 conv."""
+    dw = torch.ops.aten.convolution_backward(
+        gn, xn, wn, *_CONV3X3, [False, True, False])[1]
+    return dw.permute(2, 3, 1, 0)
+
+
+class _StdConv3x3(Function):
+    @staticmethod
+    def forward(ctx, x, w, b, ops, site):
+        x, w = x.contiguous(), _cast(w, x)
+        y = ops.std_conv3x3(x, w, b.float())
+        ctx.save_for_backward(x, w, y)
+        ctx.ops, ctx.site = ops, site
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, y = ctx.saved_tensors
+        with trace.span("bwd", ctx.site, "/mask_bias"):
+            gm, db = ctx.ops.relu_bias_grad(g.contiguous(), y)
+        gn, xn = _nchw(gm), _nchw(x)
+        with trace.span("bwd", ctx.site, "/dgrad"):
+            wn = _oihw(w)
+            dx = _std_dgrad(gn, xn, wn) if ctx.needs_input_grad[0] else None
+        with trace.span("bwd", ctx.site, "/wgrad"):
+            dw = _std_wgrad(gn, xn, wn)
+        return dx, dw, db, None, None
+
+
+class _StdConv3x3Dual(Function):
+    @staticmethod
+    def forward(ctx, skip, up, w, b, ops, site, offset):
+        skip, up, w = skip.contiguous(), up.contiguous(), _cast(w, up)
+        c = skip.shape[-1]
+        y = ops.std_conv3x3_dual(skip, up, w[:, :, :c], w[:, :, c:],
+                                 b.float(), offset=offset)
+        ctx.save_for_backward(skip, up, w, y)
+        ctx.ops, ctx.site, ctx.offset = ops, site, offset
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        skip, up, w, y = ctx.saved_tensors
+        (oh, ow), (_, h, wd, c) = ctx.offset, up.shape
+        with trace.span("bwd", ctx.site, "/mask_bias"):
+            gm, db = ctx.ops.relu_bias_grad(g.contiguous(), y)
+        gn, upn = _nchw(gm), _nchw(up)
+        with trace.span("bwd", ctx.site, "/dgrad"):
+            wan, wbn = _oihw(w[:, :, :c]), _oihw(w[:, :, c:])
+            dskip = dup = None
+            if ctx.needs_input_grad[0]:  # the crop has up's shape
+                dskip = skip.new_zeros(skip.shape)
+                dskip[:, oh : oh + h, ow : ow + wd] = _std_dgrad(gn, upn, wan)
+            if ctx.needs_input_grad[1]:
+                dup = _std_dgrad(gn, upn, wbn)
+        with trace.span("bwd", ctx.site, "/wgrad"):
+            crop = _nchw(skip[:, oh : oh + h, ow : ow + wd])
+            dw = torch.cat([_std_wgrad(gn, crop, wan),
+                            _std_wgrad(gn, upn, wbn)], dim=2)
+        return dskip, dup, dw, db, None, None, None
+
+
 def conv2x2_t(x, w, b4, relu=True, *, ops=KERNEL_OPS, site=""):
     """Trainable H1: [N,hp,wp,4C] x [2,2,4C,4O] → [N,hp-1,wp-1,4O]."""
     _relu_only(relu)
@@ -264,3 +366,20 @@ def deconv_packed_t(x4, wm, b4, relu=True, *, ops=KERNEL_OPS, site=""):
     """Trainable H4 scatter (2×2/2 deconv, packed in and out)."""
     _relu_only(relu)
     return _DeconvPacked.apply(x4, wm, b4, ops, site)
+
+
+def std_conv3x3_t(x, w, b, *, ops=KERNEL_OPS, site=""):
+    """Trainable H8 bf16: x [N,H,W,C], w [3,3,C,O], b [O] →
+    relu(conv(x, w) + b) [N,H-2,W-2,O], rounded once to x's dtype."""
+    return _StdConv3x3.apply(x, w, b, ops, site)
+
+
+def std_conv3x3_dual_t(skip, up, w, b, *, offset, ops=KERNEL_OPS,
+                       site=""):
+    """Trainable H8 bf16 dual (the std decoder's concat-free first conv):
+    skip [N,hs,ws,C] read at the crop origin ``offset``, up [N,H,W,C], w
+    [3,3,2C,O] the concat weight (the skip's half first) → relu(conv(crop(
+    skip), w[:, :, :C]) + conv(up, w[:, :, C:]) + b) [N,H-2,W-2,O]; the
+    skip's gradient has its shape, zero outside the crop."""
+    offset = tuple(int(v) for v in offset)
+    return _StdConv3x3Dual.apply(skip, up, w, b, ops, site, offset)

@@ -13,7 +13,8 @@ launch (the model's
 hooks ``seg:fwd:<site>``, the Functions' backward parts
 ``seg:bwd:<site>/<part>``, the trainer's ``seg:fwd:input``,
 ``seg:fwd:loss`` and ``seg:optimizer``), prefixed in the backward with the
-autograd node that ran it (``ReluBackward0``, ``_Conv2x2Backward``, ...).
+autograd node that ran it (``_Conv2x2Backward``, ``_StdConv3x3Backward``,
+upconv1-2's ``ReluBackward0``, ...).
 A launch outside every range keeps the name of its outermost op. The
 ranges are the program's spans (utils/trace.py), on while the profiler
 records. The step's ``seg:train:sync`` gives the device's idle time from
@@ -44,12 +45,15 @@ STEPS = 3  # traced (and, before them, timed) steps
 # the packed sites and the standard levels of the flagship (4 levels)
 _PACKED = {"conv1_2", "conv2_1", "conv2_2", "conv8_1", "conv8_2", "conv9_1",
            "conv9_2", "upconv3", "upconv4"}
+# autograd's own nodes at the standard levels: upconv1-2 and the pools
 _STD_NODES = {"ConvolutionBackward0", "ReluBackward0", "AddBackward0",
               "MaxPool2DWithIndicesBackward0", "PermuteBackward0",
               "CloneBackward0", "CatBackward0"}
 _FUNCTIONS = ("_Conv2x2Backward", "_Conv2x2PoolBackward",
               "_Conv2x2DualBackward", "_Conv4x4s2Backward",
               "_MatmulRowsBackward", "_DeconvPackedBackward")
+# the std levels' 3×3 convs (H8 forward, nn/kernels/train.py)
+_STD_FUNCTIONS = ("_StdConv3x3Backward", "_StdConv3x3DualBackward")
 
 
 def site_of(event) -> str:
@@ -85,12 +89,22 @@ def category(site: str, group: str) -> str:
                     else "packed forwards: H1-H4")
         if name in ("head", "loss", "input", "pack_weights"):
             return "head, loss, input, weight packing"
-        return "std levels forward (cuDNN, bias, ReLU, pools, crops)"
+        if name.startswith("conv"):
+            return "std levels forward: 3x3 convs (H8)"
+        return "std levels forward: upconv1-2, pools (cuDNN, ATen)"
     if site == "optimizer":
         return "optimizer"
-    if not node and site in _FUNCTIONS:
+    if not node and site in _FUNCTIONS + _STD_FUNCTIONS:
         node, seg = site, ""
-    if node in _FUNCTIONS or site in _FUNCTIONS:
+    if node in _STD_FUNCTIONS:
+        if group.startswith("glue") or seg.endswith("/mask_bias"):
+            return "std levels backward: mask + bias grad"
+        if seg.endswith("/wgrad"):
+            return "std levels backward: wgrads (+ the dual's crop copy)"
+        if seg.endswith("/dgrad"):
+            return "std levels backward: dgrads (+ the dual's un-crop)"
+        return "std levels backward: other"
+    if node in _FUNCTIONS:
         if group.startswith("glue") or seg.endswith(("/mask", "/bias",
                                                      "/mask_bias")):
             return "packed backward: mask + bias grad (+ pool, un-crop)"
@@ -105,7 +119,7 @@ def category(site: str, group: str) -> str:
     if site == "SliceBackward0":
         return "crop backward (SliceBackward0: packed and std crops)"
     if site in _STD_NODES:
-        return "std levels backward (cuDNN, ReLU, bias sums, pools)"
+        return "std levels backward: upconv1-2, pools (cuDNN, ATen)"
     return "head, loss, input, weight packing"
 
 

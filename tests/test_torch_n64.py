@@ -349,8 +349,7 @@ def test_n64_step_kernels_vs_plain(gen, tmp_path):
         cb.reset_launches()
         loss, grads = trainer.loss_and_grads(batch)
         if ops is cf.KERNEL_OPS:
-            assert all(v > 0 if k not in cf.SERVE_ONLY else v == 0
-                       for k, v in cf.launches.items()), cf.launches
+            assert all(v > 0 for v in cf.launches.values()), cf.launches
             assert all(v > 0 for v in cb.launches.values()), cb.launches
         out.append((loss.item(), grads))
         del trainer

@@ -50,6 +50,9 @@ def _chain(*names):
       "aten::threshold_backward"), "ReluBackward0"),
     (("Optimizer.step#Adam.step", "seg:optimizer", "aten::_foreach_add"),
      "optimizer"),
+    (("autograd::engine::evaluate_function: _StdConv3x3DualBackward",
+      "seg:bwd:conv6_1/dgrad", "aten::convolution_backward"),
+     "_StdConv3x3DualBackward bwd:conv6_1/dgrad"),
     (("aten::item", "aten::_local_scalar_dense"), "aten::item"),
 ])
 def test_site_of(names, site):
@@ -61,8 +64,12 @@ def test_site_of(names, site):
     ("fwd:conv1_1", "H3 strided_conv4x4s2", "conv1_1 entry (forward)"),
     ("fwd:conv9_1", "copies", "packed forwards: crop copies"),
     ("fwd:conv9_1", "H2 packed_conv2x2_dual", "packed forwards: H1-H4"),
-    ("fwd:conv4_2", "library conv",
-     "std levels forward (cuDNN, bias, ReLU, pools, crops)"),
+    ("fwd:conv4_2", "H8 std_conv3x3 bf16",
+     "std levels forward: 3x3 convs (H8)"),
+    ("fwd:upconv1", "library conv",
+     "std levels forward: upconv1-2, pools (cuDNN, ATen)"),
+    ("fwd:std_pool", "other",
+     "std levels forward: upconv1-2, pools (cuDNN, ATen)"),
     ("fwd:loss", "other", "head, loss, input, weight packing"),
     ("_Conv2x2PoolBackward", "glue relu_bias_grad",
      "packed backward: mask + bias grad (+ pool, un-crop)"),
@@ -78,7 +85,21 @@ def test_site_of(names, site):
     ("SliceBackward0", "copies",
      "crop backward (SliceBackward0: packed and std crops)"),
     ("ConvolutionBackward0", "library conv",
-     "std levels backward (cuDNN, ReLU, bias sums, pools)"),
+     "std levels backward: upconv1-2, pools (cuDNN, ATen)"),
+    ("MaxPool2DWithIndicesBackward0", "other",
+     "std levels backward: upconv1-2, pools (cuDNN, ATen)"),
+    ("_StdConv3x3Backward bwd:conv3_1/mask_bias", "glue relu_bias_grad",
+     "std levels backward: mask + bias grad"),
+    ("_StdConv3x3Backward", "glue relu_bias_grad",
+     "std levels backward: mask + bias grad"),
+    ("_StdConv3x3Backward bwd:conv5_2/dgrad", "library conv",
+     "std levels backward: dgrads (+ the dual's un-crop)"),
+    ("_StdConv3x3DualBackward bwd:conv6_1/dgrad", "copies",
+     "std levels backward: dgrads (+ the dual's un-crop)"),
+    ("_StdConv3x3Backward bwd:conv3_2/wgrad", "library conv",
+     "std levels backward: wgrads (+ the dual's crop copy)"),
+    ("_StdConv3x3DualBackward bwd:conv7_1/wgrad", "copies",
+     "std levels backward: wgrads (+ the dual's crop copy)"),
     ("optimizer", "other", "optimizer"),
     ("MmBackward0", "library GEMM", "head, loss, input, weight packing"),
 ])

@@ -5,8 +5,8 @@ serving forward, single and dual, bias and ReLU fused
 On the CPU: the plain versions compute the function the kernel does (the
 f32 sum of the bf16 products, the f32 bias, ReLU, one rounding), which in
 f32 is nn/layers.conv2d and the concat-free dual exactly, and in bf16 the
-unfused path within its roundings; the serving route reaches the two ops
-at the ten std sites, the train route and a calibrated int8 request never.
+unfused path within its roundings; the serving and train routes reach the
+two ops at the ten std sites, a calibrated int8 request never.
 
 On the card (marked ``cuda``; they skip elsewhere):
 
@@ -94,9 +94,9 @@ def test_plain_is_layers_conv2d_in_f32(shape, o):
 
 @pytest.mark.parametrize("c,o", [(64, 128), (128, 256)])
 def test_plain_dual_is_the_concat_free_dual_in_f32(c, o):
-    """In f32 the dual's function is the train route's concat-free dual
-    (crop, two convs, their sum, the bias, ReLU) bit for bit, and the
-    crop-and-concat conv within f32 rounding."""
+    """In f32 the dual's function is the concat-free dual (crop, two convs,
+    their sum, the bias, ReLU) bit for bit, as both routes' hooks compute
+    it, and the crop-and-concat conv within f32 rounding."""
     gen = generator(4)
     cfg = ModelConfig(n_classes=2, input_dims=(188, 188), n_kernels=4)
     skip = torch.rand((2, 19, 23, c), generator=gen)
@@ -104,13 +104,15 @@ def test_plain_dual_is_the_concat_free_dual_in_f32(c, o):
     w = _wgt(gen, 3, 3, 2 * c, o).float()
     b = _bias(gen, o)
     p = {"s/w": w, "s/b": b}
-    want = UNetS2DTrain(cfg)._std_dual_conv(p, "s", skip, up)
+    sk = layers.center_crop_like(skip, up)
+    want = torch.relu(layers.conv2d(sk, w[:, :, :c], activation=None)
+                      + layers.conv2d(up, w[:, :, c:], activation=None) + b)
     off = _offset(skip, up)
     got = cf.std_conv3x3_dual_plain(skip, up, w[:, :, :c], w[:, :, c:], b,
                                     offset=off)
     assert torch.equal(got, want)
-    assert torch.equal(UNetS2DInference(cfg)._std_dual_conv(p, "s", skip, up),
-                       want)
+    for route in (UNetS2DInference, UNetS2DTrain):
+        assert torch.equal(route(cfg)._std_dual_conv(p, "s", skip, up), want)
     crop = layers.center_crop_like(skip, up)
     cat = layers.conv2d(torch.cat([crop, up], -1), w, b)
     torch.testing.assert_close(got, cat, rtol=1e-5, atol=1e-5)
@@ -181,9 +183,11 @@ def test_serving_route_runs_the_ten_std_sites():
     assert [c[2] for c in calls if c[2]] == [(4, 4), (16, 16)]
 
 
-def test_train_and_calibrated_int8_routes_never_call_the_ops():
-    """The train route keeps autograd through nn/layers.conv2d; the int8
-    route reaches the bf16 mode only while it calibrates."""
+def test_train_forward_calls_the_ops_and_int8_requests_never():
+    """The train route's forward takes the ten std sites through the ops
+    as serving does (its std_conv3x3_t / std_conv3x3_dual_t Functions),
+    and its backward calls them no more; the int8 route reaches the bf16
+    mode only while it calibrates, never in a request."""
     from segmentation_tpu_torch.models.unet_fast import UNetS2D
     from segmentation_tpu_torch.models.unet_int8 import UNetS2DInt8
     from segmentation_tpu_torch.nn.kernels import conv_int8 as ci
@@ -192,7 +196,12 @@ def test_train_and_calibrated_int8_routes_never_call_the_ops():
     calls = []
     model = UNetS2D(cfg, ops=_recording_ops(calls))
     x = _act(generator(2), 1, 188, 188, 3)
-    model(x).float().sum().backward()
+    logits = model(x)
+    assert [c[0] for c in calls] == ["std_conv3x3"] * 6 + [
+        "std_conv3x3_dual", "std_conv3x3", "std_conv3x3_dual", "std_conv3x3"]
+    assert [c[2] for c in calls if c[2]] == [(4, 4), (16, 16)]
+    calls.clear()
+    logits.float().sum().backward()
     assert calls == []
     q = UNetS2DInt8(cfg, ops=_recording_ops(calls), ops8=ci.PLAIN_OPS)
     p = q.prepare(init_params(cfg, generator(0)), calib_batches=[x])
@@ -341,11 +350,14 @@ def test_train_step_and_calibrated_int8_request_launch_none(gen, tmp_path):
     trainer.loss_and_grads(SyntheticSegmentation(2, (256, 256),
                                                  seed=3).get_batch())
     assert cf.launches["packed_conv2x2"] > 0
-    assert all(cf.launches[k] == 0 for k in cf.SERVE_ONLY), cf.launches
+    assert cf.launches["std_conv3x3"] == 8  # the train forward's, as served
+    assert cf.launches["std_conv3x3_dual"] == 2
     x = _act(gen, 2, 256, 256, 3, device="cuda")
+    cf.reset_launches()
     q = UNetS2DInt8(cfg)
     p = q.prepare(_params(cfg, "cuda"), calib_batches=[x], device="cuda")
     assert cf.launches["std_conv3x3"] == 8  # the calibration's forward
     cf.reset_launches()
     q.apply_argmax(p, x)
-    assert all(cf.launches[k] == 0 for k in cf.SERVE_ONLY), cf.launches
+    assert cf.launches["std_conv3x3"] == cf.launches["std_conv3x3_dual"] \
+        == 0, cf.launches

@@ -42,6 +42,10 @@ PARENT_TRAIN_RANGES = {
     "seg:fwd:head", "seg:fwd:input", "seg:fwd:loss", "seg:fwd:pack_weights",
     "seg:fwd:std_pool", "seg:optimizer",
 }
+# the backward parts of the std levels' 3×3 convs, whose Functions the
+# benchmark's std_bwd_ms.train reads
+STD_BWD_RANGES = {f"seg:bwd:conv{i}_{j}/{part}" for i in range(3, 8)
+                  for j in (1, 2) for part in ("mask_bias", "dgrad", "wgrad")}
 # the sites of a served 4-level request, in order (two std pools)
 SERVED = ["conv1_1", "conv1_2", "conv2_1", "conv2_2", "conv3_1", "conv3_2",
           "std_pool", "conv4_1", "conv4_2", "std_pool", "conv5_1", "conv5_2",
@@ -193,8 +197,8 @@ def test_the_train_step_keeps_the_parents_ranges(tiny):
         trainer = _trainer(cfg, params, tmp)
         names = _ranges(lambda: trainer.train_step(_batch((188, 188))))
     count = collections.Counter(names)
-    assert set(count) == PARENT_TRAIN_RANGES | {"seg:train:step",
-                                                "seg:train:sync"}
+    assert set(count) == PARENT_TRAIN_RANGES | STD_BWD_RANGES | {
+        "seg:train:step", "seg:train:sync"}
     assert count["seg:train:step"] == count["seg:train:sync"] == 1
     assert count["seg:fwd:loss"] == 1
 
