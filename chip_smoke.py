@@ -991,6 +991,7 @@ def _tile_plan_of(name, args, kw):
     from segmentation_tpu_torch.nn.kernels import conv_int8 as ci
     from segmentation_tpu_torch.nn.kernels.tiles import (
         entry_tile_plan,
+        std_plan,
         tile_plan,
     )
 
@@ -1012,15 +1013,13 @@ def _tile_plan_of(name, args, kw):
         n, h, w, _ = args[0].shape
         s = 2 if kw.get("scatter") else 1
         return ci.rows_s8_plan(n, s * h, s * w)
-    if name in STD_BF16:
-        x, w = (args[1], args[2]) if name.endswith("dual") else args[:2]
-        n, h, wd, _ = x.shape
-        return cf.std_bf16_plan(n, h - 2, wd - 2, w.shape[-1])
     if name.startswith("std_conv3x3"):
         dual = "dual" in name
-        n, h, w, _ = args[1 if dual else 0].shape
-        return ci.std_plan(n, h - 2, w - 2, args[2 if dual else 1].shape[-1],
-                           dual)
+        x, w = (args[1], args[2]) if dual else args[:2]
+        n, h, wd, _ = x.shape
+        # one accumulator, but the s8 dual's one a side
+        acc = 2 if dual and name not in STD_BF16 else 1
+        return std_plan(n, h - 2, wd - 2, w.shape[-1], acc)
     if name.startswith("packed_conv2x2_dual_s8"):
         up, wqa = args[1], args[2]
         n, hp, wp, _ = up.shape

@@ -25,7 +25,7 @@
 // add, the crop copy).
 //
 // Design:
-//  - Output tiles of th x tw pixels of one image (conv_flat.std_bf16_plan),
+//  - Output tiles of th x tw pixels of one image (tiles.std_plan),
 //    laid out as GEMM rows m = a (tw + 2) + b: two junk columns a row, so
 //    each of the nine taps (u, v) reads one halo box shifted by whole rows,
 //    u (tw + 2) + v. Junk rows store nothing.
@@ -61,8 +61,8 @@ struct StdBf16Tiles {
   static constexpr int NI = NB;
   static constexpr int MI = NB == 128 ? 2 : 1;
   static constexpr bool PINGPONG = false;
-  // GEMM rows of a tile and the widest row stride tw + 2
-  // (conv_flat.std_bf16_tile)
+  // GEMM rows of a tile and the widest row stride tw + 2 (tiles.std_tile,
+  // one accumulator: the s8 single's tiles)
   static constexpr int BM = 128 * MI;
   static constexpr int W_MAX = 128;
   // an A slot: the largest tap shift (2 (tw + 2) + 2) and BM rows after it
@@ -243,7 +243,7 @@ int run_std_bf16(const StdBf16Args& a) {
     return sm90::launch(std_conv3x3_bf16_kernel<NB, DUAL>, p, a.stream);
 }
 
-// The column tile: 256 where it divides O, else 128 (conv_flat.std_bf16_tile).
+// The column tile: 256 where it divides O, else 128 (tiles.std_tile).
 template <bool DUAL>
 int std_bf16_cols(const StdBf16Args& a) {
   return a.o % 256 == 0 ? run_std_bf16<256, DUAL>(a)
@@ -264,7 +264,7 @@ inline bool std_bf16_ok(int n, int hx, int wx, int c, int o, int ldv,
 
 // The single: x [n, hx, wx, c] bf16; w [3, 3, c, o] bf16 (strides ldu, ldv,
 // o, 1); b [o] f32; y [n, hx-2, wx-2, o] bf16; (th, tw) the output tile
-// from conv_flat.std_bf16_plan. Every pointer 16-byte aligned.
+// from tiles.std_plan. Every pointer 16-byte aligned.
 extern "C" int seg_std_conv3x3(const void* x, const void* w, const void* b,
                                void* y, int n, int hx, int wx, int c, int o,
                                int ldv, int ldu, int th, int tw,
@@ -293,7 +293,7 @@ extern "C" int seg_std_conv3x3(const void* x, const void* w, const void* b,
 // The dual: skip [n, hs, ws, c] center-cropped at (oh, ow) to up's [n, hx,
 // wx, c], both bf16; wa, wb [3, 3, c, o] bf16, the skip's and up's halves
 // of the concat weight (each with strides ldu, ldv, o, 1); b [o] f32; y
-// [n, hx-2, wx-2, o] bf16; (th, tw) from conv_flat.std_bf16_plan. Every
+// [n, hx-2, wx-2, o] bf16; (th, tw) from tiles.std_plan. Every
 // pointer 16-byte aligned.
 extern "C" int seg_std_conv3x3_dual(const void* skip, const void* up,
                                     const void* wa, const void* wb,

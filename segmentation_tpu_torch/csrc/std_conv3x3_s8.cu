@@ -73,7 +73,8 @@ struct StdTiles {
   static constexpr int NI = SPLIT_N ? 128 : NB;
   static constexpr int MI = NB == 128 && !DUAL ? 2 : 1;
   static constexpr bool PINGPONG = false;
-  // GEMM rows of a tile and the widest row stride tw + 2 (conv_int8.std_tile)
+  // GEMM rows of a tile and the widest row stride tw + 2 (tiles.std_tile,
+  // whose rows the dual's two accumulators halve)
   static constexpr int BM = SPLIT_N ? 64 : 128 * MI;
   static constexpr int W_MAX = BM >= 128 ? 128 : 64;
   // an A slot: the largest tap shift (2 (tw + 2) + 2) and BM rows after it
@@ -374,7 +375,7 @@ int run_std(const StdArgs& a) {
                         a.stream);
 }
 
-// The column tile: 256 where it divides O, else 128 (conv_int8.std_tile).
+// The column tile: 256 where it divides O, else 128 (tiles.std_tile).
 template <bool DUAL, bool BF16_OUT, bool HALF>
 int std_cols(const StdArgs& a) {
   return a.o % 256 == 0 ? run_std<256, DUAL, BF16_OUT, HALF>(a)
@@ -386,7 +387,7 @@ int std_cols(const StdArgs& a) {
 // The single: x [n, hx, wx, c] s8 (c % 16 == 0); wk [o, 9c] s8, the
 // K-major copy of the weight [3, 3, c, o] (conv_int8.k_major; o % 128 ==
 // 0); mul, add [o] f32; y [n, hx-2, wx-2, o] s8 (requant != 0) or bf16;
-// (th, tw) the output tile from conv_int8.std_plan. Every pointer 16-byte
+// (th, tw) the output tile from tiles.std_plan. Every pointer 16-byte
 // aligned.
 extern "C" int seg_std_conv3x3_s8(const void* x, const void* wk,
                                   const void* mul, const void* add, void* y,
@@ -425,7 +426,7 @@ extern "C" int seg_std_conv3x3_s8(const void* x, const void* wk,
 // to up's grid; wka, wkb [o, 9c] s8 the K-major copies (o % 128 == 0);
 // cs_a, cs_b, bias [o] f32; y [n, hx-2, wx-2, o] s8 requantized at
 // out_scale (> 0) or bf16 (out_scale 0); (th, tw) the output tile from
-// conv_int8.std_plan. Every pointer 16-byte aligned.
+// tiles.std_plan. Every pointer 16-byte aligned.
 extern "C" int seg_std_conv3x3_dual_s8(
     const void* skip, const void* up, const void* wka, const void* wkb,
     const void* cs_a, const void* cs_b, const void* bias, void* y, int n,

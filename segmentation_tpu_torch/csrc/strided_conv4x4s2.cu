@@ -1,7 +1,7 @@
 // H3 strided_conv4x4s2: a 3x3 VALID conv whose output lands packed, as a
 // 4x4 stride-2 VALID conv from an unpacked [N, H, W, C] input to packed
 // [N, (H-2)/2, (W-2)/2, 4O] with the s2d-folded weights w4 [4, 4, C, 4O]
-// (models/unet_fast.py pack_conv3_weight_s2). Every mode runs on the
+// (models/unet_fast.py pack_conv3_weight_s2_t). Every mode runs on the
 // Hopper mainloop (sm90_igemm.cuh: TMA or producer-gathered A, wgmma,
 // warp-specialised, persistent) with the output side of
 // packed_conv2x2_fwd.cuh (FwdOut):

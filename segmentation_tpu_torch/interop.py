@@ -40,7 +40,7 @@ def prepared_from_jax(prepared: Mapping[str, np.ndarray], model,
     its scale graph has no deconv site): the kernels' epilogue vectors are
     added once, here."""
     has_wqm = any(k.endswith("/wqm") for k in prepared)
-    if has_wqm != bool(model._deconv_names()):
+    if has_wqm != (model.quant_deconvs and bool(model.sites.ups)):
         raise ValueError(
             f"the JAX dict was prepared with quant_deconvs={has_wqm}, the "
             f"model has quant_deconvs={model.quant_deconvs}")

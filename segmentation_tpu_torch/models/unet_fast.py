@@ -26,6 +26,13 @@ the span ``fwd:<site>`` (utils/trace.py), a fused kernel in one span named
 for the sites it fuses (``fwd:conv9_2+head``), so that the subclasses
 inherit the spans with the forward.
 
+The site layout lives in one table, ``UNetSites`` (``unet_sites``, built
+once per model as ``sites``): which conv is an entry, packed, dual,
+upconv or std site, each decoder conv's skip and each site's consumer.
+The packed format is made by one function, ``pack_sites`` (the gathers
+``pack_conv3_weight_t`` / ``pack_conv3_weight_s2_t``): serving's
+``prepare`` runs it once on the host, the trainable model every step.
+
 ``UNetS2D`` is the trainable model: an ``nn.Module`` holding the f32 U-Net
 params, whose forward packs the weights differentiably (a gather of the
 [3, 3, C, O] kernels) and runs ``apply`` through the train hooks: each
@@ -40,7 +47,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -65,40 +72,6 @@ from segmentation_tpu_torch.nn.packing import (  # noqa: F401 (re-export)
 )
 from segmentation_tpu_torch.nn.shapes import unet_output_hw
 from segmentation_tpu_torch.utils import trace
-
-
-def pack_conv3_weight(w: np.ndarray) -> np.ndarray:
-    """[3, 3, C, O] → [2, 2, 4C, 4O] packed-space kernel:
-    W2[u, v, (a,b,c), (d,e,o)] = W[2u+a-d, 2v+b-e, c, o] where both tap
-    indices land in [0, 3), else 0."""
-    w = np.asarray(w)
-    c, o = w.shape[2], w.shape[3]
-    w2 = np.zeros((2, 2, 4, c, 4, o), w.dtype)
-    for u in range(2):
-        for v in range(2):
-            for a in range(2):
-                for b in range(2):
-                    for d in range(2):
-                        for e in range(2):
-                            ky, kx = 2 * u + a - d, 2 * v + b - e
-                            if 0 <= ky < 3 and 0 <= kx < 3:
-                                w2[u, v, 2 * a + b, :, 2 * d + e, :] = (
-                                    w[ky, kx]
-                                )
-    return w2.reshape(2, 2, 4 * c, 4 * o)
-
-
-def pack_conv3_weight_s2(w: np.ndarray) -> np.ndarray:
-    """[3, 3, C, O] → [4, 4, C, 4O] stride-2 kernel:
-    K[u, v, c, (2d+e)·O + o] = W[u-d, v-e, c, o] where the tap is in
-    [0, 3), else 0."""
-    w = np.asarray(w)
-    c, o = w.shape[2], w.shape[3]
-    k4 = np.zeros((4, 4, c, 4, o), w.dtype)
-    for d in range(2):
-        for e in range(2):
-            k4[d : d + 3, e : e + 3, :, 2 * d + e, :] = w
-    return k4.reshape(4, 4, c, 4 * o)
 
 
 @functools.lru_cache(None)
@@ -127,19 +100,113 @@ def _gather_taps(w: torch.Tensor, s2: bool) -> torch.Tensor:
 
 
 def pack_conv3_weight_t(w: torch.Tensor) -> torch.Tensor:
-    """pack_conv3_weight as a differentiable gather + mask of a [3, 3, C, O]
-    tensor (segmentation_tpu.models.unet_fast.pack_conv3_weight_jnp)."""
+    """[3, 3, C, O] → [2, 2, 4C, 4O] packed-space kernel, a differentiable
+    gather + mask: W2[u, v, (a,b,c), (d,e,o)] = W[2u+a-d, 2v+b-e, c, o]
+    where both tap indices land in [0, 3), else 0
+    (segmentation_tpu.models.unet_fast.pack_conv3_weight)."""
     c, o = w.shape[2], w.shape[3]
     w2 = _gather_taps(w, False)  # [u, v, s_in, s_out, C, O]
     return w2.permute(0, 1, 2, 4, 3, 5).reshape(2, 2, 4 * c, 4 * o)
 
 
 def pack_conv3_weight_s2_t(w: torch.Tensor) -> torch.Tensor:
-    """pack_conv3_weight_s2 as a differentiable gather + mask
-    (pack_conv3_weight_s2_jnp)."""
+    """[3, 3, C, O] → [4, 4, C, 4O] stride-2 kernel, a differentiable
+    gather + mask: K[u, v, c, (2d+e)·O + o] = W[u-d, v-e, c, o] where the
+    tap is in [0, 3), else 0 (segmentation_tpu.models.unet_fast.
+    pack_conv3_weight_s2)."""
     c, o = w.shape[2], w.shape[3]
     w4 = _gather_taps(w, True)  # [u, v, s_out, C, O]
     return w4.permute(0, 1, 3, 2, 4).reshape(4, 4, c, 4 * o)
+
+
+@dataclasses.dataclass(frozen=True)
+class UNetSites:
+    """The conv sites of the packed U-Net, by name and role (``unet_sites``
+    builds it once per model). ``encoder``: (conv_1, conv_2) of each level,
+    the bottleneck's last; ``decoder``: (level, upconv, conv_1, conv_2),
+    the deepest first. The packed levels' sites: ``entry`` (the 3×3 conv
+    into the packed layout, H3), ``packed`` (packed 2×2 convs, H1),
+    ``dual`` (the decoder's concat-free first convs, H2) and ``ups`` (their
+    upconvs, H4); the standard levels' 3×3 convs ``std`` (H8), the
+    decoder's duals ``std_dual`` among them. ``skip``: each decoder conv_1
+    → the encoder conv whose output is its skip. ``consumer``: each site →
+    the site that reads its output (an upconv's: its dual's up side), the
+    int8 scale graph's edges."""
+
+    encoder: Tuple[Tuple[str, str], ...]
+    decoder: Tuple[Tuple[int, str, str, str], ...]
+    entry: Tuple[str, ...]
+    packed: Tuple[str, ...]
+    dual: Tuple[str, ...]
+    ups: Tuple[str, ...]
+    std: Tuple[str, ...]
+    std_dual: Tuple[str, ...]
+    skip: Dict[str, str]
+    consumer: Dict[str, str]
+
+    @property
+    def packed_sites(self) -> Tuple[str, ...]:
+        """Every site with packed weights and a tiled bias ``b4``."""
+        return self.entry + self.packed + self.dual + self.ups
+
+
+def unet_sites(levels: int, packed_levels: int) -> UNetSites:
+    """The site table of a U-Net of ``levels`` levels, the first
+    ``packed_levels`` of them packed."""
+    L, pl_ = levels, packed_levels
+    enc = tuple((f"conv{lvl + 1}_1", f"conv{lvl + 1}_2")
+                for lvl in range(L + 1))
+    dec = tuple((lvl, f"upconv{i + 1}", f"conv{L + 2 + i}_1",
+                 f"conv{L + 2 + i}_2")
+                for i, lvl in enumerate(reversed(range(L))))
+    pdec = [d for d in dec if d[0] < pl_]
+    sdec = [d for d in dec if d[0] >= pl_]
+    order = [n for pair in enc for n in pair] + [
+        n for _, up, c1, c2 in dec for n in (up, c1, c2)]
+    return UNetSites(
+        encoder=enc, decoder=dec,
+        entry=tuple(c1 for c1, _ in enc[:pl_]),
+        packed=tuple(c2 for _, c2 in enc[:pl_])
+        + tuple(c2 for *_, c2 in pdec),
+        dual=tuple(c1 for _, _, c1, _ in pdec),
+        ups=tuple(up for _, up, _, _ in pdec),
+        std=tuple(n for pair in enc[pl_:] for n in pair)
+        + tuple(n for _, _, c1, c2 in sdec for n in (c1, c2)),
+        std_dual=tuple(c1 for _, _, c1, _ in sdec),
+        skip={c1: enc[lvl][1] for lvl, _, c1, _ in dec},
+        consumer=dict(zip(order, order[1:])))
+
+
+def pack_sites(sites: UNetSites, p) -> Dict[str, torch.Tensor]:
+    """The packed weights and tiled biases of every packed site, from the
+    U-Net params ``p`` (by name), each differentiable in them: the
+    entries' ``w4``, the packed convs' ``w2``, the duals' ``w2a`` /
+    ``w2b`` (the skip's and the up's halves of the concat weight), the
+    upconvs' ``wm`` [C, 4O] and each one's ``b4`` [4O]."""
+    out = {}
+    for name in sites.entry:
+        out[f"{name}/w4"] = pack_conv3_weight_s2_t(p[f"{name}/w"])
+    for name in sites.packed:
+        out[f"{name}/w2"] = pack_conv3_weight_t(p[f"{name}/w"])
+    for name in sites.dual:
+        w = p[f"{name}/w"]
+        ci = w.shape[2] // 2  # input = concat(skip C, up C)
+        out[f"{name}/w2a"] = pack_conv3_weight_t(w[:, :, :ci])
+        out[f"{name}/w2b"] = pack_conv3_weight_t(w[:, :, ci:])
+    for name in sites.ups:
+        w = p[f"{name}/w"]
+        c, o = w.shape[2], w.shape[3]
+        out[f"{name}/wm"] = w.permute(2, 0, 1, 3).reshape(c, 4 * o)
+    for name in sites.packed_sites:
+        out[f"{name}/b4"] = tile_bias4(p[f"{name}/b"])
+    return out
+
+
+def _host_f32(v) -> torch.Tensor:
+    """A weight (tensor or array) as an f32 tensor on the host."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().to("cpu", torch.float32)
+    return torch.as_tensor(np.asarray(v, np.float32))
 
 
 class _Pool4Select(torch.autograd.Function):
@@ -225,85 +292,45 @@ class UNetS2DInference:
     def packed_levels(self) -> int:
         return min(2, self.levels)
 
-    # ---- weight preparation ---------------------------------------------
-    def _site_names(self):
-        """(entry convs, packed convs, dual convs, packed-level upconvs)."""
-        L, pl_ = self.levels, self.packed_levels
-        entry = [f"conv{lvl + 1}_1" for lvl in range(pl_)]
-        packed = [f"conv{lvl + 1}_2" for lvl in range(pl_)]
-        dual, ups = [], []
-        for i, lvl in enumerate(reversed(range(L))):
-            if lvl < pl_:
-                dual.append(f"conv{L + 2 + i}_1")
-                packed.append(f"conv{L + 2 + i}_2")
-                ups.append(f"upconv{i + 1}")
-        return entry, packed, dual, ups
+    def __post_init__(self):
+        if self.levels < 1:
+            raise ValueError("the s2d U-Net needs at least one level")
+        self.sites = unet_sites(self.levels, self.packed_levels)
 
-    def _std_conv_names(self):
-        """The standard levels' 3×3 convs, the decoder's duals included."""
-        L, pl_ = self.levels, self.packed_levels
-        names = []
-        for lvl in range(pl_, L):
-            names += [f"conv{lvl + 1}_1", f"conv{lvl + 1}_2"]
-        names += [f"conv{L + 1}_1", f"conv{L + 1}_2"]
-        for i, lvl in enumerate(reversed(range(L))):
-            if lvl >= pl_:
-                names += [f"conv{L + 2 + i}_1", f"conv{L + 2 + i}_2"]
-        return names
+    # ---- weight preparation ---------------------------------------------
+    def _host_packed(self, params) -> Dict[str, torch.Tensor]:
+        """The params as f32 host tensors, with the packed sites' packed
+        weights and tiled biases (``pack_sites``)."""
+        host = {name: _host_f32(v) for name, v in params.items()}
+        with torch.no_grad():
+            host.update(pack_sites(self.sites, host))
+        return host
+
+    def _put(self, host, dtype, device) -> Dict[str, torch.Tensor]:
+        """``_host_packed``'s dict on ``device``: every weight in
+        ``dtype``, the packed sites' ``b4`` and the std convs' biases f32
+        (the kernels' operand types), and the two-class mask head."""
+        f32 = {f"{name}/b4" for name in self.sites.packed_sites}
+        f32.update(f"{name}/b" for name in self.sites.std)
+        out = {name: v.to(device=device,
+                          dtype=torch.float32 if name in f32 else dtype)
+               for name, v in host.items()}
+        if self.cfg.n_classes == 2:
+            wd, bd = head_diff(host["output/w"].to(device),
+                               host["output/b"].to(device))
+            out["head/wd"] = wd.to(torch.bfloat16)  # the kernel's operand
+            out["head/bd"] = bd
+        return out
 
     def prepare(self, params: Dict[str, torch.Tensor],
                 dtype: torch.dtype = torch.float32,
                 device=None) -> Dict[str, torch.Tensor]:
-        """Pack the packed-site weights once (host-side numpy), cast every
-        weight to ``dtype``, tile the packed sites' biases to [4O] f32 and
-        keep the std convs' biases f32 (the kernels' operand types). Runs
-        in the span ``setup:prepare``."""
-        if self.levels < 1:
-            raise ValueError("the s2d U-Net needs at least one level")
-
-        def f32(name):
-            v = params[name]
-            v = v.detach().cpu() if isinstance(v, torch.Tensor) else v
-            return np.asarray(v, np.float32)
-
-        def put(arr, dt):
-            return torch.as_tensor(arr).to(device=device, dtype=dt)
-
-        entry, packed, dual, ups = self._site_names()
-        out = {}
+        """Pack the packed-site weights once on the host (``pack_sites``),
+        cast every weight to ``dtype``, tile the packed sites' biases to
+        [4O] f32 and keep the std convs' biases f32 (the kernels' operand
+        types). Runs in the span ``setup:prepare``."""
         with trace.span("setup:prepare"):
-            for name, v in params.items():  # std levels, head: plain weights
-                out[name] = put(f32(name), dtype)
-            for name in entry:
-                out[f"{name}/w4"] = put(
-                    pack_conv3_weight_s2(f32(f"{name}/w")), dtype)
-            for name in packed + dual:
-                w = f32(f"{name}/w")
-                if name in dual:
-                    ci = w.shape[2] // 2  # input = concat(skip C, up C)
-                    out[f"{name}/w2a"] = put(
-                        pack_conv3_weight(w[:, :, :ci]), dtype)
-                    out[f"{name}/w2b"] = put(
-                        pack_conv3_weight(w[:, :, ci:]), dtype)
-                else:
-                    out[f"{name}/w2"] = put(pack_conv3_weight(w), dtype)
-            for name in ups:
-                w = f32(f"{name}/w")
-                c, o = w.shape[2], w.shape[3]
-                out[f"{name}/wm"] = put(
-                    np.transpose(w, (2, 0, 1, 3)).reshape(c, 4 * o), dtype
-                )
-            for name in entry + packed + dual + ups:
-                out[f"{name}/b4"] = tile_bias4(put(f32(f"{name}/b"),
-                                                   torch.float32))
-            for name in self._std_conv_names():
-                out[f"{name}/b"] = put(f32(f"{name}/b"), torch.float32)
-            if self.cfg.n_classes == 2:
-                wd, bd = head_diff(put(f32("output/w"), torch.float32),
-                                   put(f32("output/b"), torch.float32))
-                out["head/wd"] = wd.to(torch.bfloat16)  # the kernel's operand
-                out["head/bd"] = bd
-        return out
+            return self._put(self._host_packed(params), dtype, device)
 
     # ---- conv-site hooks (models/unet_int8.py overrides them) -----------
     def _encode_packed(self, p, lvl, h):
@@ -311,7 +338,7 @@ class UNetS2DInference:
         runs level 1 unfused through these two hooks too: conv1_1 in bf16
         (its ``_strided``), quantized and convolved in s8 by its
         ``_conv_pool``."""
-        c1, c2 = f"conv{lvl + 1}_1", f"conv{lvl + 1}_2"
+        c1, c2 = self.sites.encoder[lvl]
         with trace.span("fwd", c1):
             h4 = self._strided(p, c1, h)
         with trace.span("fwd", c2):
@@ -389,7 +416,7 @@ class UNetS2DInference:
         # ---- encoder: standard levels + bottleneck ---------------------
         span = trace.span
         for lvl in range(pl_, L + 1):
-            for name in (f"conv{lvl + 1}_1", f"conv{lvl + 1}_2"):
+            for name in self.sites.encoder[lvl]:
                 with span("fwd", name):
                     h = self._std_conv(p, name, h)
             if lvl < L:
@@ -399,9 +426,7 @@ class UNetS2DInference:
 
         # ---- decoder -----------------------------------------------------
         packed = False
-        for i, lvl in enumerate(reversed(range(L))):
-            up, c1, c2 = f"upconv{i + 1}", f"conv{L + 2 + i}_1", \
-                f"conv{L + 2 + i}_2"
+        for lvl, up, c1, c2 in self.sites.decoder:
             skip = skips[lvl]
             if lvl < pl_:
                 with span("fwd", up):
@@ -540,22 +565,7 @@ class UNetS2D(nn.Module):
         """The params plus the packed weights and tiled biases of the
         packed sites, every one differentiable in the params."""
         p = dict(self.params.items())
-        entry, packed, dual, ups = self.net._site_names()
-        for name in entry:
-            p[f"{name}/w4"] = pack_conv3_weight_s2_t(p[f"{name}/w"])
-        for name in packed:
-            p[f"{name}/w2"] = pack_conv3_weight_t(p[f"{name}/w"])
-        for name in dual:
-            w = p[f"{name}/w"]
-            ci = w.shape[2] // 2  # input = concat(skip C, up C)
-            p[f"{name}/w2a"] = pack_conv3_weight_t(w[:, :, :ci])
-            p[f"{name}/w2b"] = pack_conv3_weight_t(w[:, :, ci:])
-        for name in ups:
-            w = p[f"{name}/w"]
-            c, o = w.shape[2], w.shape[3]
-            p[f"{name}/wm"] = w.permute(2, 0, 1, 3).reshape(c, 4 * o)
-        for name in entry + packed + dual + ups:
-            p[f"{name}/b4"] = tile_bias4(p[f"{name}/b"])
+        p.update(pack_sites(self.net.sites, p))
         return p
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -59,8 +59,6 @@ import torch
 from segmentation_tpu_torch.models.unet import unet_param_shapes
 from segmentation_tpu_torch.models.unet_fast import (
     UNetS2DInference,
-    pack_conv3_weight,
-    pack_conv3_weight_s2,
     std_crop,
     std_crop_offset,
 )
@@ -84,21 +82,12 @@ _PLANNED = "conv1_1/qmul"  # written by UNetS2DInt8.plan
 
 # ------------------------------------------------------------ quantization
 def quantize_weight(w: np.ndarray):
-    """[kh, kw, CI, CO] → (int8 weights, per-CO float32 scales):
-    max|w| / 127 per output channel, floored at 1e-8, round half to even,
-    clip to ±127."""
+    """A weight [..., O] (a conv's [kh, kw, CI, CO], the deconv's packed wm
+    [C, 4O]) → (int8 weights, per-O float32 scales): max|w| / 127 over
+    every other axis, floored at 1e-8, round half to even, clip to ±127."""
     w = np.asarray(w, np.float32)
-    s = np.max(np.abs(w), axis=(0, 1, 2)) / 127.0
+    s = np.max(np.abs(w), axis=tuple(range(w.ndim - 1))) / 127.0
     s = np.maximum(s, 1e-8)
-    wq = np.clip(np.round(w / s), -127, 127).astype(np.int8)
-    return wq, s.astype(np.float32)
-
-
-def quantize_matrix(w: np.ndarray):
-    """[K, O] matmul weight (the deconv's packed wm [C, 4O]) → (int8
-    weights, per-O float32 scales)."""
-    w = np.asarray(w, np.float32)
-    s = np.maximum(np.max(np.abs(w), axis=0) / 127.0, 1e-8)
     wq = np.clip(np.round(w / s), -127, 127).astype(np.int8)
     return wq, s.astype(np.float32)
 
@@ -170,74 +159,48 @@ class UNetS2DInt8(UNetS2DInference):
 
     _calibrating = None  # {site: running max|x|} during calibration
 
-    # ---- site names ----------------------------------------------------
-    def _deconv_names(self):
-        """The packed-decoder upconvs that run int8 (none without
-        ``quant_deconvs``)."""
-        return self._site_names()[3] if self.quant_deconvs else []
-
-    def _std_dual_names(self):
-        L, pl_ = self.levels, self.packed_levels
-        return [f"conv{L + 2 + i}_1"
-                for i, lvl in enumerate(reversed(range(L))) if lvl >= pl_]
-
     # ---- weights and calibration ----------------------------------------
     def prepare(self, params: Dict[str, torch.Tensor],
                 calib_batches: Sequence[torch.Tensor] = (),
                 dtype: torch.dtype = torch.bfloat16,
                 device=None) -> Dict[str, torch.Tensor]:
-        """The bf16 prepare, plus the int8 weights (quantized from the f32
+        """The bf16 prepare, plus the int8 weights (quantized from its f32
         packed weights, per 4O column) and, given calibration batches, the
         activation scales ``ascale`` / ``ascale_a`` / ``ascale_b`` (0-d
         f32 host tensors) of every site and the kernels' epilogue vectors.
         Without calibration batches no activation scale exists and the
         forward is the bf16 one. The weights' part runs in the span
         ``setup:prepare``, the calibration in ``setup:calibrate``."""
-        prepared = super().prepare(params, dtype=dtype, device=device)
-
-        def w32(name):
-            v = params[name]
-            v = v.detach().cpu() if isinstance(v, torch.Tensor) else v
-            return np.asarray(v, np.float32)
-
-        def put(name, wq_key, ws_key, quantized):
-            wq, ws = quantized
-            prepared[f"{name}/{wq_key}"] = torch.as_tensor(wq).to(device)
-            prepared[f"{name}/{ws_key}"] = torch.as_tensor(ws).to(device)
-
-        entry, packed, dual, _ = self._site_names()
-        std, std_dual = self._std_conv_names(), self._std_dual_names()
+        s = self.sites
         with trace.span("setup:prepare"):
-            for name in entry:
-                put(name, "wq4", "wscale4", quantize_weight(
-                    pack_conv3_weight_s2(w32(f"{name}/w"))))
-            for name in packed:
-                put(name, "wq", "wscale",
-                    quantize_weight(pack_conv3_weight(w32(f"{name}/w"))))
-            for name in dual:
-                w = w32(f"{name}/w")
-                ci = w.shape[2] // 2  # input = concat(skip C, up C)
-                put(name, "wq_a", "wscale_a",
-                    quantize_weight(pack_conv3_weight(w[:, :, :ci])))
-                put(name, "wq_b", "wscale_b",
-                    quantize_weight(pack_conv3_weight(w[:, :, ci:])))
-            for name in std:
-                put(name, "wq", "wscale", quantize_weight(w32(f"{name}/w")))
-            for name in std_dual:
-                w = w32(f"{name}/w")
+            host = self._host_packed(params)
+            prepared = self._put(host, dtype, device)
+
+            def put(name, wq_key, ws_key, w):
+                for k, v in zip((wq_key, ws_key), quantize_weight(w.numpy())):
+                    prepared[f"{name}/{k}"] = torch.as_tensor(v).to(device)
+
+            for name in s.entry:
+                put(name, "wq4", "wscale4", host[f"{name}/w4"])
+            for name in s.packed:
+                put(name, "wq", "wscale", host[f"{name}/w2"])
+            for name in s.dual:
+                put(name, "wq_a", "wscale_a", host[f"{name}/w2a"])
+                put(name, "wq_b", "wscale_b", host[f"{name}/w2b"])
+            for name in s.std:
+                put(name, "wq", "wscale", host[f"{name}/w"])
+            for name in s.std_dual:
+                w = host[f"{name}/w"]
                 ca = w.shape[2] - w.shape[3]
                 if ca != w.shape[3]:
                     raise ValueError(f"{name}: concat width {w.shape}")
-                put(name, "wq_a", "wscale_a", quantize_weight(w[:, :, :ca]))
-                put(name, "wq_b", "wscale_b", quantize_weight(w[:, :, ca:]))
-            for name in self._deconv_names():
-                w = w32(f"{name}/w")
-                c, o = w.shape[2], w.shape[3]
-                put(name, "wqm", "wscale", quantize_matrix(
-                    np.transpose(w, (2, 0, 1, 3)).reshape(c, 4 * o)))
+                put(name, "wq_a", "wscale_a", w[:, :, :ca])
+                put(name, "wq_b", "wscale_b", w[:, :, ca:])
+            for name in self._int8_ups:
+                put(name, "wqm", "wscale", host[f"{name}/wm"])
             for name in params:  # the int8 epilogues add f32 biases
                 if name.endswith("/b"):
-                    prepared[name] = torch.as_tensor(w32(name)).to(device)
+                    prepared[name] = host[name].to(device)
         if len(calib_batches):
             self._calibrate(prepared, calib_batches, dtype)
         return prepared
@@ -252,11 +215,7 @@ class UNetS2DInt8(UNetS2DInference):
             self.plan(p)
 
     def _calibrate_scales(self, p, calib_batches, dtype) -> None:
-        entry, packed, dual, _ = self._site_names()
-        std, std_dual = self._std_conv_names(), self._std_dual_names()
-        dual_a = set(dual) | set(std_dual)
-        sites = (entry + packed + dual + std + self._deconv_names()
-                 + [f"{n}@b" for n in dual + std_dual])
+        s = self.sites
         self._calibrating = {}
         try:
             dev = p["conv1_1/w4"].device
@@ -266,12 +225,17 @@ class UNetS2DInt8(UNetS2DInference):
             rec = {k: float(v) for k, v in self._calibrating.items()}
         finally:
             self._calibrating = None
-        for name in sites:
-            key = (f"{name[:-2]}/ascale_b" if name.endswith("@b")
-                   else f"{name}/ascale_a" if name in dual_a
-                   else f"{name}/ascale")
-            p[key] = torch.tensor(
-                np.float32(max(rec.get(name, 0.0), 1e-6) / 127.0))
+
+        def scale(site):
+            return torch.tensor(
+                np.float32(max(rec.get(site, 0.0), 1e-6) / 127.0))
+
+        for name in s.entry + s.packed + s.std + self._int8_ups:
+            if name not in s.std_dual:
+                p[f"{name}/ascale"] = scale(name)
+        for name in s.dual + s.std_dual:  # a: the cropped skip, b: the up
+            p[f"{name}/ascale_a"] = scale(name)
+            p[f"{name}/ascale_b"] = scale(f"{name}@b")
 
     def _record(self, name, x):
         m = x.detach().abs().amax().float()
@@ -281,9 +245,11 @@ class UNetS2DInt8(UNetS2DInference):
 
     # ---- the int8-resident scale graph -----------------------------------
     def __post_init__(self):
+        super().__post_init__()
+        s = self.sites
         shapes = dict(unet_param_shapes(self.cfg, self.levels))
-        entry, packed, dual, _ = self._site_names()
-        wide = max(4 * shapes[f"{s}/w"][-1] for s in entry + packed + dual)
+        wide = max(4 * shapes[f"{n}/w"][-1] for n in s.entry + s.packed
+                   + s.dual)
         if wide > max(conv_int8.O4_S8):
             raise ValueError(
                 f"UNetS2DInt8: n_kernels {self.cfg.n_kernels} puts 4O = "
@@ -292,32 +258,17 @@ class UNetS2DInt8(UNetS2DInference):
                 f"strided_conv4x4s2_s8, rows_matmul_s8) take 4O = "
                 f"{' or '.join(map(str, conv_int8.O4_S8))} only: serve this "
                 f"width with UNetS2DInference (bf16)")
-        self._out_keys = self._scale_graph()
-
-    def _scale_graph(self) -> Dict[str, str]:
-        """{site: the scale key its OUTPUT is stored at}: its consumer's
-        calibrated input scale; a site missing here emits bf16."""
-        L, pl_ = self.levels, self.packed_levels
-        succ = {}
-        for lvl in range(pl_):
-            succ[f"conv{lvl + 1}_1"] = f"conv{lvl + 1}_2"
-            succ[f"conv{lvl + 1}_2"] = (f"conv{lvl + 2}_1" if lvl + 1 < pl_
-                                        else f"conv{pl_ + 1}_1")
-        # std encoder: through the pool into the next level (max pool
-        # commutes with the positive scale: pooling codes is exact)
-        for lvl in range(pl_, L):
-            succ[f"conv{lvl + 1}_1"] = f"conv{lvl + 1}_2"
-            succ[f"conv{lvl + 1}_2"] = f"conv{lvl + 2}_1"
-        succ[f"conv{L + 1}_1"] = f"conv{L + 1}_2"
-        for i in range(L):
-            succ[f"conv{L + 2 + i}_1"] = f"conv{L + 2 + i}_2"
-            if self.quant_deconvs and 0 <= L - 2 - i < pl_:
-                # the next up is an int8 packed-level deconv
-                succ[f"conv{L + 2 + i}_2"] = f"upconv{i + 2}"
-        for up, dual in zip(self._deconv_names(), self._site_names()[2]):
-            succ[up] = f"{dual}@b"  # the deconv feeds its dual's b side
-        return {name: (f"{nxt[:-2]}/ascale_b" if nxt.endswith("@b")
-                       else f"{nxt}/ascale") for name, nxt in succ.items()}
+        # the packed-level upconvs that run int8: none without quant_deconvs
+        self._int8_ups = s.ups if self.quant_deconvs else ()
+        # {site: the scale key its OUTPUT is stored at}: its consumer's
+        # calibrated input scale (an upconv's, its dual's b side), where
+        # both run int8; a site missing here emits bf16, as the bottleneck
+        # does in the JAX graph (an int8 upconv follows it at levels = 1)
+        int8 = set(s.entry + s.packed + s.dual + s.std + self._int8_ups)
+        self._out_keys = {
+            site: f"{nxt}/ascale_b" if site in s.ups else f"{nxt}/ascale"
+            for site, nxt in s.consumer.items()
+            if site in int8 and nxt in int8 and site != s.encoder[-1][1]}
 
     def _out_scale_of(self, p, name) -> Optional[float]:
         key = self._out_keys.get(name)
@@ -330,9 +281,7 @@ class UNetS2DInt8(UNetS2DInference):
         """Scale of the resident skip feeding decoder conv ``name``: the
         encoder conv's OUT scale (the next level's), not the crop-local
         ascale_a."""
-        lvl = self.levels - 1 - (int(name[4:].split("_")[0])
-                                 - (self.levels + 2))
-        return self._out_scale_of(p, f"conv{lvl + 1}_2")
+        return self._out_scale_of(p, self.sites.skip[name])
 
     def plan(self, p) -> Dict[str, torch.Tensor]:
         """Add the hand-kernel sites' epilogue vectors to a calibrated
@@ -352,11 +301,10 @@ class UNetS2DInt8(UNetS2DInference):
             return self._plan(p)
 
     def _plan(self, p) -> Dict[str, torch.Tensor]:
-        entry, packed, dual, _ = self._site_names()
-        std_dual = self._std_dual_names()
+        s = self.sites
         q = {}
-        for name in self._std_conv_names():
-            if name in std_dual:
+        for name in s.std:
+            if name in s.std_dual:
                 for side in "ab":
                     q[f"{name}/wk_{side}"] = k_major(p[f"{name}/wq_{side}"])
                 vecs = std_dual_scales(
@@ -371,25 +319,26 @@ class UNetS2DInt8(UNetS2DInference):
                 keys = (f"{name}/qmul", f"{name}/qadd")
             dev = p[f"{name}/wq"].device
             q.update(zip(keys, (v.to(dev) for v in vecs)))
-        for name in packed:
+        for name in s.packed:
             q[f"{name}/wk"] = k_major(p[f"{name}/wq"])
-        for name in entry[1:]:
+        for name in s.entry[1:]:
             q[f"{name}/wk4"] = strided_k_major(p[f"{name}/wq4"])
-        for name in dual:
+        for name in s.dual:
             for side in "ab":
                 q[f"{name}/wk_{side}"] = k_major(p[f"{name}/wq_{side}"])
-        c1 = entry[0]  # H5's conv1_1: requant at conv1_2's scale, no cs
+        c1 = s.entry[0]  # H5's conv1_1: requant at conv1_2's scale, no cs
         b4 = p[f"{c1}/b4"]
         q[f"{c1}/qmul"], q[f"{c1}/qadd"] = _affine(
             torch.ones_like(b4), b4, self._out_scale_of(p, c1))
-        for name in self._deconv_names():
+        for name in self._int8_ups:
             q[f"{name}/wkm"] = k_major(p[f"{name}/wqm"])
-        for name in entry[1:] + packed + self._deconv_names():
-            ws = p[f"{name}/wscale4" if name in entry else f"{name}/wscale"]
+        for name in s.entry[1:] + s.packed + self._int8_ups:
+            ws = p[f"{name}/wscale4" if name in s.entry
+                   else f"{name}/wscale"]
             q[f"{name}/qmul"], q[f"{name}/qadd"] = _affine(
                 ws * self._in_scale_of(p, name), p[f"{name}/b4"],
                 self._out_scale_of(p, name))
-        for name in dual:
+        for name in s.dual:
             q[f"{name}/qcs_a"] = (p[f"{name}/wscale_a"]
                                   * self._skip_scale_of(p, name))
             q[f"{name}/qcs_b"] = (p[f"{name}/wscale_b"]
@@ -420,7 +369,7 @@ class UNetS2DInt8(UNetS2DInference):
     # ---- hook overrides --------------------------------------------------
     def _encode_packed(self, p, lvl, h):
         if lvl == 0 and self._q(p) and self._fused_level1(h):
-            c1, c2 = "conv1_1", "conv1_2"
+            c1, c2 = self.sites.encoder[0]
             with trace.span("fwd", "conv1_1+conv1_2"):
                 return self.ops8.entry_chain(
                     h, p[f"{c1}/w4"], p[f"{c1}/qmul"], p[f"{c1}/qadd"],
@@ -472,7 +421,7 @@ class UNetS2DInt8(UNetS2DInference):
             head_only=True, wk=p[f"{name}/wk"])
 
     def _deconv(self, p, up, h, scatter):
-        quantized = up in self._deconv_names()
+        quantized = up in self._int8_ups
         if self._calibrating is not None and quantized:
             self._record(up, h)
         if not self._q(p):

@@ -29,7 +29,7 @@ the output side of csrc/packed_conv2x2_fwd.cuh, H8 with its own in
 csrc/std_conv3x3_bf16.cu): their operands are TMA sources, 16-byte
 aligned (H3's x only where TMA boxes it, ``tiles.strided_boxable``; else
 the kernel gathers it), and their output tiles are planned here by
-``tiles.tile_plan`` (``_fwd_plan``, ``std_bf16_plan``).
+``tiles.tile_plan`` (``_fwd_plan``) and ``tiles.std_plan``.
 
 H8's bf16 mode replaces no Pallas kernel: the JAX package leaves the
 standard levels' convs to XLA (segmentation_tpu/models/unet_fast.py
@@ -65,6 +65,7 @@ from segmentation_tpu_torch.nn.kernels.train_glue import (
 )
 from segmentation_tpu_torch.nn.kernels.tiles import (
     aligned,
+    std_plan,
     strided_boxable,
     tile_plan,
 )
@@ -237,25 +238,6 @@ def rows_plan(x, o4, scatter):
     if scatter:
         return _fwd_plan(n, 2 * h, 2 * w, o4, halo=0, step=8)
     return _fwd_plan(n, h, w, o4, halo=0)
-
-
-def std_bf16_tile(o: int):
-    """(NB, BM, W_MAX) of H8's bf16 tiles for O output channels
-    (csrc/std_conv3x3_bf16.cu StdBf16Tiles): column tiles of NB = 256
-    where that divides O (O = 512: two a pixel tile), else 128; BM GEMM
-    rows a tile (256 at NB = 128, two m64n128 a consumer warpgroup; 128 at
-    NB = 256, one m64n256), the single's and the dual's alike (one
-    accumulator); rows of the tile's halo box at most W_MAX wide."""
-    nb = 256 if o % 256 == 0 else 128
-    return nb, 256 if nb == 128 else 128, 128
-
-
-def std_bf16_plan(n, ho, wo, o):
-    """H8 bf16's output tiles: th · (tw + 2) <= BM GEMM rows (two junk
-    columns a row: the nine taps are row shifts of one halo box), tw + 2
-    <= W_MAX."""
-    _, bm, w_max = std_bf16_tile(o)
-    return tile_plan(n, ho, wo, bm, halo=2, max_w=w_max)
 
 
 def packed_conv2x2(x, w2, b4, *, pool=False, pool_index=False, head=None,
@@ -448,7 +430,7 @@ def std_conv3x3(x, w, b):
     _std_weight(w, "w", c, o, dev)
     _require(b, "b", torch.float32, (o,), dev)
     aligned("std_conv3x3", x, w, b)
-    plan = std_bf16_plan(n, h - 2, wd - 2, o)
+    plan = std_plan(n, h - 2, wd - 2, o, 1)  # one accumulator
     y = torch.empty((n, h - 2, wd - 2, o), dtype=torch.bfloat16, device=dev)
     with torch.cuda.device(dev):
         err = _build.library().seg_std_conv3x3(
@@ -483,7 +465,7 @@ def std_conv3x3_dual(skip, up, wa, wb, b, *, offset: Tuple[int, int]):
                          f"wb strides {wb.stride()}")
     _require(b, "b", torch.float32, (o,), dev)
     aligned("std_conv3x3_dual", skip, up, wa, wb, b)
-    plan = std_bf16_plan(n, h - 2, wd - 2, o)
+    plan = std_plan(n, h - 2, wd - 2, o, 1)  # one accumulator
     y = torch.empty((n, h - 2, wd - 2, o), dtype=torch.bfloat16, device=dev)
     with torch.cuda.device(dev):
         err = _build.library().seg_std_conv3x3_dual(

@@ -41,7 +41,7 @@ once where the int8 weights are planned (models/unet_int8.py
 ``UNetS2DInt8.plan``); a CUDA call without it raises. The plain versions
 take the same arguments and ignore the copy, so ``Int8Ops`` swaps the two
 paths whole. Their output tiles are planned here (``tiles.tile_plan``;
-H5's ``tiles.entry_tile_plan``; H8's ``std_plan``).
+H5's ``tiles.entry_tile_plan``; H8's ``tiles.std_plan``).
 
 They replace the int8 modes of the Pallas kernels of
 segmentation_tpu/nn/pallas/conv_flat.py (entry_chain_pf2 :1644,
@@ -97,6 +97,7 @@ from segmentation_tpu_torch.nn.kernels.conv_flat import (
 from segmentation_tpu_torch.nn.kernels.tiles import (
     aligned,
     entry_tile_plan,
+    std_plan,
     tile_plan,
 )
 from segmentation_tpu_torch.nn.packing import crop_packed, unpack2
@@ -677,28 +678,6 @@ def entry_chain(x, w4, mul1, add1, wq2, mul2, add2, *, wk=None):
     return y, pooled
 
 
-def std_tile(o: int, dual: bool):
-    """(NB, BM, W_MAX) of H8's tiles for O output channels
-    (csrc/std_conv3x3_s8.cu StdTiles): column tiles of NB = 256 where that
-    divides O (O = 512: two a pixel tile), else 128; BM GEMM rows a tile
-    (single: 256 at NB = 128, two m64n128 a consumer, 128 at NB = 256; the
-    dual, one accumulator a side: 128 at NB = 128, 64 at NB = 256 with
-    the columns split); rows of the tile's halo box at most W_MAX wide."""
-    nb = 256 if o % 256 == 0 else 128
-    if dual:
-        bm = 64 if nb == 256 else 128
-    else:
-        bm = 256 if nb == 128 else 128
-    return nb, bm, 128 if bm >= 128 else 64
-
-
-def std_plan(n, ho, wo, o, dual=False):
-    """H8's output tiles: th · (tw + 2) <= BM GEMM rows (two junk columns a
-    row: the nine taps are row shifts of one halo box), tw + 2 <= W_MAX."""
-    _, bm, w_max = std_tile(o, dual)
-    return tile_plan(n, ho, wo, bm, halo=2, max_w=w_max)
-
-
 def _std_shape_ok(name, x, c, o):
     n, h, w, cx = x.shape
     if cx != c or c % 16 or o % 128 or h < 3 or w < 3:
@@ -725,7 +704,7 @@ def std_conv3x3_s8(x, wq, mul, add, *, requant=True, wk=None):
     aligned("std_conv3x3_s8", x, wk, mul, add)
     y = torch.empty((n, h - 2, w - 2, o), dtype=S8 if requant else BF16,
                     device=dev)
-    plan = std_plan(n, h - 2, w - 2, o)
+    plan = std_plan(n, h - 2, w - 2, o, 1)
     with torch.cuda.device(dev):
         err = _build.library().seg_std_conv3x3_s8(
             _ptr(x), _ptr(wk), _ptr(mul), _ptr(add), _ptr(y), n, h, w, c, o,
@@ -777,7 +756,7 @@ def std_conv3x3_dual_s8(sk, up, wqa, wqb, cs_a, cs_b, b, *, out_scale=None,
     out = 0.0 if out_scale is None else float(f32_scale(out_scale))
     y = torch.empty((n, h - 2, w - 2, o),
                     dtype=BF16 if out_scale is None else S8, device=dev)
-    plan = std_plan(n, h - 2, w - 2, o, dual=True)
+    plan = std_plan(n, h - 2, w - 2, o, 2)  # one accumulator a side
     with torch.cuda.device(dev):
         err = _build.library().seg_std_conv3x3_dual_s8(
             _ptr(sk), _ptr(up), _ptr(wka), _ptr(wkb), _ptr(cs_a),

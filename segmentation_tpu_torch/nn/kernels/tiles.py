@@ -75,6 +75,27 @@ def tile_plan(n: int, hx: int, wx: int, rows: int, halo: int = 1,
     return TilePlan(n, hx, wx, -(-hx // nh), tw)
 
 
+def std_tile(o: int, accumulators: int):
+    """(NB, BM, W_MAX) of H8's tiles for O output channels, in each of its
+    kernels (csrc/std_conv3x3_s8.cu StdTiles, csrc/std_conv3x3_bf16.cu
+    StdBf16Tiles): column tiles of NB = 256 where that divides O (O = 512:
+    two a pixel tile), else 128; BM GEMM rows a tile, 256 at NB = 128 (two
+    m64n128 a consumer warpgroup) and 128 at NB = 256 (one m64n256), over
+    the ``accumulators`` a consumer holds (the s8 dual's two, one a side;
+    the s8 single's and both bf16 modes' one); rows of the tile's halo box
+    at most W_MAX wide."""
+    nb = 256 if o % 256 == 0 else 128
+    bm = (256 if nb == 128 else 128) // accumulators
+    return nb, bm, 128 if bm >= 128 else 64
+
+
+def std_plan(n, ho, wo, o, accumulators: int) -> TilePlan:
+    """H8's output tiles: th · (tw + 2) <= BM GEMM rows (two junk columns a
+    row: the nine taps are row shifts of one halo box), tw + 2 <= W_MAX."""
+    _, bm, w_max = std_tile(o, accumulators)
+    return tile_plan(n, ho, wo, bm, halo=2, max_w=w_max)
+
+
 # H5 (csrc/entry_chain.cu): a tile's GEMM rows (conv1_2's two m64 groups),
 # the rows of its shared-memory slot (the halo's conv1_1 pixels in m64
 # chunks), and the wgmma k-steps of conv1_2 a tile (4 taps x 4 k32 steps

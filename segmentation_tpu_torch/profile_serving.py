@@ -329,9 +329,8 @@ def main(argv=None) -> None:
         spans = span_readings(prof.events())
         calls = [c for c, _ in spans["requests"]]
         idle_ms = sum(i for _, i in spans["requests"]) / len(calls) / 1e3
-        entry_, packed, dual, ups = server.model._site_names()
-        fast = set(entry_ + packed + dual + ups) | {"head", "unpack",
-                                                    "(no fwd site)"}
+        fast = set(server.model.sites.packed_sites) | {"head", "unpack",
+                                                       "(no fwd site)"}
         std_ms = sum(us for site, us in spans["site_us"].items()
                      if site.split("+")[0] not in fast) / len(calls) / 1e3
         lines.append(f"[profile] {tag} B={args.batch}: CUDA-event ms per "

@@ -54,7 +54,9 @@ multiply by f32(1/scale) in place of the division) and ``std_no_quant``
 (the loads and stores without the quantize), ``std_chunks_8`` (eight
 chunks a thread in flight, its warpgroup at 96 registers) and
 ``std_cols_128`` (column tiles of 128 at every O: tiles of 256 rows for
-the single, 128 for the dual, where 256 columns take 128 and 64).
+the single, 128 for the dual, where 256 columns take 128 and 64; the s8
+and bf16 modes share the planner, so the variant's bf16 mode, which no
+variant times, would refuse its tiles at O % 256 == 0).
 """
 
 from __future__ import annotations
@@ -74,7 +76,6 @@ STRIDED = "csrc/strided_conv4x4s2.cu"
 ENTRY = "csrc/entry_chain.cu"
 IM2COL = "csrc/im2col.cuh"
 STD = "csrc/std_conv3x3_s8.cu"
-INT8 = "nn/kernels/conv_int8.py"
 TILES = "nn/kernels/tiles.py"
 FLAT = "nn/kernels/conv_flat.py"
 
@@ -166,7 +167,7 @@ VARIANTS: Dict[str, List[Patch]] = {
               "HALF>(a)\n                        : run_std<128, DUAL, "
               "BF16_OUT, HALF>(a);",
          "  return run_std<128, DUAL, BF16_OUT, HALF>(a);", 1),
-        (INT8, "    nb = 256 if o % 256 == 0 else 128", "    nb = 128", 1)],
+        (TILES, "    nb = 256 if o % 256 == 0 else 128", "    nb = 128", 1)],
     "std_chunks_8": [
         (STD, "  static constexpr int GATHER_CHUNKS = 4;",
          "  static constexpr int GATHER_CHUNKS = 8;", 1),

@@ -39,7 +39,7 @@ import torch
 
 from segmentation_tpu.nn.pallas import conv as jconv
 from segmentation_tpu.nn.pallas import conv_flat as jcf
-from segmentation_tpu_torch.models.unet_fast import pack_conv3_weight_s2
+from segmentation_tpu_torch.models.unet_fast import pack_conv3_weight_s2_t
 from segmentation_tpu_torch.models.unet_int8 import _affine
 from segmentation_tpu_torch.nn.kernels import conv_flat as cf
 from segmentation_tpu_torch.nn.kernels import conv_int8 as ci
@@ -203,7 +203,7 @@ def test_emulated_entry_tile_matches_pallas_and_plain(np_rng):
     h2, w2o, g = (h_img - 2) // 2 - 1, (w_img - 2) // 2 - 1, w_img // 4
     want = [jcf.unpad_pairs(v, g, h2, w2o) for v in (got_y, got_p)]
 
-    w4 = _t(pack_conv3_weight_s2(w3)).to(torch.bfloat16)
+    w4 = pack_conv3_weight_s2_t(_t(w3)).to(torch.bfloat16)
     mul1, add1 = _affine(torch.ones(o4), _t(np.tile(b1, 4)), out_s1)
     mul2, add2 = _affine(_t(cs2), _t(b2), OUT_S)
     plan = tiles.entry_tile_plan(1, h2, w2o)

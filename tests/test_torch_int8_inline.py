@@ -34,7 +34,7 @@ import torch
 
 from segmentation_tpu.nn.pallas import conv as jconv
 from segmentation_tpu.nn.pallas import conv_flat as jcf
-from segmentation_tpu_torch.models.unet_fast import pack_conv3_weight_s2
+from segmentation_tpu_torch.models.unet_fast import pack_conv3_weight_s2_t
 from segmentation_tpu_torch.models.unet_int8 import _affine
 from segmentation_tpu_torch.nn.kernels import conv_flat as tcf
 from segmentation_tpu_torch.nn.kernels import conv_int8 as tci
@@ -355,7 +355,7 @@ def test_conv3entry_requant_vs_pallas(np_rng):
         jcf.entry_transform_pf2(_jx(x)), we, wh, wl,
         jnp.tile(jnp.asarray(b), 4), h_img=H_IMG, r_block=3,
         quant={"out_scale": OUT_S}, interpret=True)
-    w4 = _t(pack_conv3_weight_s2(w3)).to(torch.bfloat16)
+    w4 = pack_conv3_weight_s2_t(_t(w3)).to(torch.bfloat16)
     mul, add = _affine(torch.ones(4 * O), _t(np.tile(b, 4)), OUT_S)
     got = tci.conv3entry_requant(x, w4, mul, add)
     assert got.dtype == torch.int8
@@ -373,7 +373,7 @@ def test_conv3entry_s8_vs_pallas(np_rng):
         jcf.entry_transform_pf2(jnp.asarray(x)), we, wh, wl, jnp.asarray(b),
         h_img=H_IMG, r_block=3, interpret=True,
         quant={"chan_scale": jnp.asarray(cs), "out_scale": OUT_S})
-    wq4 = _t(pack_conv3_weight_s2(wq3))
+    wq4 = pack_conv3_weight_s2_t(_t(wq3))
     assert wq4.dtype == torch.int8
     got = tci.conv3entry_s8(_t(x), wq4, *_affine(_t(cs), _t(b), OUT_S))
     _codes_close(got, _entry_out(want))
@@ -384,7 +384,7 @@ def test_conv3entry_requant_is_entry_chain_conv1_1(np_rng):
     (as entry_chain_pf2 equals its two-kernel form, tests/
     test_conv_flat.py:685): the same requant point, the same codes."""
     x = _bf16_acts(np_rng, 2, 22, 26, 3, act_s=1 / 128)
-    w4 = _t(pack_conv3_weight_s2(
+    w4 = pack_conv3_weight_s2_t(_t(
         (np_rng.normal(size=(3, 3, 3, O)) * 0.2).astype(np.float32)))
     w4 = w4.to(torch.bfloat16)
     b1 = _t((np_rng.normal(size=4 * O) * 0.1).astype(np.float32))

@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from segmentation_tpu.nn.pallas import conv_flat as jcf
-from segmentation_tpu_torch.models.unet_fast import pack_conv3_weight_s2
+from segmentation_tpu_torch.models.unet_fast import pack_conv3_weight_s2_t
 from segmentation_tpu_torch.models.unet_int8 import _affine
 from segmentation_tpu_torch.nn.kernels import conv_int8 as tci
 
@@ -271,7 +271,7 @@ def test_entry_chain_vs_entry_chain_pf2(np_rng):
     want_y = jcf.unpad_pairs(got_y, g, h2, w2_out)
     want_p = jcf.unpad_pairs(got_p, g, h2, w2_out)
 
-    w4 = _t(pack_conv3_weight_s2(w3)).to(torch.bfloat16)
+    w4 = pack_conv3_weight_s2_t(_t(w3)).to(torch.bfloat16)
     mul1, add1 = _affine(torch.ones(o4), _t(np.tile(b1, 4)), out_s1)
     y, pooled = tci.entry_chain(xb, w4, mul1, add1, _t(w2), *_vecs(cs2, b2))
     assert y.dtype == pooled.dtype == torch.int8

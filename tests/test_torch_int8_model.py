@@ -29,12 +29,13 @@ import torch
 from jax import lax
 
 from segmentation_tpu.core.config import ModelConfig as JConfig
+from segmentation_tpu.models import unet_fast as jfast
 from segmentation_tpu.models import unet_int8 as jq
 from segmentation_tpu_torch import interop
 from segmentation_tpu_torch.core.config import ModelConfig
 from segmentation_tpu_torch.models import unet_int8 as tq
 from segmentation_tpu_torch.models.unet import unet_param_shapes
-from segmentation_tpu_torch.models.unet_fast import UNetS2DInference
+from segmentation_tpu_torch.models.unet_fast import UNetS2D, UNetS2DInference
 from segmentation_tpu_torch.nn.kernels import conv_int8 as tci
 
 HW = 256
@@ -133,6 +134,101 @@ def test_scale_graph_matches_jax(case):
     assert model._out_scale_of(prep, "conv5_2") is None
     assert model._out_scale_of(prep, "conv6_2") is None
     assert model._out_scale_of(prep, "conv9_2") is None
+
+
+@pytest.mark.parametrize("quant_deconvs", [True, False])
+@pytest.mark.parametrize("levels", [2, 3, 4, 5])
+def test_site_table_matches_jax(levels, quant_deconvs):
+    """The site table (``UNetS2DInference.sites``) lists the sites of the
+    JAX UNetS2DInt8's name walks, and the int8 scale graph read off its
+    consumers and skips stores each output where JAX's _out_scale_of and
+    _skip_scale_of say: every scale key a site could read holds its own
+    value here."""
+    cfg = ModelConfig(n_classes=2, input_dims=(188, 188), n_kernels=4)
+    model = tq.UNetS2DInt8(cfg, levels=levels, quant_deconvs=quant_deconvs)
+    ref = jq.UNetS2DInt8(JConfig(n_classes=2, input_dims=(188, 188),
+                                 n_kernels=4),
+                         levels=levels, quant_deconvs=quant_deconvs)
+    s = model.sites
+    entry, packed = ref._packed_conv_names()
+    assert list(s.entry) == entry
+    assert sorted(s.packed + s.dual) == sorted(packed)
+    assert list(s.dual) == ref._dual_conv_names()
+    assert list(s.std) == ref._std_conv_names()
+    assert list(s.std_dual) == ref._std_dual_names()
+    assert list(model._int8_ups) == ref._deconv_names()
+    assert len(s.ups) == len(s.dual)
+    names = [n for pair in s.encoder for n in pair] + [
+        n for _, up, c1, c2 in s.decoder for n in (up, c1, c2)]
+    assert len(names) == len(set(names)) == 5 * levels + 2
+    keys = [f"{n}/ascale{side}" for n in names for side in ("", "_a", "_b")]
+    p = {k: float(i + 1) for i, k in enumerate(keys)}
+    for name in names:
+        assert model._out_scale_of(p, name) == ref._out_scale_of(p, name), \
+            name
+    for name in s.dual + s.std_dual:
+        assert model._skip_scale_of(p, name) == ref._skip_scale_of(p, name)
+
+
+def test_prepare_packs_as_packed_and_quantizes_as_jax():
+    """One packer: the serving prepare's packed weights and tiled biases
+    are UNetS2D.packed()'s, detached and cast, bit for bit (f32 and bf16);
+    the int8 prepare's codes and scales are JAX's _quantize_weight /
+    _quantize_matrix of JAX's numpy packers, at the sites JAX names."""
+    cfg = ModelConfig(n_classes=2, input_dims=(188, 188), n_kernels=4)
+    params = _np_params(cfg)
+    tparams = interop.params_from_jax(params)
+    want = UNetS2D(cfg, params=tparams).packed()
+    packed_keys = [k for k in want if k not in params]
+    # 2 w4, 4 w2, 2 pairs w2a / w2b, 2 wm and the ten sites' b4
+    assert len(packed_keys) == 2 + 4 + 4 + 2 + 10
+    for dtype in (torch.float32, torch.bfloat16):
+        got = UNetS2DInference(cfg).prepare(tparams, dtype=dtype)
+        for k in packed_keys:
+            dt = torch.float32 if k.endswith("/b4") else dtype
+            assert got[k].dtype == dt, k
+            assert torch.equal(got[k], want[k].detach().to(dt)), k
+
+    ref = jq.UNetS2DInt8(JConfig(n_classes=2, input_dims=(188, 188),
+                                 n_kernels=4))
+    jwant = {}
+
+    def quantized(name, wq_key, ws_key, wq_ws):
+        jwant[f"{name}/{wq_key}"], jwant[f"{name}/{ws_key}"] = wq_ws
+
+    entry, packed = ref._packed_conv_names()
+    duals = ref._dual_conv_names()
+    for name in entry:
+        quantized(name, "wq4", "wscale4", jq._quantize_weight(
+            jfast.pack_conv3_weight_s2(params[f"{name}/w"])))
+    for name in packed:
+        w = params[f"{name}/w"]
+        if name not in duals:
+            quantized(name, "wq", "wscale",
+                      jq._quantize_weight(jfast.pack_conv3_weight(w)))
+            continue
+        ci = w.shape[2] // 2
+        quantized(name, "wq_a", "wscale_a",
+                  jq._quantize_weight(jfast.pack_conv3_weight(w[:, :, :ci])))
+        quantized(name, "wq_b", "wscale_b",
+                  jq._quantize_weight(jfast.pack_conv3_weight(w[:, :, ci:])))
+    for name in ref._std_conv_names():
+        quantized(name, "wq", "wscale",
+                  jq._quantize_weight(params[f"{name}/w"]))
+    for name in ref._std_dual_names():
+        w = params[f"{name}/w"]
+        ci = w.shape[2] // 2
+        quantized(name, "wq_a", "wscale_a", jq._quantize_weight(w[:, :, :ci]))
+        quantized(name, "wq_b", "wscale_b", jq._quantize_weight(w[:, :, ci:]))
+    for name in ref._deconv_names():
+        w = params[f"{name}/w"]
+        wm = np.transpose(w, (2, 0, 1, 3)).reshape(w.shape[2], -1)
+        quantized(name, "wqm", "wscale", jq._quantize_matrix(wm))
+    prep = tq.UNetS2DInt8(cfg).prepare(tparams)
+    assert set(jwant) == {k for k in prep if "/wq" in k or "/wscale" in k}
+    for k, v in jwant.items():
+        assert prep[k].dtype == torch.from_numpy(v).dtype, k
+        np.testing.assert_array_equal(prep[k].numpy(), v, err_msg=k)
 
 
 def test_int8_forward_matches_jax(case):
@@ -250,7 +346,7 @@ def test_quantize_helpers_match_jax(np_rng):
     for got, want in zip(tq.quantize_weight(w), jq._quantize_weight(w)):
         np.testing.assert_array_equal(got, want)
     m = np_rng.normal(0, 0.1, (8, 16)).astype(np.float32)
-    for got, want in zip(tq.quantize_matrix(m), jq._quantize_matrix(m)):
+    for got, want in zip(tq.quantize_weight(m), jq._quantize_matrix(m)):
         np.testing.assert_array_equal(got, want)
     x = np_rng.normal(0, 1, (2, 5, 5, 4)).astype(np.float32)
     np.testing.assert_array_equal(

@@ -21,7 +21,7 @@ import torch
 
 from segmentation_tpu.models import unet_fast as jfast
 from segmentation_tpu.nn.pallas import conv_flat as jcf
-from segmentation_tpu_torch.models.unet_fast import pack_conv3_weight_s2
+from segmentation_tpu_torch.models.unet_fast import pack_conv3_weight_s2_t
 from segmentation_tpu_torch.nn.kernels import conv_flat as tcf
 
 TOL = 1e-4
@@ -169,7 +169,7 @@ def test_strided_conv4x4s2_vs_padflat(np_rng, h, w_in, c, o4):
 
 def test_strided_conv4x4s2_vs_entry_pf2(np_rng):
     """C = 3: the fused pf2 entry (3×3 conv + s2d fold) with the same 3×3
-    weights, folded for the port by pack_conv3_weight_s2."""
+    weights, folded for the port by pack_conv3_weight_s2_t."""
     h_img, w_img, o = 10, 512, 32  # the entry kernel needs W % 128 == 0
     x = np_rng.normal(size=(1, h_img, w_img, 3)).astype(np.float32)
     w3 = np_rng.normal(size=(3, 3, 3, o)).astype(np.float32) * 0.2
@@ -180,7 +180,7 @@ def test_strided_conv4x4s2_vs_entry_pf2(np_rng):
                               h_img=h_img, r_block=3, interpret=True)
     h_out, w_out = (h_img - 2) // 2, (w_img - 2) // 2
     want = jcf.unpad_pairs(want, w_img // 4, h_out, w_out)
-    got = tcf.strided_conv4x4s2(_t(x), _t(pack_conv3_weight_s2(w3)),
+    got = tcf.strided_conv4x4s2(_t(x), pack_conv3_weight_s2_t(_t(w3)),
                                 _t(np.tile(b, 4)))
     _close(got, want)
 

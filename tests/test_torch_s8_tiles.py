@@ -443,9 +443,8 @@ def test_plan_makes_the_k_major_copies(np_rng):
     model = UNetS2DInt8(cfg)
     x = torch.rand(1, 188, 188, 3, generator=generator(3))
     p = model.prepare(init_params(cfg, generator(0)), calib_batches=[x])
-    _, packed, dual, _ = model._site_names()
-    pairs = [(f"{s}/wk", f"{s}/wq") for s in packed]
-    pairs += [(f"{s}/wk_{side}", f"{s}/wq_{side}") for s in dual
+    pairs = [(f"{s}/wk", f"{s}/wq") for s in model.sites.packed]
+    pairs += [(f"{s}/wk_{side}", f"{s}/wq_{side}") for s in model.sites.dual
               for side in "ab"]
     for wk, wq in pairs:
         w = p[wq]

@@ -176,7 +176,7 @@ def test_serving_route_runs_the_ten_std_sites():
     model = UNetS2DInference(cfg, ops=_recording_ops(calls))
     p = model.prepare(init_params(cfg, generator(0)), dtype=torch.bfloat16)
     assert all(p[f"{s}/b"].dtype == torch.float32
-               for s in model._std_conv_names())
+               for s in model.sites.std)
     model.apply_argmax(p, _act(generator(1), 1, 188, 188, 3))
     assert [c[0] for c in calls] == ["std_conv3x3"] * 6 + [
         "std_conv3x3_dual", "std_conv3x3", "std_conv3x3_dual", "std_conv3x3"]

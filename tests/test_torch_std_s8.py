@@ -12,7 +12,7 @@ f32(1/out_scale) does not match: a case where they differ is built). The
 std levels quantize a bf16 side by the division too (``quant_act``).
 
 The kernel's loads are emulated in torch (``_emulate_std``): output tiles
-of th × tw pixels (``conv_int8.std_plan``) as th · (tw + 2) GEMM rows, A per
+of th × tw pixels (``tiles.std_plan``) as th · (tw + 2) GEMM rows, A per
 K block of 128 s8 channels the halo box [th + 2, tw + 2] (zeros past C and
 past the tensor, as TMA fills), the nine taps its rows shifted by u (tw +
 2) + v, rows past the box whatever the slot held (here random codes:
@@ -38,8 +38,8 @@ from segmentation_tpu.models import unet_int8 as jq
 from segmentation_tpu.nn.pallas import conv_flat as jcf
 from segmentation_tpu_torch.models import unet_int8 as tq
 from segmentation_tpu_torch.models.unet_int8 import _affine
-from segmentation_tpu_torch.nn.kernels import conv_flat as cf
 from segmentation_tpu_torch.nn.kernels import conv_int8 as ci
+from segmentation_tpu_torch.nn.kernels.tiles import std_plan, std_tile
 
 KC = 128
 ACT_S = 1 / 16.0
@@ -215,8 +215,8 @@ def _emulate_std(sides, o, plan_ho_wo, dual, gen):
     n = sides[0][0].shape[0]
     c = sides[0][0].shape[-1]
     ho, wo = plan_ho_wo
-    nb, bm, w_max = ci.std_tile(o, dual)
-    plan = ci.std_plan(n, ho, wo, o, dual)
+    nb, bm, w_max = std_tile(o, 2 if dual else 1)
+    plan = std_plan(n, ho, wo, o, 2 if dual else 1)
     assert plan.th * (plan.tw + 2) <= bm and plan.tw + 2 <= w_max
     a_rows = (bm + 2 * w_max + 2 + 7) // 8 * 8
     kps = -(-c // KC)
@@ -324,14 +324,12 @@ def test_std_plan_covers_every_output_once(shape, o, dual):
     """At the request's sites (B = 8 and 64) and odd shapes: every output
     pixel in exactly one tile, each tile within the kernel's GEMM rows and
     row width, TMA's 256 a side. ``dual``: H8 s8's single (False) or dual
-    (True) plan, or "bf16", the bf16 mode's (conv_flat.std_bf16_plan; one
-    accumulator, so its dual tiles as its single)."""
-    if dual == "bf16":
-        nb, bm, w_max = cf.std_bf16_tile(o)
-        plan = cf.std_bf16_plan(*shape, o)
-    else:
-        nb, bm, w_max = ci.std_tile(o, dual)
-        plan = ci.std_plan(*shape, o, dual)
+    (True) plan, or "bf16", the bf16 mode's (one accumulator, so its dual
+    tiles as its single), each from tiles.std_plan as its wrapper calls
+    it."""
+    acc = 2 if dual is True else 1  # the s8 dual: one accumulator a side
+    nb, bm, w_max = std_tile(o, acc)
+    plan = std_plan(*shape, o, acc)
     assert plan.th * (plan.tw + 2) <= bm and plan.tw + 2 <= w_max
     assert plan.th + 2 <= 256
     hits = torch.zeros(shape, dtype=torch.int32)
@@ -352,7 +350,7 @@ def test_plan_makes_the_std_and_deconv_copies():
     model = tq.UNetS2DInt8(cfg)
     x = torch.rand(1, 188, 188, 3, generator=generator(3))
     p = model.prepare(init_params(cfg, generator(0)), calib_batches=[x])
-    std, dual = model._std_conv_names(), model._std_dual_names()
+    std, dual = model.sites.std, model.sites.std_dual
     pairs = [(f"{s}/wk", f"{s}/wq") for s in std if s not in dual]
     pairs += [(f"{s}/wk_{side}", f"{s}/wq_{side}") for s in dual
               for side in "ab"]
@@ -363,7 +361,7 @@ def test_plan_makes_the_std_and_deconv_copies():
         assert torch.equal(p[wk], w.reshape(9 * c, o).T), wk
         # row o, K index tap · C + c: w[u, v, c, o] with tap = 3u + v
         assert p[wk][3, 5 * c + 2] == w[1, 2, 2, 3]
-    for up in model._deconv_names():
+    for up in model.sites.ups:  # quant_deconvs: each one int8
         assert torch.equal(p[f"{up}/wkm"], p[f"{up}/wqm"].T)
         assert p[f"{up}/wkm"].is_contiguous()
     for s in std:  # the epilogue vectors, host f32 as std_affine makes them

@@ -37,7 +37,7 @@ import torch
 
 from segmentation_tpu.nn.pallas import conv as jconv
 from segmentation_tpu.nn.pallas import conv_flat as jcf
-from segmentation_tpu_torch.models.unet_fast import pack_conv3_weight_s2
+from segmentation_tpu_torch.models.unet_fast import pack_conv3_weight_s2_t
 from segmentation_tpu_torch.nn.kernels import conv_flat as cf
 from segmentation_tpu_torch.nn.kernels.tiles import strided_boxable, tile_plan
 
@@ -316,7 +316,7 @@ def test_emulated_boxes_match_plain(np_rng, n, h, w, c, o4):
 
 def test_emulated_im2col_matches_pallas_entry(np_rng):
     """C = 3: the fused pf2 entry (3×3 conv + s2d fold, its bf16 mode: no
-    quant) with the same 3×3 weights, folded by pack_conv3_weight_s2; the
+    quant) with the same 3×3 weights, folded by pack_conv3_weight_s2_t; the
     kernel gathers the 48 values of each window as one K block."""
     h_img, w_img, o = 10, 512, 32  # the entry kernel needs W % 128 == 0
     x = np_rng.standard_normal((1, h_img, w_img, 3)).astype(np.float32)
@@ -330,7 +330,7 @@ def test_emulated_im2col_matches_pallas_entry(np_rng):
                            (w_img - 2) // 2)
     xt = _t(x)
     assert not strided_boxable(xt)
-    got = emulate_strided_gathered(xt, _t(pack_conv3_weight_s2(w3)),
+    got = emulate_strided_gathered(xt, pack_conv3_weight_s2_t(_t(w3)),
                                    _t(np.tile(b, 4)), _strided_plan(xt))
     _close(got, want)
 

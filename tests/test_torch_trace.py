@@ -204,8 +204,8 @@ def test_the_train_step_keeps_the_parents_ranges(tiny):
 
 
 def test_set_up_spans_nest_and_own_their_time(tiny):
-    """The int8 route's set-up: the bf16 weights, then int8's, each in
-    ``setup:prepare``; the calibration holds the plan."""
+    """The int8 route's set-up: the bf16 and the int8 weights, packed once,
+    in one ``setup:prepare``; the calibration holds the plan."""
     cfg, params = tiny
     x = torch.rand(1, 188, 188, 3)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -213,7 +213,7 @@ def test_set_up_spans_nest_and_own_their_time(tiny):
                                  dtype=torch.bfloat16)
     setup = [e for e in prof.events() if e.name.startswith("seg:setup:")]
     assert collections.Counter(e.name for e in setup) == {
-        "seg:setup:prepare": 2, "seg:setup:calibrate": 1,
+        "seg:setup:prepare": 1, "seg:setup:calibrate": 1,
         "seg:setup:plan": 1}
     plan = next(e for e in setup if e.name == "seg:setup:plan")
     assert "seg:setup:calibrate" in _parents(plan)

@@ -197,7 +197,7 @@ def test_pool4_select_matches_jax_with_ties(np_rng):
 @pytest.mark.parametrize("s2", [False, True])
 def test_torch_packing_matches_numpy_and_jnp_vjp(np_rng, s2):
     w = np_rng.normal(size=(3, 3, 5, 7)).astype(np.float32)
-    pack_np = tfast.pack_conv3_weight_s2 if s2 else tfast.pack_conv3_weight
+    pack_np = jfast.pack_conv3_weight_s2 if s2 else jfast.pack_conv3_weight
     pack_t = tfast.pack_conv3_weight_s2_t if s2 else tfast.pack_conv3_weight_t
     pack_j = (jfast.pack_conv3_weight_s2_jnp if s2
               else jfast.pack_conv3_weight_jnp)

@@ -81,10 +81,11 @@ def test_pack2_unpack2_match_jax(np_rng):
 
 def test_weight_packing_matches_jax(np_rng):
     w = np_rng.normal(size=(3, 3, 5, 7)).astype(np.float32)
-    np.testing.assert_array_equal(tfast.pack_conv3_weight(w),
+    np.testing.assert_array_equal(tfast.pack_conv3_weight_t(_t(w)).numpy(),
                                   jfast.pack_conv3_weight(w))
-    np.testing.assert_array_equal(tfast.pack_conv3_weight_s2(w),
-                                  jfast.pack_conv3_weight_s2(w))
+    np.testing.assert_array_equal(
+        tfast.pack_conv3_weight_s2_t(_t(w)).numpy(),
+        jfast.pack_conv3_weight_s2(w))
     b = np_rng.normal(size=(7,)).astype(np.float32)
     np.testing.assert_array_equal(tfast.tile_bias4(_t(b)).numpy(),
                                   np.asarray(jfast.tile_bias4(b)))
