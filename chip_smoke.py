@@ -78,6 +78,23 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                1024) as in 3b'; the modes'
                JSON line
                ("kernels_n64") follows the kernels' line;
+  3e.        — H9 (the packed 2×2 sites' weight gradient, single and
+               dual) at the six train sites of both widths (n_kernels 32
+               and 64), the duals' skip read in place through its crop:
+               at N = 2 against the plain version in f64 (within 2^-8 of
+               the result plus 2^-16 of Σ|x·g|), then at the train cells'
+               B = 128 against the four library products it replaced
+               (conv_bwd.conv2x2_wgrad / conv2x2_wgrad_crop, cuBLAS:
+               within two bf16 roundings plus 2^-16 of Σ|x·g|) and timed
+               in turns with them (the ``library_ms`` of its JSON rows),
+               beside its roofline, the published 3×3 wgrad's least time
+               (bench_h100/work.py's ``site_least_s``), and its packed
+               bound (x, the cotangent and dw once over 3.35 TB/s, or the
+               packed operations, 2 · pixels · 4 taps · 4C · 4O a side,
+               16/9 of the published, over 989 TFLOP/s), the share of
+               each and the K splits and blocks of its plan; the sites'
+               geometry comes from the train cells' configurations
+               (unet_fast.packed_wgrad_sites);
   4. slice   — 4 requests of B = 8 through serving.entry (apply_argmax),
                whose launches alone are counted, then one apply (logits);
                every kernel must have launched in the requests (H8 bf16:
@@ -1513,6 +1530,140 @@ class _CallCensus:
         self._saved = []
 
 
+# H9's two widths: the train cells' configurations (their packed sites'
+# geometry and the published wgrad's least time, bench_h100/work.py)
+WGRAD_CONFIGS = (("n32", "unet512_bf16"), ("n64", "unet512_n64_bf16"))
+
+
+def _wgrad_config(name):
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "bench_h100", "configs", f"{name}.json")) as f:
+        return json.load(f)
+
+
+def _wgrad_operands(gen, n, hw, c4, skip_hw):
+    """x (or the dual's skip and up) and the masked cotangent in its
+    zero-margined buffer, bf16, as the step hands them to H9."""
+    import torch
+
+    hp, wp = hw
+    gp = torch.zeros((n, hp, wp, c4), device="cuda", dtype=torch.bfloat16)
+    g = torch.randn((n, hp - 1, wp - 1, c4), generator=gen, device="cuda")
+    keep = torch.rand(g.shape, generator=gen, device="cuda") > 0.5
+    gp[:, :-1, :-1] = (g * keep).to(torch.bfloat16)
+    del g, keep
+    xs = [torch.rand((n, *s, c4), generator=gen, device="cuda")
+          .to(torch.bfloat16) for s in ([skip_hw] if skip_hw else []) + [hw]]
+    return xs, gp
+
+
+def _wgrad_phase(cb):
+    """Phase 3e: H9 at its six sites and both widths, N = 2 against the
+    plain version in f64, B = 128 against the four products and timed in
+    turns with them; returns the JSON rows."""
+    import torch
+
+    from bench_h100 import work
+    from segmentation_tpu_torch.core.rng import generator
+    from segmentation_tpu_torch.models.unet_fast import packed_wgrad_sites
+
+    def calls(xs, gp, offset):
+        if len(xs) == 2:
+            return (lambda: cb.packed_conv2x2_wgrad_dual(*xs, gp,
+                                                         offset=offset),
+                    lambda: cb.conv2x2_wgrad_dual_plain(*xs, gp,
+                                                        offset=offset))
+        return (lambda: (cb.packed_conv2x2_wgrad(xs[0], gp),),
+                lambda: (cb.conv2x2_wgrad(xs[0], gp),))
+
+    def err_over_bound(got, ref, mag, roundings):
+        """max |got − ref| over ``roundings`` bf16 roundings of |ref|
+        (2^-8 each) plus 2^-16 of Σ|x·g| (``mag``), the f32 sums'
+        difference in order."""
+        return max(((g.double() - r.double()).abs()
+                    / (roundings * 2.0**-8 * r.double().abs()
+                       + 2.0**-16 * m.double())).max().item()
+                   for g, r, m in zip(got, ref, mag))
+
+    rows = []
+    for tag, cfg_name in WGRAD_CONFIGS:
+        cfg = _wgrad_config(cfg_name)
+        sites = packed_wgrad_sites(tuple(cfg["input_dims"]), cfg["levels"],
+                                   cfg["n_kernels"])
+        for site, (hw, c4, skip_hw, offset) in sites.items():
+            label = f"{tag} {site}" + (f" crop {offset}" if offset else "")
+            gen = generator(11, "cuda")
+            xs, gp = _wgrad_operands(gen, B_TRAIN_PARITY, hw, c4, skip_hw)
+            got = calls(xs, gp, offset)[0]()
+            dx = [x.double() for x in xs]
+            ref = calls(dx, gp.double(), offset)[1]()
+            mag = calls([x.abs() for x in dx], gp.double().abs(), offset)[1]()
+            worst = err_over_bound(got, ref, mag, 1)
+            print(f"[wgrad] N={B_TRAIN_PARITY} {label}: max |err| / bound "
+                  f"{worst:.3f} (<= 1)")
+            if not worst <= 1.0:
+                raise AssertionError(f"H9 {label}: beyond its bound")
+            del xs, gp, got, dx, ref, mag
+            torch.cuda.empty_cache()
+            # B = 128: the kernel against the four products (cuBLAS, each
+            # summed in f32 and rounded once to bf16), a rounding each
+            xs, gp = _wgrad_operands(gen, B_TRAIN, hw, c4, skip_hw)
+            kernel, plain = calls(xs, gp, offset)
+            got, ref = kernel(), plain()  # and warm
+            mag = calls([x.abs() for x in xs], gp.abs(), offset)[1]()
+            worst128 = err_over_bound(got, ref, mag, 2)
+            del got, ref, mag
+            print(f"[wgrad] N={B_TRAIN} {label}: max |err| / bound against "
+                  f"the four products {worst128:.3f} (<= 1)")
+            if not worst128 <= 1.0:
+                raise AssertionError(f"H9 {label} at N = {B_TRAIN}: beyond "
+                                     f"its bound")
+            t = {"kernel": 0.0, "library": 0.0}
+            for k, f in (("kernel", kernel), ("library", plain),
+                         ("library", plain), ("kernel", kernel)):
+                t[k] += _time_ms(f, 5) / 2
+            n, hp, wp, o4 = gp.shape
+            sides = len(xs)
+            # x (the skip: its crop window, up's size), g and dw once
+            nbytes = sides * _bytes(xs[-1]) + _bytes(gp) + sides * 4 * c4 \
+                * o4 * 2
+            ops = sides * 2 * n * (hp - 1) * (wp - 1) * 4 * c4 * o4
+            b, by = _bound_ms(nbytes, {"bf16": ops})
+            # the published 3×3 wgrad's least time (its function's work,
+            # 9/16 of the packed taps' operations): H9's roofline
+            least = work.site_least_s(cfg, site, "wgrad", B_TRAIN) * 1e3
+            crops = (offset is not None, False) if sides == 2 else (False,)
+            plan = cb.tap_grad_plan(n, hp, wp, c4, o4, crops,
+                                    torch.cuda.get_device_properties(0)
+                                    .multi_processor_count)
+            tensor = _peak_ms({"bf16": ops}) / t["kernel"]
+            print(f"[wgrad] B={B_TRAIN} {label}: {t['kernel']:.4f} ms, four "
+                  f"products {t['library']:.4f} ms; roofline (the published "
+                  f"wgrad) {least:.4f} ms, {least / t['kernel']:.3f} of it "
+                  f"reached; packed bound {b:.4f} ms ({by}), "
+                  f"{b / t['kernel']:.3f} of it, {tensor:.3f} of the packed "
+                  f"bf16 tensor peak; splits "
+                  f"{plan.splits}, blocks {plan.blocks}")
+            rows.append({"name": cb.WGRAD, "width": tag, "site": site,
+                         "max_err_over_bound": worst,
+                         "max_err_over_bound_b128": worst128,
+                         "ms": t["kernel"], "library_ms": t["library"],
+                         "least_ms": least, "roofline": least / t["kernel"],
+                         "bound_ms": b, "bound_by": by,
+                         "splits": plan.splits, "blocks": plan.blocks})
+            del xs, gp, kernel, plain
+            torch.cuda.empty_cache()
+    for tag, _ in WGRAD_CONFIGS:
+        mine = [r for r in rows if r["width"] == tag]
+        ms, lib, least, bnd = (sum(r[k] for r in mine) for k in
+                               ("ms", "library_ms", "least_ms", "bound_ms"))
+        print(f"[wgrad] {cb.WGRAD} B={B_TRAIN} {tag} over its six sites: "
+              f"{ms:.4f} ms, four products {lib:.4f} ms; roofline "
+              f"{least:.4f} ms ({least / ms:.3f} of it reached); packed "
+              f"bound {bnd:.4f} ms ({bnd / ms:.3f})")
+    return rows
+
+
 WGRAD_CROP = "crop_packed (conv_bwd: the duals' wgrad operand)"
 
 
@@ -1521,9 +1672,9 @@ def _glue_census():
     (through unet_fast's pool_select and pool_scatter), the plain pool and
     glue (conv_flat.pool_select, train_glue's relu_bias_grad_plain and
     pool_scatter), the plain dual's crop copy and its dgrad's un-crop, and
-    F.pad (of a cotangent): none of them; and the crop copy that
-    conv_bwd.conv2x2_wgrad_crop makes as the skip side's wgrad operand
-    (WGRAD_CROP): one per dual site and step."""
+    F.pad (of a cotangent): none of them; nor the crop copy that the
+    duals' wgrad made of the skip before H9 read it in place (WGRAD_CROP,
+    conv_bwd.crop_packed, which only the plain dual wgrad calls now)."""
     import torch.nn.functional as F
 
     from segmentation_tpu_torch.models import unet_fast
@@ -1605,12 +1756,11 @@ def _train_phase(cf, cb, tg):
         print(f"[train] kernels B={B_TRAIN}: calls of the plain versions and "
               f"glue in the timed steps {census.counts} (the old _mask is "
               f"gone)")
-        crops = census.counts.pop(WGRAD_CROP)
-        if any(census.counts.values()) or \
-                crops != launches["packed_conv2x2_dual"]:
-            raise AssertionError(f"the kernel path ran {census.counts} and "
-                                 f"{crops} wgrad crop copies for "
-                                 f"{launches['packed_conv2x2_dual']} duals")
+        if any(census.counts.values()):
+            raise AssertionError(f"the kernel path ran {census.counts}")
+        if launches[cb.WGRAD] != 6 * 5:  # one a packed site, 5 steps
+            raise AssertionError(f"H9 launched {launches[cb.WGRAD]} times "
+                                 f"in 5 steps, not 6 a step")
         torch.cuda.empty_cache()
         p_ms, p_peak, p_launches = _train_throughput(plain, big, "plain",
                                                      reset, counts)
@@ -1679,14 +1829,14 @@ def _n64_path_phase(cf, cb, tg):
         params = trainer.model.param_dict()
         del trainer, batch
     missing = [k for k, v in train.items() if v == 0]
-    crops = census.counts.pop(WGRAD_CROP)
     print(f"[n64] train B={B_N64}: 2 steps, loss {losses}, launches {train}; "
-          f"plain code {census.counts}, wgrad crops {crops}")
+          f"plain code {census.counts}")
     if missing or not all(map(math.isfinite, losses)):
         raise AssertionError(f"n64 train kernels never launched: "
                              f"{missing}; {losses}")
-    if any(census.counts.values()) or crops != train["packed_conv2x2_dual"]:
-        raise AssertionError(f"the n64 kernel path ran {census.counts}")
+    if any(census.counts.values()) or train[cb.WGRAD] != 6 * 2:
+        raise AssertionError(f"the n64 kernel path ran {census.counts}, "
+                             f"H9 {train[cb.WGRAD]} times in 2 steps")
     torch.cuda.empty_cache()
 
     model = UNetS2DInference(cfg)
@@ -2234,6 +2384,8 @@ def main() -> None:
                   f"{_peak_words(packed64[k], ms64[k])}")
     by_path64 = _n64_path_phase(cf, cb, tg)
     torch.cuda.empty_cache()
+    # ---- 3e. H9 at its six sites, both widths, B = 128 ------------------
+    wgrad_rows = _wgrad_phase(cb)
     std_bf16_64 = _std_bf16_phase(cf, width=2)
     torch.cuda.empty_cache()
     std_bf16 = _std_bf16_phase(cf)
@@ -2433,6 +2585,7 @@ def main() -> None:
          "bound_ms": bound64[k], "bound_by": by64[k],
          "library_ms": lib64[k]}
         for k in cf.NAMES + cb.NAMES + tg.NAMES if ms64[k]]}))
+    print(json.dumps({"wgrad": wgrad_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

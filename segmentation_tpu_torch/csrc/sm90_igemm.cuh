@@ -311,10 +311,10 @@ __device__ __forceinline__ void fence_acc(int (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
-// D[64 x N] (+)= A[64 x 16] B[16 x N] from shared memory, A K-major, B
-// K-major (TB = 0) or MN-major (TB = 1, wgmma's tnsp-b); scale_d = 0
-// overwrites D.
-template <int TB>
+// D[64 x N] (+)= A[64 x 16] B[16 x N] from shared memory, A K-major (TA =
+// 0) or, for N = 128, MN-major (TA = 1, wgmma's tnsp-a), B K-major (TB = 0)
+// or MN-major (TB = 1, wgmma's tnsp-b); scale_d = 0 overwrites D.
+template <int TB, int TA = 0>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
                                                  uint64_t db, int scale_d) {
   asm volatile(
@@ -325,7 +325,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
       "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
       "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
       "%58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      "}, %64, %65, p, 1, 1, %68, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -339,7 +339,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA));
 }
 
 template <int TB>

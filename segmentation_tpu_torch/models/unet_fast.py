@@ -177,6 +177,39 @@ def unet_sites(levels: int, packed_levels: int) -> UNetSites:
         consumer=dict(zip(order, order[1:])))
 
 
+def packed_wgrad_sites(hw: Tuple[int, int], levels: int, n_kernels: int
+                       ) -> Dict[str, tuple]:
+    """The operands of each packed 2×2 site's weight gradient (the
+    ``packed`` and ``dual`` sites, in the network's order) for an ``hw``
+    input: site → (x's packed grid [hp, wp], which is also its cotangent
+    buffer's; 4C of a side; the dual's skip grid and crop offset in
+    unpacked pixels, else None and None)."""
+    sites = unet_sites(levels, min(2, levels))
+    size, skip_out, h = {}, {}, tuple(hw)  # each conv's unpacked input
+    for lvl, (c1, c2) in enumerate(sites.encoder):
+        size[c1], size[c2] = h, tuple(d - 2 for d in h)
+        skip_out[c2] = h = tuple(d - 4 for d in h)
+        h = tuple(d // 2 for d in h)
+    h = skip_out[sites.encoder[-1][1]]
+    level = {c2: lvl for lvl, (_, c2) in enumerate(sites.encoder)}
+    for lvl, _, c1, c2 in sites.decoder:
+        h = tuple(2 * d for d in h)
+        size[c1], size[c2], level[c1], level[c2] = (
+            h, tuple(d - 2 for d in h), lvl, lvl)
+        h = tuple(d - 4 for d in h)
+    out = {}
+    for name in (n for n in size if n in sites.packed + sites.dual):
+        skip = sites.skip.get(name)
+        grid = tuple(d // 2 for d in size[name])
+        out[name] = (grid, 4 * n_kernels * 2**level[name],
+                     None if skip is None else
+                     tuple(d // 2 for d in skip_out[skip]),
+                     None if skip is None else
+                     tuple((s - d) // 2
+                           for s, d in zip(skip_out[skip], size[name])))
+    return out
+
+
 def pack_sites(sites: UNetSites, p) -> Dict[str, torch.Tensor]:
     """The packed weights and tiled biases of every packed site, from the
     U-Net params ``p`` (by name), each differentiable in them: the

@@ -56,6 +56,7 @@ _SIGNATURES = {
     "seg_std_conv3x3_dual": [_P] * 6 + [_I] * 13 + [_P],
     "seg_entry_chain": [_P] * 9 + [_I] * 5 + [_P],
     "seg_packed_conv2x2_dgrad": [_P] * 5 + [_I] * 13 + [_P],
+    "seg_packed_tap_grad": [_P] * 5 + [_I] * 8 + [_P] * 2,
     "seg_crop_normalize": [_P] * 7 + [_I] * 7 + [_P],
     "seg_relu_bias_grad": [_P] * 5 + [_I] * 2 + [_P] * 2 + [_I] * 4 + [_P],
     "seg_relu_bias_grad_blocks": [],

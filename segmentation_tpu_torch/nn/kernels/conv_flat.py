@@ -54,10 +54,14 @@ from segmentation_tpu_torch.nn.kernels._build import (
     _stream,
 )
 from segmentation_tpu_torch.nn.kernels.conv_bwd import (
+    conv2x2_wgrad,
+    conv2x2_wgrad_dual_plain,
     packed_conv2x2_dgrad,
     packed_conv2x2_dgrad_dual,
     packed_conv2x2_dgrad_dual_plain,
     packed_conv2x2_dgrad_plain,
+    packed_conv2x2_wgrad,
+    packed_conv2x2_wgrad_dual,
 )
 from segmentation_tpu_torch.nn.kernels.train_glue import (
     relu_bias_grad,
@@ -481,8 +485,8 @@ def std_conv3x3_dual(skip, up, wa, wb, b, *, offset: Tuple[int, int]):
 class Ops(NamedTuple):
     """The ops a model runs through: the four packed-site forward ops, H8's
     bf16 std-level convs (serving's and training's), and what training
-    runs besides: the input grads of the 2×2 sites (H6, conv_bwd.py) and
-    the glue of every site's backward (train_glue.py)."""
+    runs besides: the input and weight grads of the 2×2 sites (H6, H9,
+    conv_bwd.py) and the glue of every site's backward (train_glue.py)."""
 
     packed_conv2x2: Callable
     packed_conv2x2_dual: Callable
@@ -493,13 +497,17 @@ class Ops(NamedTuple):
     relu_bias_grad: Callable
     std_conv3x3: Callable
     std_conv3x3_dual: Callable
+    packed_conv2x2_wgrad: Callable
+    packed_conv2x2_wgrad_dual: Callable
 
 
 KERNEL_OPS = Ops(packed_conv2x2, packed_conv2x2_dual, strided_conv4x4s2,
                  rows_matmul, packed_conv2x2_dgrad, packed_conv2x2_dgrad_dual,
-                 relu_bias_grad, std_conv3x3, std_conv3x3_dual)
+                 relu_bias_grad, std_conv3x3, std_conv3x3_dual,
+                 packed_conv2x2_wgrad, packed_conv2x2_wgrad_dual)
 PLAIN_OPS = Ops(packed_conv2x2_plain, packed_conv2x2_dual_plain,
                 strided_conv4x4s2_plain, rows_matmul_plain,
                 packed_conv2x2_dgrad_plain, packed_conv2x2_dgrad_dual_plain,
                 relu_bias_grad_plain, std_conv3x3_plain,
-                std_conv3x3_dual_plain)
+                std_conv3x3_dual_plain, conv2x2_wgrad,
+                conv2x2_wgrad_dual_plain)

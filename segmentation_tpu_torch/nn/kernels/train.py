@@ -1,7 +1,7 @@
 """Trainable conv sites (segmentation_tpu.nn.pallas.train).
 
 Eight ``torch.autograd.Function``s over one ``Ops`` (the hand kernels
-H1–H4, H6, H8's bf16 mode and the glue kernels of train_glue.py by
+H1–H4, H6, H8's bf16 mode, H9 and the glue kernels of train_glue.py by
 default, their plain versions with ``PLAIN_OPS``): six at the packed
 sites, two at the standard levels' 3×3 convs. Each forward runs one op of
 ``ops`` and saves its input(s), the weight cast to the input's dtype, and
@@ -10,8 +10,8 @@ masks the cotangent with y > 0 (every train site ends in a ReLU, and y > 0
 exactly where the pre-activation is) and sums the bias gradient in one
 pass (``ops.relu_bias_grad``), then:
 
-  conv2x2_t        dx by H6, dw by conv2x2_wgrad, both reading the masked
-                   cotangent in place in its zero-margined buffer
+  conv2x2_t        dx by H6, dw by H9, both reading the masked cotangent
+                   in place in its zero-margined buffer
   conv2x2_pool_t   the level sites (conv1_2, conv2_2): H1 with the pool and
                    its index in one launch; the backward adds the pool's
                    gradient to the skip's in the mask's pass (JAX:
@@ -20,8 +20,9 @@ pass (``ops.relu_bias_grad``), then:
                    in serving (JAX: packed_center_crop_flat, then
                    conv2x2_dual_t); dskip and dup by H6's dual mode, dskip
                    written into the crop window of a skip-sized buffer whose
-                   margin alone is zeroed; dwa by conv2x2_wgrad_crop on a
-                   copy of the skip's crop, dwb, db
+                   margin alone is zeroed; (dwa, dwb) by H9's dual mode
+                   in one launch, the skip read in place through its
+                   crop; db
   conv4x4s2_t      dx and dw plain (torch.nn.grad; XLA in the JAX package)
   matmul_rows_t    dx = g wmᵀ, dwm = xᵀ g
   deconv_packed_t  the same on the unpacked input, dx packed again
@@ -53,10 +54,6 @@ from __future__ import annotations
 import torch
 from torch.autograd import Function
 
-from segmentation_tpu_torch.nn.kernels.conv_bwd import (
-    conv2x2_wgrad,
-    conv2x2_wgrad_crop,
-)
 from segmentation_tpu_torch.nn.kernels.conv_flat import KERNEL_OPS
 from segmentation_tpu_torch.nn.packing import pack2, unpack2, view5
 from segmentation_tpu_torch.utils import trace
@@ -77,14 +74,14 @@ def _flat_wgrad(x, g):
 
 
 def _conv2x2_grads(ctx, x, w, gm, needs_dx):
-    """dx (H6, reading gm's [N, h, w] window) and dw of a 2×2 site from
-    the zero-margined masked cotangent gm [N, h+1, w+1, 4O]."""
+    """dx (H6, reading gm's [N, h, w] window) and dw (H9) of a 2×2 site
+    from the zero-margined masked cotangent gm [N, h+1, w+1, 4O]."""
     dx = None
     if needs_dx:
         with trace.span("bwd", ctx.site, "/dgrad"):
             dx = ctx.ops.packed_conv2x2_dgrad(gm[:, :-1, :-1], w)
     with trace.span("bwd", ctx.site, "/wgrad"):
-        dw = conv2x2_wgrad(x, gm)
+        dw = ctx.ops.packed_conv2x2_wgrad(x, gm)
     return dx, dw
 
 
@@ -151,8 +148,8 @@ class _Conv2x2Dual(Function):
                 gm[:, :-1, :-1], wa, wb, skip_shape=tuple(skip.shape),
                 offset=ctx.offset)
         with trace.span("bwd", ctx.site, "/wgrad"):
-            dwa = conv2x2_wgrad_crop(skip, gm, ctx.offset)
-            dwb = conv2x2_wgrad(up, gm)
+            dwa, dwb = ctx.ops.packed_conv2x2_wgrad_dual(
+                skip, up, gm, offset=ctx.offset)
         return dskip, dup, dwa, dwb, db, None, None, None
 
 

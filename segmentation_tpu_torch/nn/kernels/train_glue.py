@@ -20,8 +20,9 @@ fixed order: two launches give the same bits, and it agrees with the plain
 version's ``gm.sum`` within f32 reduction-order rounding.
 
 The gm buffer (``pad``): [N, h+1, w+1, 4O], whose zero last row and column
-let conv_bwd.conv2x2_wgrad's four shifted GEMMs read it in place, and H6
-read its [N, h, w] window through a row pitch. Without it, gm is [N, h, w,
+let H9 (conv_bwd.packed_conv2x2_wgrad) read it in place as flattened pixel
+rows, each tap a row shift, and H6 read its [N, h, w] window through a row
+pitch. Without it, gm is [N, h, w,
 4O].
 """
 

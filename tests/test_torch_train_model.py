@@ -76,8 +76,9 @@ def test_unet_s2d_loss_and_grads_match_jax(monkeypatch, hw, levels, route):
 def test_unet_s2d_runs_every_function(monkeypatch, k):
     """Every packed site, the C = 3 entry included (H3's gathered mode),
     and the bottleneck's two std convs (H8) take their Functions (recorded
-    through the ops: each forward op, each 2×2 site's H6 dgrad and each
-    site's mask and bias grad, relu_bias_grad), with no shape gate: also
+    through the ops: each forward op, each 2×2 site's H6 dgrad and H9
+    wgrad and each site's mask and bias grad, relu_bias_grad), with no
+    shape gate: also
     at k = 16, whose 4C = 64 the JAX package's lane gate would leave to
     XLA (on the card the kernels' wrappers then raise). bf16 activations
     give f32 grads."""
@@ -99,6 +100,7 @@ def test_unet_s2d_runs_every_function(monkeypatch, k):
         ["strided_conv4x4s2"] * 2 + ["packed_conv2x2"] * 4
         + ["packed_conv2x2_dual"] * 2 + ["rows_matmul"] * 2
         + ["packed_conv2x2_dgrad"] * 4 + ["packed_conv2x2_dgrad_dual"] * 2
+        + ["packed_conv2x2_wgrad"] * 4 + ["packed_conv2x2_wgrad_dual"] * 2
         + ["std_conv3x3"] * 2 + ["relu_bias_grad"] * 12)
     for name, p in model.params.items():
         assert p.grad.dtype == torch.float32, name
