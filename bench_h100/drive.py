@@ -35,6 +35,19 @@ def sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def memory_peak(device) -> int:
+    """The device's peak of allocated bytes (0 on the CPU)."""
+    if torch.device(device).type == "cuda":
+        return int(torch.cuda.max_memory_allocated(device))
+    return 0
+
+
+def free(device) -> None:
+    """Return the allocator's cached blocks to the device."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
 def _gen(seed: int, stream: int, device) -> torch.Generator:
     g = torch.Generator(device=device)
     g.manual_seed(sub_seed(seed, stream))

@@ -9,7 +9,8 @@ timed window of drive.py: ``steps`` or ``requests``, ``images``,
 (the traced window: ``units`` it completed, ``window_s``, every key of
 devtrace.reduce, and a served cell's ``setup_s_by_span``,
 devtrace.setup_spans of the server built again) or None; ``least_s`` and
-``compute_s``, the bound of one request or step (work.py).
+``compute_s``, the bound of one unit of the cell's work, a request or a
+step, as its mode counts it (``modes/<mode>.py`` over work.py).
 """
 
 from __future__ import annotations

@@ -5,8 +5,15 @@ checkout's root. Its configuration is the file that the entry of
 ``configs`` names; its traffic is ``mixes/<traffic>.json``; the limits of
 its comparison are ``limits/<workload>.json``; each metric that the cell
 reports is read by ``metrics/<metric>.py`` (a module with ``read(rec)``).
-A later cell, configuration, mix or metric is a new file and a new entry:
-no file here changes.
+The mix's ``mode`` names ``modes/<mode>.py``, which runs the cell, counts
+its work and reads its control (``mode``); the configuration's
+``route["kind"]`` names ``routes/<kind>.py``, which builds the server
+(``route``). A mode may bring its own plain reference,
+``reference_<name>.py``. A later cell, configuration, mix, metric, mode or
+route is a new file and a new entry: no file here changes.
+
+``systems.py`` and ``routes/`` are the only files of the harness that
+import the program (``segmentation_tpu_torch``).
 """
 
 from __future__ import annotations
@@ -14,6 +21,7 @@ from __future__ import annotations
 import importlib.util
 import json
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, Dict, List
 
 HERE = Path(__file__).resolve().parent
@@ -28,16 +36,38 @@ def _applies(metric: dict, workload: str) -> bool:
     return "workloads" not in metric or workload in metric["workloads"]
 
 
-def reader(name: str, root: Path = HERE) -> Callable[[dict], object]:
-    """``read`` of ``metrics/<name>.py`` (a name may hold dots)."""
-    path = root / "metrics" / f"{name}.py"
+def _load(folder: str, name: str, root: Path) -> ModuleType:
+    """The module ``<root>/<folder>/<name>.py`` (a name may hold dots)."""
+    path = root / folder / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"no {path}")
     spec = importlib.util.spec_from_file_location(
-        "bench_metric_" + name.replace(".", "_"), path)
+        f"bench_{folder}_" + name.replace(".", "_"), path)
     if spec is None or spec.loader is None:
         raise FileNotFoundError(path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.read
+    return module
+
+
+def reader(name: str, root: Path = HERE) -> Callable[[dict], object]:
+    """``read`` of ``metrics/<name>.py``."""
+    return _load("metrics", name, root).read
+
+
+def mode(name: str, root: Path = HERE) -> ModuleType:
+    """``modes/<name>.py``: ``run(cell, seed, seconds, trace, device,
+    plain) -> (rec, values)``, ``least_seconds(cfg, batch)``,
+    ``unit_compute_seconds(cfg, batch)`` and ``control_row(cell, seed, rec,
+    n, control_seeds, device) -> dict``."""
+    return _load("modes", name, root)
+
+
+def route(kind: str, root: Path = HERE) -> ModuleType:
+    """``routes/<kind>.py``: ``build(cfg, params, calib, plain)``, the
+    server, and ``calibration(cfg, seed, device)``, its calibration inputs
+    (``[]`` where it has none)."""
+    return _load("routes", kind, root)
 
 
 class Cell:

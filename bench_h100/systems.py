@@ -1,9 +1,10 @@
 """The system under test, built from a configuration file: the port's
-server (``segmentation_tpu_torch.serving.Server`` over
-``UNetS2DInference`` or ``UNetS2DInt8``) or its trainer
-(``SegmentationTrainer(UNetS2D(cfg))``). This is the one module of the
-benchmark that imports the program; it hands it weights and inputs the
-benchmark made, and nothing the program makes flows back but its answers.
+server (``segmentation_tpu_torch.serving.Server``), which the route file
+``routes/<kind>.py`` named by ``cfg["route"]["kind"]`` builds, or its
+trainer (``SegmentationTrainer(UNetS2D(cfg))``). This module and
+``routes/`` are the only files of the benchmark that import the program;
+they hand it weights and inputs the benchmark made, and nothing the
+program makes flows back but its answers.
 
 ``plain=True`` runs the kernels' plain PyTorch versions (the CPU
 rehearsal).
@@ -12,15 +13,14 @@ rehearsal).
 from __future__ import annotations
 
 import tempfile
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, List, Sequence
 
 import torch
 
+import registry
 from segmentation_tpu_torch.core.config import ModelConfig, TrainConfig
-from segmentation_tpu_torch.models.unet_fast import UNetS2D, UNetS2DInference
-from segmentation_tpu_torch.models.unet_int8 import UNetS2DInt8
-from segmentation_tpu_torch.nn.kernels import conv_flat, conv_int8
-from segmentation_tpu_torch.serving import Server
+from segmentation_tpu_torch.models.unet_fast import UNetS2D
+from segmentation_tpu_torch.nn.kernels import conv_flat
 from segmentation_tpu_torch.training.trainer import SegmentationTrainer
 
 
@@ -31,28 +31,22 @@ def model_config(cfg: dict) -> ModelConfig:
                        n_kernels=cfg["n_kernels"])
 
 
-def _ops(plain: bool):
+def ops(plain: bool):
     return conv_flat.PLAIN_OPS if plain else conv_flat.KERNEL_OPS
 
 
+def calibration(cfg: dict, seed: int, device) -> List[torch.Tensor]:
+    """The calibration inputs of the configuration's route, drawn from the
+    seed (``[]`` where the route has none)."""
+    return registry.route(cfg["route"]["kind"]).calibration(cfg, seed,
+                                                             device)
+
+
 def server(cfg: dict, params: Dict[str, torch.Tensor],
-           calib: Sequence[torch.Tensor], plain: bool = False) -> Server:
+           calib: Sequence[torch.Tensor], plain: bool = False):
     """The served route the configuration names (``cfg["route"]``)."""
-    mcfg, route = model_config(cfg), cfg["route"]
-    device = next(iter(params.values())).device
-    if route["kind"] == "bf16":
-        model = UNetS2DInference(mcfg, cfg["levels"], ops=_ops(plain))
-        prepared = model.prepare(params, dtype=torch.bfloat16, device=device)
-    elif route["kind"] == "int8":
-        model = UNetS2DInt8(
-            mcfg, cfg["levels"], ops=_ops(plain), padflat=route["padflat"],
-            ops8=conv_int8.PLAIN_OPS if plain else conv_int8.KERNEL_OPS,
-            quant_deconvs=route["quant_deconvs"])
-        prepared = model.prepare(params, calib_batches=list(calib),
-                                 dtype=torch.bfloat16, device=device)
-    else:
-        raise ValueError(f"unknown route {route['kind']!r}")
-    return Server(model, params, prepared)
+    return registry.route(cfg["route"]["kind"]).build(cfg, params, calib,
+                                                      plain)
 
 
 class Trainer:
@@ -67,7 +61,7 @@ class Trainer:
                            learning_rate=cfg["train"]["lr"],
                            adam_beta1=cfg["train"]["beta1"])
         model = UNetS2D(model_config(cfg), cfg["levels"], params=params,
-                        ops=_ops(plain))
+                        ops=ops(plain))
         self.trainer = SegmentationTrainer(model, device=device,
                                            train_cfg=tcfg)
         self.step: Callable[[dict], Dict[str, float]] = self.trainer.train_step

@@ -133,23 +133,23 @@ def compute_seconds(ops: Dict[str, float]) -> float:
     return sum(n / PEAK_OPS[p] for p, n in ops.items())
 
 
+def _mode(name: str):
+    import registry  # the harness's directory is on the path (run.py)
+
+    return registry.mode(name)
+
+
 def least_seconds(cfg: dict, mode: str, batch: int) -> float:
-    """The least time of one request (``serve``) or one step (``train``)
-    of ``batch`` samples: the larger of the compute and the byte bound."""
-    if mode == "train":
-        ops = {p: n * batch for p, n in train_ops(cfg).items()}
-        nbytes = train_bytes(cfg, batch)
-    else:
-        ops = {p: n * batch for p, n in forward_ops(cfg).items()}
-        nbytes = serve_bytes(cfg, batch)
-    return max(compute_seconds(ops), nbytes / PEAK_BYTES)
+    """The least time of one unit of ``mode``'s work (a request, a step) of
+    ``batch`` samples, as ``modes/<mode>.py`` counts it from the functions
+    here."""
+    return _mode(mode).least_seconds(cfg, batch)
 
 
 def unit_compute_seconds(cfg: dict, mode: str, batch: int) -> float:
-    """The compute bound alone of one request or step (what ``mfu`` is
-    measured against)."""
-    per = train_ops(cfg) if mode == "train" else forward_ops(cfg)
-    return compute_seconds({p: n * batch for p, n in per.items()})
+    """The compute bound alone of one unit of ``mode``'s work (what ``mfu``
+    is measured against)."""
+    return _mode(mode).unit_compute_seconds(cfg, batch)
 
 
 def site_layers(cfg: dict, site: str) -> List[dict]:
