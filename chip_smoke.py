@@ -146,6 +146,19 @@ Phases (each prints its lines; any failure raises and exits non-zero):
                alone at 1, 2 and 4 threads, then → prefetcher → H7 →
                trainer at B = 16; skipped with g++'s error on one line
                where the native loader cannot build;
+  3f.        — the Bayesian U-Net's MC request at the MC cell's sizes
+               (1024², B = 2 tiles, S = 8 samples): the fan-out (bit for
+               bit), H1's MC head and the moments against their plain
+               versions, each timed beside its bound (bytes, or the
+               published conv9_2 and head's operations); H2 (conv8_1,
+               conv9_1) and H8 bf16 (conv6_1, conv7_1) duals with the skip
+               batch B under the up batch S·B, bit for bit the same kernel
+               on the skip repeated S times and timed against that repeat
+               and kernel; three requests through serving.entry(
+               mc_samples=8): latency, peak memory, each MC kernel once a
+               request, the answers against the plain versions'; its JSON
+               line ("mc") follows H9's. ``python3 chip_smoke.py mc`` runs
+               phases 1, 2 and 3f alone;
   then the kernels' JSON line and {"ok": true, "device": {...}} last.
 """
 
@@ -283,6 +296,18 @@ for k in ("std_conv3x3", "std_conv3x3_dual"):
     SOURCES[k] = "segmentation_tpu_torch/csrc/std_conv3x3_bf16.cu"
 REPLACES["std_conv3x3"] = f"{_UF}:1045 _std_conv (XLA)"
 REPLACES["std_conv3x3_dual"] = f"{_UF}:1050 _std_dual_conv (XLA)"
+# the MC-dropout forward's kernels (the JAX package runs them as XLA ops)
+SOURCES["mc_fanout"] = SOURCES["mc_moments"] = \
+    "segmentation_tpu_torch/csrc/mc_dropout.cu"
+SOURCES["packed_conv2x2_mc_head"] = SOURCES["packed_conv2x2"]
+REPLACES["mc_fanout"] = f"{_UF}:803 _mc_drop at :1568 (XLA), batch-tiled"
+REPLACES["packed_conv2x2_mc_head"] = (
+    f"{_CONV}:372 conv2x2_flat + {_UF}:1624 _mc_drop + the head (XLA)")
+REPLACES["mc_moments"] = (
+    "segmentation_tpu/models/base.py:788 mean, var, argmax (XLA)")
+# phase 3f: the Bayesian U-Net's MC request (bench_h100's
+# unet1024_mc8_bf16.serve_mc8_b2): B tiles of MC_HW², S samples
+MC_HW, MC_B, MC_S, MC_SEED = 1024, 2, 8, 2**33 + 2**31 + 12345
 B_BATCH = 64  # the batch cell's request (bench_h100 serve_b64)
 # the std levels' ten 3×3 sites of a 512² forward at n_kernels = 32:
 # (label, input H = W (the dual's up), C, O, the dual's skip H or None)
@@ -1866,7 +1891,8 @@ def _n64_path_phase(cf, cb, tg):
     print(f"[n64] serve B={B_SERVE}: 2 requests, launches {serve}; masks vs "
           f"plain-version forward min agreement {agree:.6f} "
           f"(>= {SITE_MASK_AGREE}), flips beyond the bf16 margin {wide}")
-    missing = [k for k, v in serve.items() if v == 0 and k not in cf.TRAIN_ONLY]
+    missing = [k for k, v in serve.items()
+               if v == 0 and k not in cf.TRAIN_ONLY + cf.MC_ONLY]
     if missing or agree < SITE_MASK_AGREE or wide:
         raise AssertionError(f"n64 serving: never launched {missing}, "
                              f"agreement {agree}, {wide} wide flips")
@@ -2306,6 +2332,182 @@ def _int8_config_phase(tag, kw, reqs, calib, want, out_hw, reset):
     return counts, _latency_line(tag, lat, peak)
 
 
+def _mc_phase(cf):
+    """Phase 3f: the MC-dropout request's kernels at the MC cell's sizes
+    (1024², B = 2 tiles, S = 8 samples, n_kernels 32), each against its
+    plain version and timed beside its bound; the duals' broadcast skip
+    (skip batch B under an up batch of S·B) against the same kernel on the
+    skip repeated S times (bit for bit) and timed against that kernel plus
+    the repeat the broadcast saves; then whole requests through
+    serving.entry(mc_samples=8): their latency, launches and answers
+    against the same server on the plain versions. Returns the JSON
+    rows."""
+    import torch
+
+    from segmentation_tpu_torch.core.rng import generator
+    from segmentation_tpu_torch.models.unet_fast import UNetS2DInference
+    from segmentation_tpu_torch.serving import MCServer, entry
+
+    gen = generator(31, "cuda")
+    n, f32 = MC_B * MC_S, torch.float32
+
+    def act(*shape):
+        return torch.rand(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    def wgt(*shape):  # fan-in scaled: activations stay O(1) through a conv
+        fan = math.prod(shape[:-1])
+        return (torch.randn(shape, generator=gen, device="cuda")
+                / fan ** 0.5).to(torch.bfloat16)
+
+    def bias(o):
+        return torch.randn((o,), generator=gen, device="cuda") * 0.1
+
+    def conv_ops(pixels, cin, o, taps=9):
+        return {"bf16": 2.0 * pixels * taps * cin * o}
+
+    rows = []
+
+    def timed(name, label, kernel, other, bound, other_name):
+        kernel(), other()  # warm
+        t = {"kernel": 0.0, "other": 0.0}
+        for k, f in (("kernel", kernel), ("other", other), ("other", other),
+                     ("kernel", kernel)):
+            t[k] += _time_ms(f) / 2
+        b, by = bound
+        print(f"[mc] {name} {label}: {t['kernel']:.4f} ms, {other_name} "
+              f"{t['other']:.4f} ms, bound {b:.4f} ms ({by}), "
+              f"{b / t['kernel']:.3f} of it reached")
+        rows.append({"name": name, "site": label, "ms": t["kernel"],
+                     "other": other_name, "other_ms": t["other"],
+                     "bound_ms": b, "bound_by": by,
+                     "share": b / t["kernel"]})
+
+    seed, rate = MC_SEED, 0.5
+    # the fan-out: conv5_2's output [B, 56, 56, 512]
+    x = act(MC_B, 56, 56, 512)
+    got = cf.mc_fanout(x, seed=seed, samples=MC_S, rate=rate)
+    want = cf.mc_fanout_plain(x, seed=seed, samples=MC_S, rate=rate)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("mc_fanout differs from its plain version")
+    print("[mc] mc_fanout conv5_2 [2, 56, 56, 512] -> 16: equal to its "
+          "plain version")
+    timed("mc_fanout", "conv5_2", lambda: cf.mc_fanout(
+        x, seed=seed, samples=MC_S, rate=rate), lambda: cf.mc_fanout_plain(
+        x, seed=seed, samples=MC_S, rate=rate),
+        _bound_ms(_bytes(x, got), {}), "plain")
+    # the MC head: conv9_1's output [S·B, 419, 419, 128] → conv9_2 + head
+    h4 = act(n, 419, 419, 128)
+    w2, b4 = wgt(2, 2, 128, 128), bias(128)
+    wh, bh = wgt(32, 2), bias(2)
+    kw = {"seed": seed, "tiles": MC_B, "rate": rate}
+    got = cf.packed_conv2x2_mc_head(h4, w2, b4, wh, bh, **kw)
+    want = cf.packed_conv2x2_mc_head_plain(h4, w2, b4, wh, bh, **kw)
+    torch.cuda.synchronize()
+    _parity("N=16 packed_conv2x2_mc_head conv9_2+mc_head", got, want)
+    pixels = n * 836 * 836
+    ops = conv_ops(pixels, 32, 32)
+    ops["bf16"] += conv_ops(pixels, 32, 2, taps=1)["bf16"]
+    timed("packed_conv2x2_mc_head", "conv9_2+mc_head",
+          lambda: cf.packed_conv2x2_mc_head(h4, w2, b4, wh, bh, **kw),
+          lambda: cf.packed_conv2x2(h4, w2, b4),
+          _bound_ms(_bytes(h4, got) + 9 * 32 * 32 * 2 + 32 * 2 * 2, ops),
+          "H1, y stored")
+    del h4, got, want
+    # the moments: [S·B, 418, 418, 8] f32 → B tiles of 836²
+    probs = torch.rand((n, 418, 418, 8), generator=gen, device="cuda")
+    got = cf.mc_moments(probs, tiles=MC_B)
+    want = cf.mc_moments_plain(probs, tiles=MC_B)
+    torch.cuda.synchronize()
+    for g, w, what in zip(got[:2], want[:2], ("mean", "var")):
+        _parity(f"N=16 mc_moments {what}", g, w)
+    margin = (want[0][..., 1] - want[0][..., 0]).abs()
+    flips = got[2] != want[2]
+    if flips.any() and margin[flips].max() > 1e-6:
+        raise AssertionError("mc_moments: the map flips beyond f32 noise")
+    timed("mc_moments", "moments", lambda: cf.mc_moments(probs, tiles=MC_B),
+          lambda: cf.mc_moments_plain(probs, tiles=MC_B),
+          _bound_ms(_bytes(probs, *got), {}), "plain")
+    del probs, got, want
+    # the duals' broadcast skip: H2 at conv8_1, conv9_1; H8 at conv6_1,
+    # conv7_1 (skip [B, ...], up [S·B, ...], the cell's shapes and offsets)
+    duals = (("packed_conv2x2_dual", "conv8_1", (253, 212, 256, 256, 41)),
+             ("packed_conv2x2_dual", "conv9_1", (510, 420, 128, 128, 90)),
+             ("std_conv3x3_dual", "conv6_1", (120, 112, 256, 256, 4)),
+             ("std_conv3x3_dual", "conv7_1", (249, 216, 128, 128, 16)))
+    for name, label, (hs, hu, c, o, off) in duals:
+        skip, up = act(MC_B, hs, hs, c), act(n, hu, hu, c)
+        if name == "std_conv3x3_dual":
+            w = wgt(3, 3, 2 * c, o)
+            wa, wb, b = w[:, :, :c], w[:, :, c:], bias(o)
+            ho, cin, taps, wbytes = hu - 2, 2 * c, 9, _bytes(w)
+        else:
+            wa, wb, b = wgt(2, 2, c, o), wgt(2, 2, c, o), bias(o)
+            ho, cin, taps = 2 * (hu - 1), c // 2, 9
+            wbytes = 9 * cin * (o // 4) * 2
+        fn = getattr(cf, name)
+        kw = {"offset": (off, off)}
+        got = fn(skip, up, wa, wb, b, **kw)
+        rep = fn(skip.repeat(MC_S, 1, 1, 1), up, wa, wb, b, **kw)
+        want = getattr(cf, f"{name}_plain")(skip, up, wa, wb, b, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, rep):
+            raise AssertionError(f"{name} {label}: the broadcast skip "
+                                 f"differs from the repeated one")
+        _parity(f"N=16 {name} {label} skip batch {MC_B}", got, want)
+        o_pub = o if name == "std_conv3x3_dual" else o // 4
+        ops = conv_ops(n * ho * ho, cin, o_pub, taps)
+        # the skip's crop that the outputs read, once an image of B
+        crop = MC_B * (ho + 2) ** 2 * c * 2 // (
+            1 if name == "std_conv3x3_dual" else 4)
+        timed(name, f"{label} broadcast", lambda: fn(skip, up, wa, wb, b,
+                                                     **kw),
+              lambda: fn(skip.repeat(MC_S, 1, 1, 1), up, wa, wb, b, **kw),
+              _bound_ms(crop + _bytes(up, got) + wbytes, ops),
+              "repeat + kernel")
+        del skip, up, got, rep, want
+    # whole requests: serving.entry(mc_samples=8), 3 requests of B = 2
+    torch.cuda.empty_cache()
+    server, (x0,) = entry("cuda", batch=MC_B, mc_samples=MC_S)
+    plain = MCServer(UNetS2DInference(server.model.cfg, ops=cf.PLAIN_OPS),
+                     server.params, server.prepared, MC_S)
+    reqs = [torch.rand(tuple(x0.shape), generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(3)]
+    server(1, reqs[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cf.reset_launches()
+    lat = []
+    for i, x in enumerate(reqs):
+        t0 = time.perf_counter()
+        out = server(seed + i, x)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    counts = {k: v for k, v in cf.launches.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    want = plain(seed + len(reqs) - 1, reqs[-1])
+    torch.cuda.synchronize()
+    mean_err = (out[0] - want[0]).abs().max().item()
+    var_err = (out[1] - want[1]).abs().max().item()
+    agree = 1.0 - (out[2] != want[2]).float().mean().item()
+    print(f"[mc] serve B={MC_B} S={MC_S} {MC_HW}²: latency "
+          f"{', '.join(f'{v:.2f}' for v in lat)} ms, peak {peak} B; "
+          f"launches of {len(reqs)} requests {counts}; against the plain "
+          f"versions: mean {mean_err:.2e}, var {var_err:.2e}, map agreement "
+          f"{agree:.5f}")
+    for k in cf.MC_ONLY:
+        if counts.get(k) != len(reqs):
+            raise AssertionError(f"{k} launched {counts.get(k)} times in "
+                                 f"{len(reqs)} MC requests")
+    if mean_err > REL_TOL or var_err > REL_TOL or agree < 0.99:
+        raise AssertionError("the MC request differs from its plain "
+                             "versions beyond bf16 rounding")
+    rows.append({"name": "mc_request", "latency_ms": lat,
+                 "memory_peak_bytes": peak, "launches": counts})
+    return rows
+
+
 def main() -> None:
     import torch
 
@@ -2350,6 +2552,14 @@ def main() -> None:
           f"{min(regs, default=0)}-{max(regs, default=0)}, spill stores "
           f"{spills} B")
 
+    # ---- 3f. the MC-dropout request's kernels at the MC cell's sizes ---
+    if sys.argv[1:] == ["mc"]:
+        print(json.dumps({"mc": _mc_phase(cf)}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
+
     # ---- 3. kernel parity (N = 2 and B = 8) and timing (B = 8) ----------
     tables = _kernel_phase(cf, _sites)
     for mod, sites in ((ci, _sites8), (cb, _dgrad_sites), (tg, _glue_sites)):
@@ -2390,6 +2600,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     std_bf16 = _std_bf16_phase(cf)
     torch.cuda.empty_cache()
+    mc_rows = _mc_phase(cf)
+    torch.cuda.empty_cache()
     exact = _entry_modes_agree(B_SERVE, generator(99, "cuda"))
     print(f"[kernels] B={B_SERVE} H5 against conv3entry_requant + H1 pool: "
           f"{'equal code for code' if exact else 'within one code'}")
@@ -2407,7 +2619,7 @@ def main() -> None:
     logits = server.logits(reqs[0])
     torch.cuda.synchronize()
     missing = [k for k, v in counts.items()
-               if v == 0 and k not in cf.TRAIN_ONLY]
+               if v == 0 and k not in cf.TRAIN_ONLY + cf.MC_ONLY]
     if missing:
         raise AssertionError(f"kernels never launched on the path: {missing}")
     h8 = {k: counts[k] for k in STD_BF16}
@@ -2586,6 +2798,7 @@ def main() -> None:
          "library_ms": lib64[k]}
         for k in cf.NAMES + cb.NAMES + tg.NAMES if ms64[k]]}))
     print(json.dumps({"wgrad": wgrad_rows}))
+    print(json.dumps({"mc": mc_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -22,6 +22,10 @@ class ModelConfig:
     input_dims: Sequence[int] = (512, 512)
     input_channel: int = 3
     n_kernels: int = 32
+    # the Bayesian U-Net: MC-dropout at the bottleneck and before the head
+    # (models/unet_fast.py apply_mc; serving.MCServer), at dropout_rate
+    bayesian: bool = False
+    dropout_rate: float = 0.5
 
     def __post_init__(self):
         object.__setattr__(self, "input_dims", _as_hw(self.input_dims))

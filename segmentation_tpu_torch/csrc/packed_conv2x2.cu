@@ -11,6 +11,8 @@
 //         multiply rule, once per K block).
 // 4O = 128, 256 and, bf16 without the head, 512 (n_kernels 64's level 2:
 // two column tiles a pixel tile, packed_conv2x2_fwd.cuh).
+// The MC head (kMcHead): the decoder-end dropout, the two-class head and
+// its sigmoids in the epilogue, f32 probabilities out and no y.
 // Options: the fused 2x2/2 max pool (slot-max, [N, hp-1, wp-1, O], in the
 // output's type), with the pool's int8 index for training (bf16: the first
 // slot that attains the max, pool4_select's rule, so that its backward
@@ -161,6 +163,48 @@ extern "C" int seg_packed_conv2x2(const void* x, const void* w,
       case kPool: { FwdTiles<512, false, kPool> p{}; return run(p); }
       default: return (int)cudaErrorInvalidValue;  // no head at 4O = 512
     }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The MC head (the MC-dropout forward's conv9_2 + dropout + head +
+// sigmoid): x, w, bias and (th, tw) as above, o4 = 128 or 256; wh [o4 / 4,
+// 2] bf16 and bh [2] f32 the two-class 1x1 head; probs [n, hp-1, wp-1, 8]
+// f32, slot-major (class 0, class 1) sigmoid pairs; the decoder's image i
+// is sample i / tiles_b of tile i % tiles_b, dropped by the stream (seed,
+// head site) at threshold thr with keep scale scale (mc_mask.cuh). Every
+// pointer 16-byte aligned.
+extern "C" int seg_packed_conv2x2_mc_head(
+    const void* x, const void* w, const void* bias, const void* wh,
+    const void* bh, void* probs, int n, int hp, int wp, int c4, int o4,
+    int th, int tw, unsigned seed_lo, unsigned seed_hi, int tiles_b, int thr,
+    float scale, void* stream) {
+  using namespace segk;
+  if (c4 < 8 || c4 % 8 || n < 1 || hp < 2 || wp < 2 || th < 1 || tw < 1 ||
+      th > 255 || tw > 255 || tiles_b < 1 || n % tiles_b || thr < 0 ||
+      thr > 255)
+    return (int)cudaErrorInvalidValue;
+  auto run = [&](auto& p) {
+    const int e = fwd_maps(&p.xmap, &p.wmap, x, w, n, hp, wp, c4, o4, th, tw);
+    if (e != 0) return e;
+    p.bias = (const float*)bias;
+    p.wh = (const bf16*)wh;
+    p.bh = (const float*)bh;
+    p.probs = (float*)probs;
+    p.seed_lo = seed_lo;
+    p.seed_hi = seed_hi;
+    p.mc_b = tiles_b;
+    p.mc_thr = thr;
+    p.mc_scale = scale;
+    return fwd_launch(p, n, hp - 1, wp - 1, c4, th, tw, (cudaStream_t)stream);
+  };
+  if (o4 == 128) {
+    FwdTiles<128, false, kMcHead> p{};
+    return run(p);
+  }
+  if (o4 == 256) {
+    FwdTiles<256, false, kMcHead> p{};
+    return run(p);
   }
   return (int)cudaErrorInvalidValue;
 }

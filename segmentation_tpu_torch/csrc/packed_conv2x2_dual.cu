@@ -90,7 +90,9 @@ int dual_s8_sides(const DualS8& a) {
 
 }  // namespace segk
 
-// skip [n, hpa, wpa, c4], up [n, hp, wp, c4] bf16 (c4 % 32 == 0); wa, wb
+// skip [ns, hpa, wpa, c4], up [n, hp, wp, c4] bf16 (c4 % 32 == 0; ns
+// divides n: up image i reads skip image i % ns, the MC decoder's samples
+// over the encoder's tiles; ns = n the plain dual); wa, wb
 // [4*c4, o4] bf16; bias [o4] f32; y [n, hp-1, wp-1, o4] bf16; (oh, ow) the
 // unpacked crop offset, which the skip covers; (th, tw) the output tile
 // from tiles.tile_plan; o4 = 128 or 256, or 512 where the skip is boxed (C
@@ -98,11 +100,12 @@ int dual_s8_sides(const DualS8& a) {
 extern "C" int seg_packed_conv2x2_dual(const void* skip, const void* up,
                                        const void* wa, const void* wb,
                                        const void* bias, void* y, int n,
-                                       int hpa, int wpa, int hp, int wp,
-                                       int c4, int o4, int oh, int ow,
-                                       int th, int tw, void* stream) {
+                                       int ns, int hpa, int wpa, int hp,
+                                       int wp, int c4, int o4, int oh,
+                                       int ow, int th, int tw, void* stream) {
   using namespace segk;
-  if (c4 < 32 || c4 % 32 || n < 1 || hp < 2 || wp < 2 || oh < 0 || ow < 0 ||
+  if (c4 < 32 || c4 % 32 || n < 1 || ns < 1 || n % ns || hp < 2 || wp < 2 ||
+      oh < 0 || ow < 0 ||
       oh + 2 * hp > 2 * hpa || ow + 2 * wp > 2 * wpa || th < 1 || tw < 1 ||
       th > 255 || tw > 255)
     return (int)cudaErrorInvalidValue;
@@ -111,8 +114,10 @@ extern "C" int seg_packed_conv2x2_dual(const void* skip, const void* up,
   auto run = [&](auto& p) {
     int e = fwd_maps(&p.xmap, &p.wmap, up, wb, n, hp, wp, c4, o4, th, tw);
     if (e == 0)
-      e = fwd_maps(&p.smap, &p.wsmap, skip, wa, n, hpa, wpa, c4, o4, th, tw);
+      e = fwd_maps(&p.smap, &p.wsmap, skip, wa, ns, hpa, wpa, c4, o4, th,
+                   tw);
     if (e != 0) return e;
+    p.ns = ns;
     p.bias = (const float*)bias;
     p.y = (bf16*)y;
     p.skip = (const uint8_t*)skip;

@@ -31,7 +31,8 @@
 //    (d, e) of pixel (i, j) reads the skip at unpacked (oh + 2 i + d, ow +
 //    2 j + e), i.e. packed pixel ((oh + d) / 2 + i, (ow + e) / 2 + j), slot
 //    ((oh + d) % 2, (ow + e) % 2) (the floor division; the crop gathers
-//    nothing when oh, ow are even). Even offsets: the box at (n, oh / 2 +
+//    nothing when oh, ow are even), of skip image n % ns (the skip's batch
+//    ns divides up's: the MC decoder's S B images over the encoder's B). Even offsets: the box at (n, oh / 2 +
 //    i0, ow / 2 + j0, k0). bf16 with C a multiple of 64: each K block lies
 //    in one output slot, so it is one box at that slot's origin and source
 //    channel. Other odd offsets (one K block holds slots of different
@@ -91,6 +92,7 @@
 #include <type_traits>
 
 #include "int8_epilogue.cuh"
+#include "mc_mask.cuh"
 #include "sm90_igemm.cuh"
 
 namespace segk {
@@ -98,7 +100,11 @@ namespace segk {
 using bf16 = __nv_bfloat16;
 
 // EPI, the epilogue's options: kPool and kHead (compiled in only where
-// asked: the head's sums beside 128 accumulators would spill); kPoolIdx
+// asked: the head's sums beside 128 accumulators would spill); kMcHead
+// (bf16, the MC-dropout forward's last conv, no y): the decoder-end
+// dropout of the rounded value (mc_mask.cuh, site 2), then both logits of
+// the two-class 1x1 head and their sigmoids, f32 [N, ho, wo, 4 slots, 2
+// classes]; kPoolIdx
 // (with kPool, training): also the pool's int8 index, the first slot that
 // attains the max (strict >, pool4_select's tie rule); the int8
 // modes: kInt8 (s8 operands, s32 accumulation, the int8 epilogue),
@@ -106,7 +112,7 @@ using bf16 = __nv_bfloat16;
 // accumulators of a bf16 product, H3's requant-only entry), kTwoAcc (one
 // accumulator per side, H2).
 constexpr int kPool = 1, kHead = 2, kInt8 = 4, kRequant = 8, kTwoAcc = 16,
-              kPoolIdx = 32;
+              kPoolIdx = 32, kMcHead = 64;
 
 // The output side of a forward problem: 4O = O4 columns, tiles of th x tw
 // output pixels as GEMM rows m = a (tw + HALO) + b, the walk over them,
@@ -123,6 +129,9 @@ struct FwdOut {
   static_assert((EPI & kHead) == 0 || std::is_same_v<OutT, bf16>,
                 "the head reads the bf16 value");
   static_assert((EPI & kPoolIdx) == 0 || (EPI & kPool) != 0, "pool index");
+  static_assert((EPI & kMcHead) == 0 ||
+                    (!INT8 && (EPI & (kPool | kHead)) == 0 && O4 <= 256),
+                "the MC head: bf16, one column tile, no pool or mask head");
   // column tiles of a pixel tile, and the columns NB of each (see the top)
   static constexpr int CT = O4 > 256 ? O4 / 256 : 1;
   static constexpr int NB = O4 / CT;
@@ -163,6 +172,15 @@ struct FwdOut {
   const bf16* wd;
   const float* bd;
   uint8_t* mask;
+  // kMcHead: the head's weight [O4 / 4, 2] bf16 and bias [2] f32, the
+  // probabilities out, the mask seed's words, the tiles B of the decoder's
+  // batch (image s B + n), the dropout threshold and keep scale
+  const bf16* wh;
+  const float* bh;
+  float* probs;
+  uint32_t seed_lo, seed_hi;
+  int mc_b, mc_thr;
+  float mc_scale;
   int ho, wo;          // output grid
   int th, tw, tiles_w, tiles_hw, n_tiles;
 
@@ -423,6 +441,7 @@ struct FwdOut {
             *reinterpret_cast<uint32_t*>(mask + pix * 4) = bits;
         }
     }
+    if constexpr ((EPI & kMcHead) != 0) mc_head(n, i0, j0, m0, acc);
     if constexpr ((EPI & kPool) != 0) {
       constexpr int O = NB / 4, JO = O / 8;
 #pragma unroll
@@ -504,6 +523,63 @@ struct FwdOut {
     }
   }
 
+  // kMcHead: each row's slots, dropped (the stream of image n's sample n /
+  // mc_b and tile n % mc_b, the unpacked pixel (2 i + d, 2 j + e) of slot
+  // (d, e), channel c), then each slot's two logits (f32 sums of the bf16
+  // operands, the quad's four lanes summed by shuffles) and their sigmoids;
+  // lane q stores slot q's pair. The column 8 jn + 2 q + e of the
+  // fragment is slot (8 jn) / O's channel, a channel pair within one group
+  // of four of the stream.
+  template <class A>
+  __device__ void mc_head(int n, int i0, int j0, int m0,
+                          A (&acc)[MI][NI / 2]) const {
+    using sm90::as_f32;
+    constexpr int O = NB / 4, JS = O / 8;  // fragment columns a slot
+    const int lane = threadIdx.x & 31, q = lane & 3;
+    const uint32_t key =
+        mc_key(seed_lo, seed_hi, kMcSiteHead, n / mc_b, n % mc_b);
+    const uint32_t wu = 2u * (uint32_t)wo;  // the unpacked width
+    const float2 b2 = __ldg(reinterpret_cast<const float2*>(bh));
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + 64 * mi + (lane >> 2) + 8 * h;
+        const int a = m / (tw + 1), b = m - a * (tw + 1);
+        const uint32_t i = (uint32_t)(i0 + a), j = (uint32_t)(j0 + b);
+        const long long pix = pixel(n, i0, j0, m);
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          const uint32_t yu = 2 * i + (s >> 1), xu = 2 * j + (s & 1);
+          float l0 = 0.0f, l1 = 0.0f;
+#pragma unroll
+          for (int jj = 0; jj < JS; ++jj) {
+            const int jn = s * JS + jj, c = 8 * jj + 2 * q;
+            const uint32_t bytes =
+                mc_bytes(key, ((yu * wu + xu) * (uint32_t)O + c) >> 2);
+            const float v0 = as_f32(acc[mi][4 * jn + 2 * h]) *
+                             mc_keep(bytes, c, mc_thr, mc_scale);
+            const float v1 = as_f32(acc[mi][4 * jn + 2 * h + 1]) *
+                             mc_keep(bytes, c + 1, mc_thr, mc_scale);
+            // wh rows c and c + 1: (class 0, class 1) each
+            const uint2 w2 = __ldg(reinterpret_cast<const uint2*>(wh) + c / 2);
+            l0 += v0 * __uint_as_float(w2.x << 16) +
+                  v1 * __uint_as_float(w2.y << 16);
+            l1 += v0 * __uint_as_float(w2.x & 0xffff0000u) +
+                  v1 * __uint_as_float(w2.y & 0xffff0000u);
+          }
+          l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+          l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+          l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+          l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+          if (q == s && pix >= 0)
+            reinterpret_cast<float2*>(probs)[pix * 4 + s] =
+                make_float2(1.0f / (1.0f + expf(-(l0 + b2.x))),
+                            1.0f / (1.0f + expf(-(l1 + b2.y))));
+        }
+      }
+  }
+
   // Host: the walk over the output grid [n, ho, wo] in tiles of th x tw
   // (th (tw + HALO) <= BM GEMM rows), and the maps of the TMA stores.
   int plan(int n, int ho_, int wo_, int th_, int tw_) {
@@ -574,9 +650,12 @@ struct FwdTiles : FwdOut<O4, EPI, 1> {
   int hx, wx;              // x's (up's) grid
   int hpa, wpa;            // the skip's grid
   int oh, ow;              // the crop offset, unpacked
+  int ns;  // H2: the skip's images (0: as many as up's); up image n reads
+           // skip image n % ns (the MC decoder's B S over the encoder's B)
   int slot;  // bf16: the skip's K blocks are per-slot boxes (C % 64 == 0)
 
   __device__ int k_blocks() const { return DUAL ? 2 * kps : kps; }
+  __device__ int skip_image(int n) const { return ns > 0 ? n % ns : n; }
   __device__ bool gathered(int kb) const {
     return GATHER && (DUAL && kb < kps ? ga : gb) != 0;
   }
@@ -599,15 +678,15 @@ struct FwdTiles : FwdOut<O4, EPI, 1> {
     int n, i0, j0;
     origin(t, n, i0, j0);
     if (DUAL && kb < kps) {
-      const int k0 = KC * kb;
+      const int k0 = KC * kb, ni = skip_image(n);
       if (slot) {  // the block's output slot (d, e) = (s >> 1, s & 1)
         const int s = k0 / cs;
         const int yy = oh + (s >> 1), xx = ow + (s & 1);
         sm90::tma_load_4d(a, &smap, bar,
                           (2 * (yy & 1) + (xx & 1)) * cs + k0 - s * cs,
-                          (xx >> 1) + j0, (yy >> 1) + i0, n);
+                          (xx >> 1) + j0, (yy >> 1) + i0, ni);
       } else {
-        sm90::tma_load_4d(a, &smap, bar, k0, ow / 2 + j0, oh / 2 + i0, n);
+        sm90::tma_load_4d(a, &smap, bar, k0, ow / 2 + j0, oh / 2 + i0, ni);
       }
       return;
     }
@@ -640,8 +719,9 @@ struct FwdTiles : FwdOut<O4, EPI, 1> {
       ch = (2 * (yy & 1) + (xx & 1)) * cs + k - s * cs;
     }
     const long long pix = (long long)c4 * es;
-    const uint8_t* img =
-        (sk ? skip : xs) + (long long)n * hh * ww * pix + (long long)ch * es;
+    const uint8_t* img = (sk ? skip : xs) +
+                         (long long)(sk ? skip_image(n) : n) * hh * ww * pix +
+                         (long long)ch * es;
     const bool live = k < c4;
     sm90::gather_rows<GATHER_CHUNKS>(
         a, tid, nthreads, (th + 1) * (tw + 1), tw + 1, INT8 && es == 2,

@@ -32,8 +32,10 @@
 //  - A, per K block of 64 bf16 channels (128 bytes): the 4-D TMA box [1,
 //    th + 2, tw + 2, 64] of the side's tensor at (n, i0, j0, k0), zeros
 //    past C and past the image (which only junk rows read). The dual's
-//    skip: the box at the crop origin (oh + i0, ow + j0); no copy of the
-//    crop. The up side: the box of up itself.
+//    skip: the box at the crop origin (oh + i0, ow + j0) of skip image n
+//    % ns (the skip's batch ns divides up's: the MC decoder's S B images
+//    over the encoder's B); no copy of the crop or of the skip. The up
+//    side: the box of up itself.
 //  - B: the HWIO weight [3, 3, C, O] as it lies (the dual's halves are
 //    views of the concat weight [3, 3, 2C, O], strides ldu, ldv), read
 //    MN-major (bf16 wgmma transposes B): per K block and tap the 4-D box
@@ -82,6 +84,9 @@ struct StdBf16Tiles {
   int o;                    // output channels (y's row)
   int kps;                  // a side's K blocks: ceil(C / 64)
   int oh, ow;               // dual: the crop origin in the skip
+  int ns;                   // dual: the skip's images; up image n reads
+                            // skip image n % ns (the MC decoder's B S
+                            // over the encoder's B)
   int ho, wo;               // output grid
   int th, tw, tiles_w, tiles_hw, col_tiles, n_tiles;
 
@@ -118,7 +123,7 @@ struct StdBf16Tiles {
     int n, i0, j0;
     origin(t, n, i0, j0);
     if (skip_side(kb))
-      sm90::tma_load_4d(a, &smap, bar, 64 * kb, ow + j0, oh + i0, n);
+      sm90::tma_load_4d(a, &smap, bar, 64 * kb, ow + j0, oh + i0, n % ns);
     else
       sm90::tma_load_4d(a, &xmap, bar, 64 * (DUAL ? kb - kps : kb), j0, i0,
                         n);
@@ -191,17 +196,18 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
 struct StdBf16Args {
   const void *skip, *x, *wa, *w, *bias;
   void* y;
-  int n, hs, ws, hx, wx, c, o, oh, ow, ldv, ldu, th, tw;
+  int n, ns, hs, ws, hx, wx, c, o, oh, ow, ldv, ldu, th, tw;
   cudaStream_t stream;
 };
 
-// The map of a side [n, h, w, c] read as [1, th + 2, tw + 2, 64] halo
+// The map of a side [images, h, w, c] read as [1, th + 2, tw + 2, 64] halo
 // boxes, and of its weight [3, 3, c, o] (row strides ldv, ldu elements
 // between taps) read as [1, 1, 64, 64] boxes.
 inline int std_bf16_maps(CUtensorMap* xmap, CUtensorMap* wmap, const void* x,
-                         const void* w, const StdBf16Args& a, int h, int wd) {
+                         const void* w, const StdBf16Args& a, int images,
+                         int h, int wd) {
   const cuuint64_t xdims[4] = {(cuuint64_t)a.c, (cuuint64_t)wd,
-                               (cuuint64_t)h, (cuuint64_t)a.n};
+                               (cuuint64_t)h, (cuuint64_t)images};
   const cuuint32_t xbox[4] = {64, (cuuint32_t)a.tw + 2, (cuuint32_t)a.th + 2,
                               1};
   const cuuint64_t wdims[4] = {(cuuint64_t)a.o, (cuuint64_t)a.c, 3, 3};
@@ -219,9 +225,9 @@ int run_std_bf16(const StdBf16Args& a) {
   if (a.th * (a.tw + 2) > P::BM || a.tw + 2 > P::W_MAX || a.th + 2 > 256)
     return (int)cudaErrorInvalidValue;
   P p{};
-  int e = std_bf16_maps(&p.xmap, &p.wmap, a.x, a.w, a, a.hx, a.wx);
+  int e = std_bf16_maps(&p.xmap, &p.wmap, a.x, a.w, a, a.n, a.hx, a.wx);
   if (e == 0 && DUAL)
-    e = std_bf16_maps(&p.smap, &p.wsmap, a.skip, a.wa, a, a.hs, a.ws);
+    e = std_bf16_maps(&p.smap, &p.wsmap, a.skip, a.wa, a, a.ns, a.hs, a.ws);
   if (e != 0) return e;
   p.bias = (const float*)a.bias;
   p.y = (sm90::bf16*)a.y;
@@ -229,6 +235,7 @@ int run_std_bf16(const StdBf16Args& a) {
   p.kps = (a.c + 63) / 64;
   p.oh = a.oh;
   p.ow = a.ow;
+  p.ns = a.ns;
   p.ho = a.hx - 2;
   p.wo = a.wx - 2;
   p.th = a.th;
@@ -290,20 +297,21 @@ extern "C" int seg_std_conv3x3(const void* x, const void* w, const void* b,
   return std_bf16_cols<false>(a);
 }
 
-// The dual: skip [n, hs, ws, c] center-cropped at (oh, ow) to up's [n, hx,
-// wx, c], both bf16; wa, wb [3, 3, c, o] bf16, the skip's and up's halves
+// The dual: skip [ns, hs, ws, c] center-cropped at (oh, ow) to up's [n, hx,
+// wx, c], both bf16 (ns divides n: up image i reads skip image i % ns; ns =
+// n the plain dual); wa, wb [3, 3, c, o] bf16, the skip's and up's halves
 // of the concat weight (each with strides ldu, ldv, o, 1); b [o] f32; y
 // [n, hx-2, wx-2, o] bf16; (th, tw) from tiles.std_plan. Every
 // pointer 16-byte aligned.
 extern "C" int seg_std_conv3x3_dual(const void* skip, const void* up,
                                     const void* wa, const void* wb,
-                                    const void* b, void* y, int n, int hs,
-                                    int ws, int hx, int wx, int c, int o,
-                                    int oh, int ow, int ldv, int ldu, int th,
-                                    int tw, void* stream) {
+                                    const void* b, void* y, int n, int ns,
+                                    int hs, int ws, int hx, int wx, int c,
+                                    int o, int oh, int ow, int ldv, int ldu,
+                                    int th, int tw, void* stream) {
   using namespace segk;
   if (!std_bf16_ok(n, hx, wx, c, o, ldv, ldu, th, tw) || oh < 0 || ow < 0 ||
-      oh + hx > hs || ow + wx > ws)
+      oh + hx > hs || ow + wx > ws || ns < 1 || n % ns)
     return (int)cudaErrorInvalidValue;
   StdBf16Args a{};
   a.skip = skip;
@@ -313,6 +321,7 @@ extern "C" int seg_std_conv3x3_dual(const void* skip, const void* up,
   a.bias = b;
   a.y = y;
   a.n = n;
+  a.ns = ns;
   a.hs = hs;
   a.ws = ws;
   a.hx = hx;

@@ -7,11 +7,16 @@ A VALID-padded double-conv encoder of widths n_kernels × {1, 2, 4, 8, 16},
 slip), every level pools the double-conv output. Parameters keep the JAX
 names and HWIO layout (``conv1_1/w``, ``upconv1/b``, …), so one ``.npz``
 checkpoint feeds both packages.
+
+The Bayesian U-Net (Kendall & Gal, arXiv:1703.04977) is this network with
+dropout after conv5_2's ReLU and after conv9_2's: ``forward`` takes the
+two masks as explicit multipliers, and ``mc_moments`` reduces S sampled
+forwards' sigmoid probabilities to the MC-dropout answer.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -83,8 +88,13 @@ class UNet(nn.Module):
     def param_dict(self) -> Dict[str, torch.Tensor]:
         return {n: p.detach() for n, p in self.params.items()}
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x [N, H, W, C] → logits [N, h, w, n_classes] (VALID-shrunk)."""
+    def forward(self, x: torch.Tensor,
+                masks: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> torch.Tensor:
+        """x [N, H, W, C] → logits [N, h, w, n_classes] (VALID-shrunk).
+        ``masks`` = (bottleneck, decoder end): the MC-dropout multipliers
+        (0 where dropped, else 1 / keep) of conv5_2's and conv9_2's ReLU
+        outputs, each of that activation's shape."""
         oh, ow = self.output_hw(x.shape[1:3])
         if min(oh, ow) < 1:
             raise ValueError(
@@ -103,9 +113,22 @@ class UNet(nn.Module):
             h = max_pool(h, 2)
         L = self.levels
         h = conv(conv(h, f"conv{L + 1}_1"), f"conv{L + 1}_2")
+        if masks is not None:
+            h = h * masks[0].to(h.dtype)
         for i, lvl in enumerate(reversed(range(L))):
             h = conv2d_transpose(h, p[f"upconv{i + 1}/w"],
                                  p[f"upconv{i + 1}/b"], 2)
             h = torch.cat([center_crop_like(skips[lvl], h), h], dim=-1)
             h = conv(conv(h, f"conv{L + 2 + i}_1"), f"conv{L + 2 + i}_2")
+        if masks is not None:
+            h = h * masks[1].to(h.dtype)
         return conv(h, "output", activation=None)
+
+
+def mc_moments(probs: torch.Tensor):
+    """probs [S, N, h, w, C], S sampled forwards' sigmoid probabilities →
+    (the mean over the samples, their population variance (jnp.var's),
+    the argmax of the mean as u8)."""
+    mean = probs.mean(0)
+    var = ((probs - mean) ** 2).mean(0)
+    return mean, var, mean.argmax(-1).to(torch.uint8)

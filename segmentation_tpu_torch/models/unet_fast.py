@@ -26,6 +26,12 @@ the span ``fwd:<site>`` (utils/trace.py), a fused kernel in one span named
 for the sites it fuses (``fwd:conv9_2+head``), so that the subclasses
 inherit the spans with the forward.
 
+``apply_mc`` is the Bayesian U-Net's MC-dropout forward (a
+``cfg.bayesian`` model): the encoder once, the bottleneck's dropout
+fanned out to S samples of each tile, the decoder once at S·B reading the
+B skips in place, conv9_2 fused with the decoder-end dropout, the head and
+its sigmoids, and the moments over the samples.
+
 The site layout lives in one table, ``UNetSites`` (``unet_sites``, built
 once per model as ``sites``): which conv is an entry, packed, dual,
 upconv or std site, each decoder conv's skip and each site's consumer.
@@ -342,7 +348,8 @@ class UNetS2DInference:
     def _put(self, host, dtype, device) -> Dict[str, torch.Tensor]:
         """``_host_packed``'s dict on ``device``: every weight in
         ``dtype``, the packed sites' ``b4`` and the std convs' biases f32
-        (the kernels' operand types), and the two-class mask head."""
+        (the kernels' operand types), the two-class mask head, and for a
+        ``cfg.bayesian`` model the MC head's ``head/wh``, ``head/bh``."""
         f32 = {f"{name}/b4" for name in self.sites.packed_sites}
         f32.update(f"{name}/b" for name in self.sites.std)
         out = {name: v.to(device=device,
@@ -353,6 +360,9 @@ class UNetS2DInference:
                                host["output/b"].to(device))
             out["head/wd"] = wd.to(torch.bfloat16)  # the kernel's operand
             out["head/bd"] = bd
+        if self.cfg.bayesian:  # the MC head's [C, 2] weight and f32 bias
+            out["head/wh"] = host["output/w"][0, 0].to(device, dtype)
+            out["head/bh"] = host["output/b"].to(device, torch.float32)
         return out
 
     def prepare(self, params: Dict[str, torch.Tensor],
@@ -426,6 +436,12 @@ class UNetS2DInference:
         logits = unpack2(view5(h4, self.cfg.n_kernels) @ w1)
         return logits + p["output/b"].to(logits.dtype)
 
+    def _mc_head(self, p, name, h4, mc):
+        seed, tiles, rate = mc
+        return self.ops.packed_conv2x2_mc_head(
+            h4, p[f"{name}/w2"], p[f"{name}/b4"], p["head/wh"],
+            p["head/bh"], seed=seed, tiles=tiles, rate=rate)
+
     # ---- forward ----------------------------------------------------------
     def apply(self, p: Dict[str, torch.Tensor], x: torch.Tensor,
               packed_out: bool = False, head: bool = False):
@@ -433,6 +449,40 @@ class UNetS2DInference:
         returns the last decoder tensor still packed, [N, hp, wp, 4k];
         ``head`` (n_classes = 2) returns only the fused u8 packed mask
         [N, hp, wp, 4] of the last conv."""
+        return self._decode(p, self._encode(p, x), packed_out=packed_out,
+                            head=head)
+
+    def apply_mc(self, p: Dict[str, torch.Tensor], x: torch.Tensor,
+                 seed: int, samples: int):
+        """The MC-dropout forward of the Bayesian U-Net (n_classes = 2;
+        ``prepare`` of a ``cfg.bayesian`` model): x [B, H, W, C] → (mean,
+        var [B, h, w, 2] f32, the argmax of the mean [B, h, w] u8) over
+        ``samples`` stochastic forwards, each with dropout after conv5_2's
+        ReLU and after conv9_2's at ``cfg.dropout_rate``, the masks drawn
+        from the stream of ``seed`` (nn/mc_mask.py). The encoder runs once
+        at B; ``mc_fanout`` writes the bottleneck's S·B dropped copies
+        (image s·B + n, sample-major); the decoder runs once at S·B, its
+        duals reading the B skips in place; conv9_2 ends in the MC head (dropout, the two
+        logits, their sigmoids) and ``mc_moments`` takes the mean, the
+        population variance and the argmax, unpacked. The masks are iid
+        per element and sample, so this is the estimator of S whole
+        forwards. Spans: ``fwd:<site>``, ``fwd:mc_fanout``,
+        ``fwd:conv9_2+mc_head``, ``fwd:mc_moments``."""
+        if self.cfg.n_classes != 2:
+            raise ValueError("the MC head takes two classes")
+        rate, tiles = self.cfg.dropout_rate, x.shape[0]
+        enc = self._encode(p, x)
+        with trace.span("fwd", "mc_fanout"):
+            enc.append(self.ops.mc_fanout(enc.pop(), seed=seed,
+                                          samples=samples, rate=rate))
+        probs = self._decode(p, enc, mc=(seed, tiles, rate))
+        with trace.span("fwd", "mc_moments"):
+            return self.ops.mc_moments(probs, tiles=tiles)
+
+    def _encode(self, p, x):
+        """[each level's skip ..., the bottleneck's output]: one list, so
+        that ``_decode`` can drop the bottleneck's output once it is read
+        (a caller's local would hold it through the decoder)."""
         L, pl_ = self.levels, self.packed_levels
         if x.shape[1] % 2 or x.shape[2] % 2:
             raise ValueError(
@@ -456,8 +506,17 @@ class UNetS2DInference:
                 skips.append(h)
                 with span("fwd", "std_pool"):
                     h = self._pool(h)
+        skips.append(h)
+        return skips
 
-        # ---- decoder -----------------------------------------------------
+    def _decode(self, p, enc, packed_out=False, head=False, mc=None):
+        """The decoder from ``_encode``'s list, whose last entry (the
+        bottleneck's output) it pops; with ``mc`` = (seed, tiles, rate),
+        conv9_2 ends in the MC head and the sigmoid probabilities [N, hp,
+        wp, 8] come back. A skip's batch may divide the bottleneck's
+        (``apply_mc``)."""
+        skips, h = enc, enc.pop()
+        pl_, span = self.packed_levels, trace.span
         packed = False
         for lvl, up, c1, c2 in self.sites.decoder:
             skip = skips[lvl]
@@ -469,6 +528,9 @@ class UNetS2DInference:
                        skip.shape[2] - h4.shape[2])
                 with span("fwd", c1):
                     h4 = self._dual(p, c1, skip, h4, off)
+                if mc is not None and lvl == 0:
+                    with span("fwd", c2, "+mc_head"):
+                        return self._mc_head(p, c2, h4, mc)
                 if head and lvl == 0:
                     with span("fwd", c2, "+head"):
                         return self._head_conv(p, c2, h4)

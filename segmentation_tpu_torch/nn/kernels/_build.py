@@ -37,10 +37,13 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_U = ctypes.c_uint32
 # C signatures of csrc/*.cu (every kernel entry returns its cudaError_t)
 _SIGNATURES = {
     "seg_packed_conv2x2": [_P] * 9 + [_I] * 7 + [_P],
-    "seg_packed_conv2x2_dual": [_P] * 6 + [_I] * 11 + [_P],
+    "seg_packed_conv2x2_mc_head": [_P] * 6 + [_I] * 7 + [_U, _U, _I, _I,
+                                                         _F, _P],
+    "seg_packed_conv2x2_dual": [_P] * 6 + [_I] * 12 + [_P],
     "seg_strided_conv4x4s2": [_P] * 4 + [_I] * 7 + [_P],
     "seg_strided_conv4x4s2_requant": [_P] * 5 + [_I] * 7 + [_P],
     "seg_rows_matmul": [_P] * 4 + [_I] * 8 + [_P],
@@ -53,7 +56,9 @@ _SIGNATURES = {
     "seg_std_conv3x3_dual_s8": [_P] * 8 + [_I] * 9 + [_F] * 3 + [_I] * 2
     + [_P],
     "seg_std_conv3x3": [_P] * 4 + [_I] * 9 + [_P],
-    "seg_std_conv3x3_dual": [_P] * 6 + [_I] * 13 + [_P],
+    "seg_std_conv3x3_dual": [_P] * 6 + [_I] * 14 + [_P],
+    "seg_mc_fanout": [_P] * 2 + [_I] * 5 + [_U, _U, _I, _F, _P],
+    "seg_mc_moments": [_P] * 4 + [_I] * 4 + [_P],
     "seg_entry_chain": [_P] * 9 + [_I] * 5 + [_P],
     "seg_packed_conv2x2_dgrad": [_P] * 5 + [_I] * 13 + [_P],
     "seg_packed_tap_grad": [_P] * 5 + [_I] * 8 + [_P] * 2,

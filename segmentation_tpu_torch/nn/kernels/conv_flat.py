@@ -18,6 +18,20 @@ There is no fallback from a failed launch. Each launch adds one to
   H8 std_conv3x3_dual    the std decoder's concat-free first conv: the skip
                          cropped in its loads, one f32 accumulator
 
+and the Bayesian U-Net's MC-dropout forward (csrc/mc_dropout.cu, H1's MC
+head), their masks drawn in the kernels from nn/mc_mask.py's stream:
+
+     mc_fanout              the bottleneck's dropout, B images → S·B
+                            masked copies (image s·B + n)
+  H1 packed_conv2x2_mc_head conv9_2 + the decoder-end dropout + the
+                            two-class head + sigmoid, f32 probabilities
+     mc_moments             mean, variance and argmax over the S samples,
+                            unpacked
+
+Both duals take a skip batch that divides the up batch (up image i reads
+skip image i mod the skip's batch): the MC decoder runs at S·B over the
+encoder's B skips, which are never copied.
+
 They replace the Pallas kernels of segmentation_tpu/nn/pallas/conv_flat.py
 (padded-flat and paired-column layouts, which exist for the TPU's tiles);
 every kernel here reads and writes plain NHWC. Every op ends in bias +
@@ -46,6 +60,7 @@ from typing import Callable, NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from segmentation_tpu_torch.nn import mc_mask
 from segmentation_tpu_torch.nn.kernels import _build
 from segmentation_tpu_torch.nn.kernels._build import (
     _on_cpu,
@@ -77,9 +92,12 @@ from segmentation_tpu_torch.nn.packing import crop_packed, unpack2
 
 NAMES = ("packed_conv2x2", "packed_conv2x2_dual", "strided_conv4x4s2",
          "rows_matmul", "packed_conv2x2_pool_index", "std_conv3x3",
-         "std_conv3x3_dual")
+         "std_conv3x3_dual", "packed_conv2x2_mc_head", "mc_fanout",
+         "mc_moments")
 # the training route's modes, which no server runs
 TRAIN_ONLY = ("packed_conv2x2_pool_index",)
+# the MC-dropout forward's kernels, which no deterministic server runs
+MC_ONLY = ("packed_conv2x2_mc_head", "mc_fanout", "mc_moments")
 launches = dict.fromkeys(NAMES, 0)
 
 
@@ -141,9 +159,29 @@ def packed_conv2x2_plain(x, w2, b4, *, pool=False, pool_index=False,
     return outs[0] if len(outs) == 1 else tuple(outs)
 
 
+def _skip_batch(name, skip, up):
+    """The skip's batch, which divides up's (up image i reads skip image i
+    mod it)."""
+    ns, n = skip.shape[0], up.shape[0]
+    if ns < 1 or n % ns:
+        raise ValueError(f"{name}: the skip's batch {ns} does not divide "
+                         f"the up batch {n}")
+    return ns
+
+
+def _add_broadcast(acc_up, acc_skip):
+    """acc_up [n, ...] + acc_skip [ns, ...], image i of up with image i mod
+    ns of the skip."""
+    ns = acc_skip.shape[0]
+    return (acc_up.view(-1, ns, *acc_up.shape[1:])
+            + acc_skip.unsqueeze(0)).view(acc_up.shape)
+
+
 def packed_conv2x2_dual_plain(skip, up, w2a, w2b, b4, *, offset):
-    sk = crop_packed(skip, up.shape, offset)
-    acc = _conv_nhwc(sk, w2a, 1).float() + _conv_nhwc(up, w2b, 1).float()
+    _skip_batch("packed_conv2x2_dual", skip, up)
+    sk = crop_packed(skip, (skip.shape[0], *up.shape[1:]), offset)
+    acc = _add_broadcast(_conv_nhwc(up, w2b, 1).float(),
+                         _conv_nhwc(sk, w2a, 1).float())
     return _epilogue(acc, b4, up.dtype)
 
 
@@ -176,13 +214,59 @@ def _std_crop_ok(name, skip, up, offset):
 
 def std_conv3x3_dual_plain(skip, up, wa, wb, b, *, offset):
     """H8 bf16 dual's function: conv(crop(skip), wa) + conv(up, wb) summed
-    in f32, the skip read at the crop origin ``offset``; + b, ReLU, one
-    rounding to up's dtype."""
+    in f32, the skip read at the crop origin ``offset`` (up image i reads
+    skip image i mod the skip's batch); + b, ReLU, one rounding to up's
+    dtype."""
     _std_crop_ok("std_conv3x3_dual", skip, up, offset)
+    _skip_batch("std_conv3x3_dual", skip, up)
     oh, ow = offset
     sk = skip[:, oh : oh + up.shape[1], ow : ow + up.shape[2]]
-    acc = _conv_nhwc(sk.float(), wa, 1) + _conv_nhwc(up.float(), wb, 1)
+    acc = _add_broadcast(_conv_nhwc(up.float(), wb, 1),
+                         _conv_nhwc(sk.float(), wa, 1))
     return _epilogue(acc, b, up.dtype)
+
+
+def mc_fanout_plain(x, *, seed, samples, rate):
+    """x [B, H, W, C] → [samples · B, H, W, C] in x's dtype: image s·B + n
+    is x[n] times the bottleneck stream (seed, s, n)'s mask, rounded
+    once."""
+    b = x.shape[0]
+    m = mc_mask.batch_multiplier(seed, mc_mask.SITES["bottleneck"], samples,
+                                 b, x.shape[1:], rate, x.device)
+    return (x.float().repeat(samples, 1, 1, 1) * m).to(x.dtype)
+
+
+def packed_conv2x2_mc_head_plain(x, w2, b4, wh, bh, *, seed, tiles, rate):
+    """H1's MC head: y = relu(conv(x, w2) + b4), the f32 sum rounded once
+    to x's dtype; the decoder-end dropout of each unpacked element of
+    image i (sample i // tiles of tile i % tiles); then the two logits of
+    each slot, f32 sums of the head's operands (y in x's dtype, wh [O, 2]
+    in its own), + bh [2] f32, and their sigmoids: [N, hp-1, wp-1, 8] f32,
+    slot-major (class 0, class 1) pairs."""
+    y = _epilogue(_conv_nhwc(x.float(), w2, 1), b4, x.dtype)
+    n, hp, wp, o4 = y.shape
+    if n % tiles:
+        raise ValueError(f"packed_conv2x2_mc_head: {n} images are not "
+                         f"samples of {tiles} tiles")
+    o = o4 // 4
+    m = mc_mask.batch_multiplier(seed, mc_mask.SITES["head"], n // tiles,
+                                 tiles, (2 * hp, 2 * wp, o), rate, x.device)
+    yd = unpack2(y.float().view(n, hp, wp, 4, o)) * m
+    logits = yd @ wh.float() + bh.float()
+    probs = torch.sigmoid(logits).view(n, hp, 2, wp, 2, 2)
+    return probs.permute(0, 1, 3, 2, 4, 5).reshape(n, hp, wp, 8)
+
+
+def mc_moments_plain(probs, *, tiles):
+    """probs [S · B, hp, wp, 8] f32 (slot-major class pairs) → (mean, var
+    [B, 2hp, 2wp, 2] f32, the argmax of the mean [B, 2hp, 2wp] u8): over
+    the S samples of each tile, the population variance (jnp.var's)."""
+    n, hp, wp, _ = probs.shape
+    p = unpack2(probs.float().view(n, hp, wp, 4, 2))
+    p = p.view(n // tiles, tiles, 2 * hp, 2 * wp, 2)
+    mean = p.mean(0)
+    var = ((p - mean) ** 2).mean(0)
+    return mean, var, mean.argmax(-1).to(torch.uint8)
 
 
 # ------------------------------------------------------------ kernel wrappers
@@ -300,14 +384,16 @@ def packed_conv2x2(x, w2, b4, *, pool=False, pool_index=False, head=None,
 
 
 def packed_conv2x2_dual(skip, up, w2a, w2b, b4, *, offset: Tuple[int, int]):
-    """H2: skip [N,hpa,wpa,4C], up [N,hp,wp,4C] → [N,hp-1,wp-1,4O] =
+    """H2: skip [Ns,hpa,wpa,4C], up [N,hp,wp,4C] → [N,hp-1,wp-1,4O] =
     conv(crop(skip), w2a) + conv(up, w2b) + b4, the skip cropped at the
-    UNPACKED offset ``offset`` (even: a packed slice; odd: a slot phase)."""
+    UNPACKED offset ``offset`` (even: a packed slice; odd: a slot phase);
+    Ns divides N, up image i reading skip image i mod Ns (in place)."""
     if _on_cpu(up):
         return packed_conv2x2_dual_plain(skip, up, w2a, w2b, b4,
                                          offset=offset)
     n, hp, wp, c4 = up.shape
-    _, hpa, wpa, _ = skip.shape
+    ns, hpa, wpa, _ = skip.shape
+    _skip_batch("packed_conv2x2_dual", skip, up)
     o4 = w2a.shape[-1]
     oh, ow = (int(v) for v in offset)
     dev = up.device
@@ -320,7 +406,7 @@ def packed_conv2x2_dual(skip, up, w2a, w2b, b4, *, offset: Tuple[int, int]):
                          f"{tuple(skip.shape)} does not cover "
                          f"{tuple(up.shape)}")
     _require(up, "up", torch.bfloat16, up.shape, dev)
-    _require(skip, "skip", torch.bfloat16, (n, hpa, wpa, c4), dev)
+    _require(skip, "skip", torch.bfloat16, (ns, hpa, wpa, c4), dev)
     _require(w2a, "w2a", torch.bfloat16, (2, 2, c4, o4), dev)
     _require(w2b, "w2b", torch.bfloat16, (2, 2, c4, o4), dev)
     _require(b4, "b4", torch.float32, (o4,), dev)
@@ -330,7 +416,7 @@ def packed_conv2x2_dual(skip, up, w2a, w2b, b4, *, offset: Tuple[int, int]):
     with torch.cuda.device(dev):
         err = _build.library().seg_packed_conv2x2_dual(
             _ptr(skip), _ptr(up), _ptr(w2a), _ptr(w2b), _ptr(b4), _ptr(y),
-            n, hpa, wpa, hp, wp, c4, o4, oh, ow, plan.th, plan.tw,
+            n, ns, hpa, wpa, hp, wp, c4, o4, oh, ow, plan.th, plan.tw,
             _stream(up),
         )
     _check_o4(err, "packed_conv2x2_dual", o4)
@@ -447,21 +533,23 @@ def std_conv3x3(x, w, b):
 
 
 def std_conv3x3_dual(skip, up, wa, wb, b, *, offset: Tuple[int, int]):
-    """H8 bf16 dual: skip [N,hs,ws,C], up [N,H,W,C] bf16 → relu(conv(crop(
+    """H8 bf16 dual: skip [Ns,hs,ws,C], up [N,H,W,C] bf16 → relu(conv(crop(
     skip), wa) + conv(up, wb) + b) [N,H-2,W-2,O] bf16, the skip read at the
-    crop origin ``offset`` (no copy); wa, wb [3,3,C,O] the skip's and up's
-    halves of the concat weight (views, equal strides); b [O] f32."""
+    crop origin ``offset`` (no copy; Ns divides N, up image i reading skip
+    image i mod Ns); wa, wb [3,3,C,O] the skip's and up's halves of the
+    concat weight (views, equal strides); b [O] f32."""
     if _on_cpu(up):
         return std_conv3x3_dual_plain(skip, up, wa, wb, b, offset=offset)
     n, h, wd, c = up.shape
-    _, hs, ws, _ = skip.shape
+    ns, hs, ws, _ = skip.shape
+    _skip_batch("std_conv3x3_dual", skip, up)
     o = wa.shape[-1]
     oh, ow = (int(v) for v in offset)
     dev = up.device
     _std_shape_ok("std_conv3x3_dual", up, o)
     _std_crop_ok("std_conv3x3_dual", skip, up, (oh, ow))
     _require(up, "up", torch.bfloat16, up.shape, dev)
-    _require(skip, "skip", torch.bfloat16, (n, hs, ws, c), dev)
+    _require(skip, "skip", torch.bfloat16, (ns, hs, ws, c), dev)
     _std_weight(wa, "wa", c, o, dev)
     _std_weight(wb, "wb", c, o, dev)
     if wa.stride() != wb.stride():
@@ -474,19 +562,108 @@ def std_conv3x3_dual(skip, up, wa, wb, b, *, offset: Tuple[int, int]):
     with torch.cuda.device(dev):
         err = _build.library().seg_std_conv3x3_dual(
             _ptr(skip), _ptr(up), _ptr(wa), _ptr(wb), _ptr(b), _ptr(y), n,
-            hs, ws, h, wd, c, o, oh, ow, wa.stride(1), wa.stride(0), plan.th,
-            plan.tw, _stream(up),
+            ns, hs, ws, h, wd, c, o, oh, ow, wa.stride(1), wa.stride(0),
+            plan.th, plan.tw, _stream(up),
         )
     _build.check(err, "std_conv3x3_dual")
     launches["std_conv3x3_dual"] += 1
     return y
 
 
+def mc_fanout(x, *, seed: int, samples: int, rate: float):
+    """x [B, H, W, C] bf16 (C % 8 == 0) → [samples · B, H, W, C] bf16:
+    image s·B + n is x[n] dropped by the bottleneck stream (seed, s, n),
+    the mask drawn in the kernel (csrc/mc_dropout.cu)."""
+    if _on_cpu(x):
+        return mc_fanout_plain(x, seed=seed, samples=samples, rate=rate)
+    b, h, w, c = x.shape
+    dev = x.device
+    if c % 8 or samples < 1:
+        raise ValueError(f"mc_fanout: bad input shape {tuple(x.shape)} (C % "
+                         f"8 == 0) or samples {samples}")
+    _require(x, "x", torch.bfloat16, x.shape, dev)
+    aligned("mc_fanout", x)
+    lo, hi = mc_mask.split_seed(seed)
+    thr = mc_mask.threshold(rate)
+    y = torch.empty((samples * b, h, w, c), dtype=torch.bfloat16, device=dev)
+    with torch.cuda.device(dev):
+        err = _build.library().seg_mc_fanout(
+            _ptr(x), _ptr(y), b, h, w, c, samples, lo, hi, thr,
+            mc_mask.keep_scale(rate), _stream(x))
+    _build.check(err, "mc_fanout")
+    launches["mc_fanout"] += 1
+    return y
+
+
+def packed_conv2x2_mc_head(x, w2, b4, wh, bh, *, seed: int, tiles: int,
+                           rate: float):
+    """H1's MC head: x [N,hp,wp,4C] bf16, w2 [2,2,4C,4O] bf16, b4 [4O] f32,
+    the head wh [O, 2] bf16 and bh [2] f32 → the sigmoid probabilities
+    [N,hp-1,wp-1,8] f32 (slot-major class pairs) of the conv's output
+    dropped by the decoder-end stream (seed, i // tiles, i % tiles) of
+    image i; 4O = 128 or 256 (``packed_conv2x2_mc_head_plain``'s
+    function)."""
+    if _on_cpu(x):
+        return packed_conv2x2_mc_head_plain(x, w2, b4, wh, bh, seed=seed,
+                                            tiles=tiles, rate=rate)
+    n, hp, wp, c4 = x.shape
+    o4 = w2.shape[-1]
+    dev = x.device
+    _o4_ok(o4, "packed_conv2x2_mc_head", (128, 256))
+    if c4 % 8 or hp < 2 or wp < 2 or tiles < 1 or n % tiles:
+        raise ValueError(f"packed_conv2x2_mc_head: bad input shape "
+                         f"{tuple(x.shape)} for {tiles} tiles")
+    _require(x, "x", torch.bfloat16, x.shape, dev)
+    _require(w2, "w2", torch.bfloat16, (2, 2, c4, o4), dev)
+    _require(b4, "b4", torch.float32, (o4,), dev)
+    _require(wh, "wh", torch.bfloat16, (o4 // 4, 2), dev)
+    _require(bh, "bh", torch.float32, (2,), dev)
+    aligned("packed_conv2x2_mc_head", x, w2, b4, wh, bh)
+    lo, hi = mc_mask.split_seed(seed)
+    plan = _fwd_plan(n, hp - 1, wp - 1, o4)
+    probs = torch.empty((n, hp - 1, wp - 1, 8), dtype=torch.float32,
+                        device=dev)
+    with torch.cuda.device(dev):
+        err = _build.library().seg_packed_conv2x2_mc_head(
+            _ptr(x), _ptr(w2), _ptr(b4), _ptr(wh), _ptr(bh), _ptr(probs), n,
+            hp, wp, c4, o4, plan.th, plan.tw, lo, hi, tiles,
+            mc_mask.threshold(rate), mc_mask.keep_scale(rate), _stream(x))
+    _build.check(err, "packed_conv2x2_mc_head")
+    launches["packed_conv2x2_mc_head"] += 1
+    return probs
+
+
+def mc_moments(probs, *, tiles: int):
+    """probs [S · B, hp, wp, 8] f32 → (mean, var [B, 2hp, 2wp, 2] f32,
+    map [B, 2hp, 2wp] u8), unpacked in the same pass
+    (``mc_moments_plain``'s function; csrc/mc_dropout.cu)."""
+    if _on_cpu(probs):
+        return mc_moments_plain(probs, tiles=tiles)
+    n, hp, wp, k = probs.shape
+    dev = probs.device
+    if k != 8 or tiles < 1 or n % tiles:
+        raise ValueError(f"mc_moments: bad input shape {tuple(probs.shape)} "
+                         f"for {tiles} tiles")
+    _require(probs, "probs", torch.float32, probs.shape, dev)
+    shape = (tiles, 2 * hp, 2 * wp)
+    mean = torch.empty(shape + (2,), dtype=torch.float32, device=dev)
+    var = torch.empty(shape + (2,), dtype=torch.float32, device=dev)
+    cmap = torch.empty(shape, dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        err = _build.library().seg_mc_moments(
+            _ptr(probs), _ptr(mean), _ptr(var), _ptr(cmap), tiles, hp, wp,
+            n // tiles, _stream(probs))
+    _build.check(err, "mc_moments")
+    launches["mc_moments"] += 1
+    return mean, var, cmap
+
+
 class Ops(NamedTuple):
     """The ops a model runs through: the four packed-site forward ops, H8's
-    bf16 std-level convs (serving's and training's), and what training
-    runs besides: the input and weight grads of the 2×2 sites (H6, H9,
-    conv_bwd.py) and the glue of every site's backward (train_glue.py)."""
+    bf16 std-level convs (serving's and training's), what training runs
+    besides: the input and weight grads of the 2×2 sites (H6, H9,
+    conv_bwd.py) and the glue of every site's backward (train_glue.py),
+    and the MC-dropout forward's fan-out, head and moments."""
 
     packed_conv2x2: Callable
     packed_conv2x2_dual: Callable
@@ -499,15 +676,20 @@ class Ops(NamedTuple):
     std_conv3x3_dual: Callable
     packed_conv2x2_wgrad: Callable
     packed_conv2x2_wgrad_dual: Callable
+    mc_fanout: Callable
+    packed_conv2x2_mc_head: Callable
+    mc_moments: Callable
 
 
 KERNEL_OPS = Ops(packed_conv2x2, packed_conv2x2_dual, strided_conv4x4s2,
                  rows_matmul, packed_conv2x2_dgrad, packed_conv2x2_dgrad_dual,
                  relu_bias_grad, std_conv3x3, std_conv3x3_dual,
-                 packed_conv2x2_wgrad, packed_conv2x2_wgrad_dual)
+                 packed_conv2x2_wgrad, packed_conv2x2_wgrad_dual, mc_fanout,
+                 packed_conv2x2_mc_head, mc_moments)
 PLAIN_OPS = Ops(packed_conv2x2_plain, packed_conv2x2_dual_plain,
                 strided_conv4x4s2_plain, rows_matmul_plain,
                 packed_conv2x2_dgrad_plain, packed_conv2x2_dgrad_dual_plain,
                 relu_bias_grad_plain, std_conv3x3_plain,
                 std_conv3x3_dual_plain, conv2x2_wgrad,
-                conv2x2_wgrad_dual_plain)
+                conv2x2_wgrad_dual_plain, mc_fanout_plain,
+                packed_conv2x2_mc_head_plain, mc_moments_plain)
